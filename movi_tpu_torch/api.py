@@ -1,0 +1,134 @@
+"""High-level API, the PML surface of movi_tpu/api.py.
+
+    from movi_tpu_torch import Index
+
+    index = Index.build("ref.fasta")                    # or Index.load(dir)
+    index.save("idx_dir")
+    res = index.query_pml(reads)                        # [(name, pmls)]
+
+Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
+device passed in (default CUDA; without a card that raises unless the
+caller names the CPU).  Only PML is ported so far: the other query
+methods of the JAX API are absent.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence, Tuple, Union
+
+from movi_tpu.build.prepare_ref import prepare_ref
+from movi_tpu.build.suffix import build_bwt_runs
+from movi_tpu.index.structure import MoveIndex, build_move_index
+from movi_tpu.io.fastx import batches_from_file, make_batches
+
+from .convert import load_engine_caches
+from .device import DeviceLike, resolve_device
+from .engine.fused import (FusedPMLEngine, build_fused_index, is_bounded,
+                           save_fused_index)
+from .engine.fused2 import (Fused2PMLEngine, build_fused2_index,
+                            save_fused2_index)
+from .engine.select import pick_backend
+
+Reads = Union[str, Sequence[Tuple[str, bytes]]]
+
+
+def _as_batches(reads: Reads, lanes: int):
+    """Batches as wide as their longest read: the kernels take any width,
+    so the JAX package's width buckets (which bound its jit compiles)
+    would only add padded steps to every lane."""
+    if isinstance(reads, (str, os.PathLike)):
+        yield from batches_from_file(str(reads), lanes=lanes,
+                                     bucket_widths=False)
+    else:
+        yield from make_batches(list(reads), lanes=lanes,
+                                bucket_widths=False)
+
+
+class Index:
+    def __init__(self, ix: MoveIndex):
+        self.ix = ix
+        self._fused = None    # FusedIndex (host or device tensors)
+        self._paired = None   # Fused2Index
+        self._bounded = None
+
+    @classmethod
+    def build(cls, fasta: Union[str, Sequence[str]],
+              mode: str = "regular-thresholds", rc: bool = True,
+              separators: bool = False, bound_ff: Optional[int] = 1,
+              ) -> "Index":
+        ref = prepare_ref(fasta, rc=rc, separators=separators)
+        ix = build_move_index(build_bwt_runs(ref.text), mode,
+                              separators=separators, bound_ff=bound_ff)
+        return cls(ix)
+
+    def save(self, index_dir: str, engine_caches: bool = True):
+        """index.npz plus the record caches, in the JAX package's formats
+        (either package loads what the other saved)."""
+        os.makedirs(index_dir, exist_ok=True)
+        self.ix.save(os.path.join(index_dir, "index.npz"))
+        if not engine_caches:
+            return
+        if self._fused is None and self._pml_ported():
+            self._fused = build_fused_index(self.ix)
+        if self._fused is not None:
+            save_fused_index(self._fused,
+                             os.path.join(index_dir, "fused_records.npz"))
+        if self._paired is not None:
+            save_fused2_index(self._paired,
+                              os.path.join(index_dir, "paired_records.npz"))
+
+    @classmethod
+    def load(cls, index_dir: str, ix: Optional[MoveIndex] = None
+             ) -> "Index":
+        """The index of `index_dir` with its record caches.  `ix` is the
+        index already loaded by another loader (the CLI's, which also
+        reads reference-built index.movi files); by default index.npz."""
+        if ix is None:
+            ix = MoveIndex.load(os.path.join(index_dir, "index.npz"))
+        self = cls(ix)
+        self._fused, self._paired = load_engine_caches(index_dir)
+        return self
+
+    def _pml_ported(self) -> bool:
+        if self._bounded is None:
+            self._bounded = is_bounded(self.ix)
+        return self.ix.thr is not None and self._bounded
+
+    def engine(self, paired: Optional[bool] = None,
+               device: DeviceLike = None):
+        """The PML engine on `device`: paired=True forces the paired
+        records, False the one-step layout, None picks by capacity."""
+        if not self._pml_ported():
+            raise NotImplementedError(
+                "PML on an index without thresholds or not built with "
+                "bound_ff=1 (the compact engine) is not yet ported")
+        dev = resolve_device(device)
+        backend = pick_backend(self.ix.r, self.ix.sigma,
+                               force_paired=paired, device=dev)
+        if backend == "compact":
+            raise NotImplementedError(
+                f"index (r={self.ix.r}) exceeds the device's record-table "
+                f"budget; the compact engine is not yet ported")
+        if self._fused is None:
+            self._fused = build_fused_index(self.ix)
+        self._fused = self._fused.to(dev)
+        if backend == "paired":
+            if self._paired is None:
+                self._paired = build_fused2_index(self._fused)
+            self._paired = self._paired.to(dev)
+            return Fused2PMLEngine(self._paired, dev)
+        return FusedPMLEngine(self._fused, dev)
+
+    def query_pml(self, reads: Reads, lanes: int = 8192,
+                  paired: Optional[bool] = None, device: DeviceLike = None):
+        """[(name, pmls)] with pmls in processing (right-to-left) order."""
+        eng = self.engine(paired, device)
+        out = []
+        for batch in _as_batches(reads, lanes):
+            out.extend(zip(batch.names, eng.query_batch(batch)))
+        return out
+
+
+def build_index(fasta, **kw) -> Index:
+    return Index.build(fasta, **kw)

@@ -1,0 +1,160 @@
+"""movi_tpu_torch command-line interface: `query --pml` on the port.
+
+    python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
+        [--classify | --filter [--invert]] [--stdout] [--platform cpu]
+
+Mirrors the PML branch of movi_tpu/cli.py `query` (index loading, the
+classifier, the stdout/BPF/report writers), sharing its host helpers; the
+record caches and the layout choice are `api.Index`'s.
+Indexes are built with `python -m movi_tpu.cli build`.  Other query types,
+and indexes the fused engines cannot run (no thresholds, or not built with
+bound_ff=1), are not yet ported: asking for them is an error, never a
+fallback to another engine.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from movi_tpu.cli import _apply_ignore_illegal, _load_index, _paired_force
+from movi_tpu.commons import error, info, timing
+
+_NOT_PORTED = ("zml", "count", "mem", "kmer", "kmer_count")
+
+
+class NotPortedError(NotImplementedError):
+    pass
+
+
+def cmd_query(args):
+    from movi_tpu.io.fastx import iter_fastx
+    from movi_tpu.io.outputs import BPFWriter, pml_stdout_lines
+
+    from .api import Index
+    from .device import resolve_device
+
+    asked = [q for q in _NOT_PORTED if getattr(args, q)]
+    if asked:
+        raise NotPortedError(
+            f"--{asked[0].replace('_', '-')} is not yet ported to "
+            f"movi_tpu_torch (only --pml)")
+    if not args.pml:
+        raise SystemExit("specify --pml")
+    device = resolve_device("cuda" if args.platform == "gpu" else "cpu")
+
+    ix = _load_index(args.index)
+    qt = "pml"
+    reads = list(iter_fastx(args.read))
+    if args.reverse:
+        reads = [(n, s[::-1]) for n, s in reads]
+    if args.ignore_illegal_chars:
+        # host-side substitution before batching, drawn in the scalar
+        # engine's order so the output equals ScalarEngine's
+        reads = _apply_ignore_illegal(ix, reads, args.ignore_illegal_chars)
+
+    index = Index.load(args.index, ix=ix)
+    results = index.query_pml(reads, lanes=args.lanes,
+                              paired=_paired_force(args), device=device)
+
+    classifier = None
+    report_lines = []
+    found_list = []  # positional, aligned with reads/results
+    if args.classify:
+        from movi_tpu.classify import (Classifier, EmpNullDatabase,
+                                       format_report_header)
+
+        db = EmpNullDatabase.load(os.path.join(args.index,
+                                               f"movi.{qt}.nulldb"))
+        classifier = Classifier(db, bin_width=args.bin_width)
+        report_lines.append(format_report_header(classifier.max_value_thr))
+
+    out_prefix = (args.out_file if args.out_file
+                  else f"{args.read}.{ix.mode}") + f".{qt}"
+    lines_out = []
+    for name, res in results:
+        if classifier:
+            from movi_tpu.classify import format_report_line
+
+            found, avg, above, below = classifier.classify(res)
+            found_list.append(found)
+            report_lines.append(
+                format_report_line(name, found, avg, above, below))
+        if args.stdout:
+            lines_out.extend(pml_stdout_lines(name, res))
+
+    if args.filter and classifier:
+        for (name, seq), f in zip(reads, found_list):
+            if f != args.invert:
+                print(f">{name}")
+                print(seq.decode())
+    elif args.stdout:
+        for ln in lines_out:
+            print(ln)
+    else:
+        with BPFWriter(out_prefix + ".bpf") as w:
+            for name, res in results:
+                w.write_read(name, res)
+        info(f"wrote {out_prefix}.bpf")
+
+    if classifier and not args.filter:
+        if args.stdout:
+            for ln in report_lines:
+                print(ln)
+        else:
+            rpath = f"{args.read}.{ix.mode}.{qt}.report"
+            with open(rpath, "w") as f:
+                for ln in report_lines:
+                    f.write(ln + "\n")
+            info(f"wrote {rpath}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="movi-tpu-torch",
+        description="PyTorch/CUDA port of movi_tpu (PML queries)")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    q = sub.add_parser("query")
+    q.add_argument("--index", "-i", required=True)
+    q.add_argument("--read", "-r", required=True)
+    q.add_argument("--pml", action="store_true")
+    # accepted so that asking for them says they are not yet ported
+    for flag in _NOT_PORTED:
+        q.add_argument("--" + flag.replace("_", "-"), action="store_true",
+                       help=argparse.SUPPRESS)
+    q.add_argument("--classify", action="store_true")
+    q.add_argument("--filter", action="store_true")
+    q.add_argument("--invert", action="store_true")
+    q.add_argument("--stdout", action="store_true")
+    q.add_argument("--reverse", action="store_true")
+    q.add_argument("--bin-width", type=int, default=150)
+    q.add_argument("--out-file", "-o", default="")
+    q.add_argument("--lanes", type=int, default=8192)
+    q.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
+                   help="gpu runs the CUDA kernels (the default; raises "
+                        "without a card), cpu the plain PyTorch versions")
+    q.add_argument("--paired-records", action="store_true",
+                   help="force the paired two-base records")
+    q.add_argument("--no-paired-records", action="store_true",
+                   help="force the one-step records")
+    q.add_argument("--ignore-illegal-chars", type=int, default=0,
+                   choices=[0, 1, 2],
+                   help="0=off, 1=replace with 'A', 2=replace with a "
+                        "random base")
+    q.set_defaults(func=cmd_query)
+
+    args = p.parse_args(argv)
+    if args.filter:
+        args.classify = True
+    try:
+        with timing(args.command):
+            args.func(args)
+    except (AssertionError, ValueError, FileNotFoundError, RuntimeError,
+            NotImplementedError) as e:
+        error(str(e))
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,71 @@
+// Kernel 1: the one-step PML scan.
+//
+// Replaces movi_tpu/engine/fused.py fused_pml_step + fused_step_math under
+// _fused_pml_scan and _fused_pml_scan_carry (one lax.scan per batch).
+//
+// Bound on this card: the latency of one dependent random 8 B load per
+// base per lane.  Each step's record address depends on the previous
+// step's run id, and the one-step table of a real index (about 200 MB at
+// five million runs) is past the 50 MB L2, so every step waits on device
+// memory.  Design: one thread per read lane with (idx, off, ml) held in
+// registers and the loop over the W bases inside the kernel, so a batch is
+// one launch; latency is hidden by the number of lanes in flight, not by
+// anything within a lane.  The per-step slot loads (uint8) and ml stores
+// (int32) are coalesced across the lanes of a warp.  State comes in and
+// goes out, so a scan split into pieces equals one pass over the width.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "records.cuh"
+
+namespace {
+
+__global__ void fused_pml_scan_kernel(
+    const int2* __restrict__ records, const uint8_t* __restrict__ alphas,
+    int W, int lanes, int slots, int pd_run, int pd_off,
+    const int* __restrict__ idx_in, const int* __restrict__ off_in,
+    const int* __restrict__ ml_in, int* __restrict__ idx_out,
+    int* __restrict__ off_out, int* __restrict__ ml_state_out,
+    int* __restrict__ ml) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= lanes) return;
+    int idx = idx_in[lane];
+    int off = off_in[lane];
+    int m = ml_in[lane];
+    for (int t = 0; t < W; ++t) {
+        const size_t at = (size_t)t * lanes + lane;
+        const int a = alphas[at];
+        const movi::Step1 f =
+            movi::decode1(records[(int64_t)idx * slots + a]);
+        int nidx, noff;
+        movi::step1(f, off, pd_run, pd_off, nidx, noff);
+        idx = nidx;
+        off = noff;
+        m = f.match ? m + 1 : 0;
+        ml[at] = m;
+    }
+    idx_out[lane] = idx;
+    off_out[lane] = off;
+    ml_state_out[lane] = m;
+}
+
+}  // namespace
+
+extern "C" int movi_fused_pml_scan(
+    const void* records, const void* alphas, int W, int lanes, int slots,
+    int pd_run, int pd_off, const void* idx_in, const void* off_in,
+    const void* ml_in, void* idx_out, void* off_out, void* ml_state_out,
+    void* ml, void* stream) {
+    const int block = 256;
+    const int grid = (lanes + block - 1) / block;
+    if (grid > 0) {
+        fused_pml_scan_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const int2*)records, (const uint8_t*)alphas, W, lanes, slots,
+            pd_run, pd_off, (const int*)idx_in, (const int*)off_in,
+            (const int*)ml_in, (int*)idx_out, (int*)off_out,
+            (int*)ml_state_out, (int*)ml);
+    }
+    return (int)cudaGetLastError();
+}
