@@ -3,19 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from movi_tpu_torch/csrc, checks each one
-against its plain PyTorch version on the card, drives the PML main path
-(`Index.query_pml`, both record layouts, and `python -m
-movi_tpu_torch.cli query --pml --classify`) at a real index size, checks
-the answers against the scalar oracle, and prints timings with the card's
-name and power limit.  Phases:
+Builds the six CUDA kernels from movi_tpu_torch/csrc, checks each one
+against its plain PyTorch version on the card, drives the PML, count and
+ZML paths (`Index.query_pml`, `query_count` and `query_zml`, both record
+layouts each, and `python -m movi_tpu_torch.cli query`) at a real index
+size, checks the answers against the scalar oracle, and prints timings
+with the card's name and power limit.  Phases:
 
   1. device   the card, and its nvidia-smi name and power limit
   2. build    nvcc of the kernels; `make -C native` for the host SA-IS
   3. small    5,000-base index: each kernel equals its plain version on
-              the card (ml, carried state, the compose table); both
-              layouts equal ScalarEngine; kernel 3 on synthetic records
-              whose run ids pass 2^24 (w0's sign bit)
+              the card (ml or count, carried state, a scan split in two
+              equal to one pass, the compose tables); every layout of PML,
+              count and ZML equals ScalarEngine; kernel 3 on synthetic
+              records whose run ids pass 2^24 (w0's sign bit)
   4. full     bench.py's synthetic index (6 Mb random ACGT, seed 0,
               regular thresholds, bound_ff=1): 32,768 reads x 150 bp with
               1% substitutions (seed 42) plus 64 reads of 10 kb, through
@@ -27,8 +28,17 @@ name and power limit.  Phases:
               ran and of the compose, the scan rate against lanes, and
               where a warm query_pml's time goes (host stages, the
               device's busy and idle shares)
-  5. cli     the port's CLI on the card against an index that
-              `movi_tpu.cli build` made; its report equals --platform cpu
+  5. search   the same index and reads through Index.query_count and
+              query_zml, paired=False then paired=True (the paired search
+              compose runs on the card), counted apart from phase 4: the
+              two layouts agree, 256 sampled reads equal ScalarEngine,
+              kernels 4-6 equal their plain versions over all lanes and
+              the whole table, their timings, and a warm breakdown for
+              each (query, layout)
+  6. cli     the port's CLI on the card against an index that
+              `movi_tpu.cli build` made: the PML and ZML --classify
+              reports, the count .matches file and ZML --stdout equal
+              --platform cpu
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -62,7 +72,21 @@ CUDA_SOURCES = {
                                "movi_tpu/engine/fused2.py:96"),
     "fused2_pml_scan": ("movi_tpu_torch/csrc/fused2_pml.cu",
                         "movi_tpu/engine/fused2.py:355"),
+    "fused_count_scan": ("movi_tpu_torch/csrc/fused_search.cu",
+                         "movi_tpu/engine/fused_search.py:263"),
+    "fused_zml_scan": ("movi_tpu_torch/csrc/fused_search.cu",
+                       "movi_tpu/engine/fused_search.py:300"),
+    "compose_search2_records": ("movi_tpu_torch/csrc/compose_search2.cu",
+                                "movi_tpu/engine/fused_search2.py:101"),
+    "fused2_count_scan": ("movi_tpu_torch/csrc/fused_search2.cu",
+                          "movi_tpu/engine/fused_search2.py:383"),
+    "fused2_zml_scan": ("movi_tpu_torch/csrc/fused_search2.cu",
+                        "movi_tpu/engine/fused_search2.py:442"),
 }
+PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
+SEARCH_KERNELS = ("fused_count_scan", "fused_zml_scan",
+                  "compose_search2_records", "fused2_count_scan",
+                  "fused2_zml_scan")
 
 
 def say(phase, msg):
@@ -220,6 +244,126 @@ def phase_small(dev, errs):
                  "exactly")
 
 
+def require_search_equal(what, kernel_out, plain_out, errs, key):
+    """A search scan's (state [6, lanes], out) from the kernel and the
+    plain version must agree exactly."""
+    (st_k, out_k), (st_p, out_p) = kernel_out, plain_out
+    require_equal(f"{what} out", out_k, out_p, errs, key)
+    require_equal(f"{what} state", st_k, st_p, errs, key)
+
+
+def search_pair(kernel, plain, args, kw, what, errs, key, split=None):
+    """Run a search scan kernel and its plain version on the same inputs
+    (args, then the chars as args[-1]); with `split`, the kernel also
+    runs in two pieces carried through its state, which must equal one
+    pass.  Returns the plain version's milliseconds."""
+    import torch
+
+    got = kernel(*args, **kw)
+    want, plain_ms = timed_ms(lambda: plain(*args, **kw))
+    require_search_equal(what, got, want, errs, key)
+    if split is not None:
+        codes = args[-1]
+        st, out1 = kernel(*args[:-1], codes[:split], **kw)
+        st, out2 = kernel(*args[:-1], codes[split:], st)
+        if got[1].dim() == 2:  # ml rows: the pieces concatenate
+            require_equal(f"{what} split ml", torch.cat([out1, out2]),
+                          got[1], errs, key)
+        else:  # count: the last piece's count is the pass's
+            require_equal(f"{what} split count", out2, got[1], errs, key)
+        require_equal(f"{what} split state", st, got[0], errs, key)
+    return plain_ms
+
+
+def search_args(kind, s, batch, dev):
+    """(kernel, plain, args, kw) of each search scan for one batch: the
+    one-step index `s` for kind "count"/"zml", the paired one for
+    "count2"/"zml2", with the codes its engine prepares."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_search as ts
+    from movi_tpu_torch.engine import fused_search2 as ts2
+
+    if kind == "count":
+        codes = ts.FusedCountEngine(s, dev).prepare(batch)
+        return (kernels.fused_count_scan, ts.fused_count_scan_plain,
+                (s.rec_all, s.init_rec, s.all_p, s.r, s.sigma, codes), {})
+    if kind == "zml":
+        codes = ts.FusedZMLEngine(s, dev).prepare(batch)
+        return (kernels.fused_zml_scan, ts.fused_zml_scan_plain,
+                (s.rec_all, s.init_rec, s.r, s.sigma, codes), {})
+    if kind == "count2":
+        a0, pairs = ts2.Fused2CountEngine(s, dev).prepare(batch)
+        return (kernels.fused2_count_scan, ts2.fused2_count_scan_plain,
+                (s.rec_all, s.init_rec, s.all_p, s.r, s.sigma, pairs),
+                {"a0": a0})
+    codes = ts2.Fused2ZMLEngine(s, dev).prepare(batch)
+    return (kernels.fused2_zml_scan, ts2.fused2_zml_scan_plain,
+            (s.rec_all, s.init_rec, s.restart_rec, s.r, s.sigma, codes), {})
+
+
+SCAN_OF = {"count": "fused_count_scan", "zml": "fused_zml_scan",
+           "count2": "fused2_count_scan", "zml2": "fused2_zml_scan"}
+
+
+def compose_inputs(ix, dev):
+    """The paired search compose's inputs as int32 tensors on dev."""
+    import torch
+
+    nu, nd = ix.next_tables_search()
+    return [torch.from_numpy(np.asarray(x).astype(np.int32)).to(dev)
+            for x in (ix.id_arr, ix.offset_arr, ix.n_arr, nu, nd)]
+
+
+def check_search_oracle(what, reads, count, zml, oracle):
+    for (name, seq), (cn, c), (zn, z) in zip(reads, count, zml):
+        if cn != name or c != oracle.query_count(seq):
+            raise AssertionError(f"{what}: count of read {name} differs "
+                                 f"from ScalarEngine")
+        if zn != name or z != oracle.query_zml(seq):
+            raise AssertionError(f"{what}: ZML of read {name} differs "
+                                 f"from ScalarEngine")
+
+
+def phase_small_search(dev, errs):
+    from movi_tpu.cpu_ref.scalar import ScalarEngine
+    from movi_tpu.io.fastx import make_batches
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index
+    from movi_tpu_torch.engine import fused_search as ts
+    from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.testing import length_reads, mixed_reads, small_index
+
+    text, ix = small_index()
+    reads = mixed_reads(text) + length_reads(text)
+    oracle = ScalarEngine(ix)
+    batch = next(make_batches(reads, lanes=len(reads)))
+    si = ts.build_fused_search_index(ix).to(dev)
+
+    comp = compose_inputs(ix, dev)
+    table_k = kernels.compose_search2_records(*comp, ix.r, ix.sigma)
+    table_p = ts2.compose_search2_plain(*comp, ix.r, ix.sigma)
+    require_equal("small search compose table", table_k, table_p, errs,
+                  "compose_search2_records")
+    s2 = ts2.build_fused_search2_index(ix, dev)
+    for kind in SCAN_OF:
+        kern, plain, args, kw = search_args(kind, s2 if "2" in kind else si,
+                                            batch, dev)
+        # split at an odd step: one char past a pair boundary for the
+        # one-step scans, an odd pair count for the paired ones
+        search_pair(kern, plain, args, kw, f"small {kind}", errs,
+                    SCAN_OF[kind], split=args[-1].shape[0] // 2 | 1)
+
+    index = Index(ix)
+    for paired in (False, True):
+        check_search_oracle(
+            f"small paired={paired}", reads,
+            index.query_count(reads, paired=paired, device=dev),
+            index.query_zml(reads, paired=paired, device=dev), oracle)
+    say("small", f"r={ix.r}: kernels 4-6 equal plain (count, ml, state, a "
+                 f"scan split in two, the compose table) on {len(reads)} "
+                 f"reads; count and ZML in both layouts equal ScalarEngine")
+
+
 def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
                lanes=FULL_LANES, long_reads=LONG_READS, long_len=LONG_LEN):
     import torch
@@ -262,7 +406,7 @@ def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
     res_two = index.query_pml(reads, paired=True, device=dev)
     torch.cuda.synchronize()
     t_two = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = {k: kernels.launches[k] for k in PML_KERNELS}
     say("full", f"main-path launches {counts}")
     for name, n in counts.items():
         if n <= 0:
@@ -397,6 +541,143 @@ def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
                     f"({card})")
     say("full", f"peak device memory {torch.cuda.max_memory_allocated(dev)}"
                 f" B  ({card})")
+    return counts, dict(index=index, reads=reads, n_bases=n_bases,
+                        pick=pick, oracle=oracle)
+
+
+def phase_search(dev, card, errs, timings, ctx):
+    """Count and ZML on phase 4's index and reads, counted apart."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.engine import fused_search as ts
+    from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.engine.fused import trim
+
+    index, reads, n_bases = ctx["index"], ctx["reads"], ctx["n_bases"]
+    ix = index.ix
+    r, sigma = ix.r, ix.sigma
+    say("search", f"r={r}: one-step search table {32 * sigma * r} B, "
+                  f"paired search table {48 * sigma * sigma * r} B")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the count and ZML paths, counted: nothing else launches between
+    # reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for paired in (False, True):
+        for kind, query in (("count", index.query_count),
+                            ("zml", index.query_zml)):
+            t0 = time.perf_counter()
+            res[kind, paired] = query(reads, paired=paired, device=dev)
+            torch.cuda.synchronize()
+            walls[kind, paired] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in SEARCH_KERNELS}
+    say("search", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"count/ZML path")
+    for kind in ("count", "zml"):
+        if res[kind, False] != res[kind, True]:
+            raise AssertionError(f"{kind}: one-step and paired layouts "
+                                 f"disagree")
+    say("search", "cold end to end (host clock, " + str(n_bases)
+        + " bases): " + "; ".join(
+            f"{kind} {'paired incl. compose' if p else 'one-step'} "
+            f"{w:.3f} s = {n_bases / w:.6e} bases/s"
+            for (kind, p), w in walls.items()) + f"  ({card})")
+    pick = ctx["pick"]
+    check_search_oracle("full sample", [reads[i] for i in pick],
+                        [res["count", False][i] for i in pick],
+                        [res["zml", False][i] for i in pick], ctx["oracle"])
+    say("search", f"{len(pick)} sampled reads equal ScalarEngine (count "
+                  f"and ZML)")
+
+    # every kernel against its plain version over all lanes of the
+    # batches the main path ran, and the compose over the whole table
+    si, s2 = index._search, index._paired_search
+    comp = compose_inputs(ix, dev)
+    table_p, compose_plain_ms = timed_ms(
+        lambda: ts2.compose_search2_plain(*comp, r, sigma))
+    require_equal("full search compose table", s2.rec_all, table_p, errs,
+                  "compose_search2_records")
+    del table_p
+    batches = list(_as_batches(reads, QUERY_LANES))
+    args = {k: [] for k in SCAN_OF}
+    plain_ms = dict.fromkeys(SCAN_OF, 0.0)
+    for batch in batches:
+        for kind in SCAN_OF:
+            kern, plain, a, kw = search_args(kind, s2 if "2" in kind else si,
+                                             batch, dev)
+            plain_ms[kind] += search_pair(kern, plain, a, kw, f"full {kind}",
+                                          errs, SCAN_OF[kind])
+            args[kind].append((kern, a, kw))
+    say("search", "kernels 4-6 equal their plain versions over all lanes "
+                  "and the whole table")
+
+    shapes = [tuple(b.seqs.shape) for b in batches]
+    for kind, name in SCAN_OF.items():
+        runs = args[kind]
+        k_ms = cuda_ms(lambda: [fn(*a, **kw) for fn, a, kw in runs], reps=5)
+        timings[name] = (k_ms, plain_ms[kind])
+        per = [cuda_ms(lambda: fn(*a, **kw), reps=5) for fn, a, kw in runs]
+        per_s = ", ".join(f"{lanes_b} lanes x {w_b}: {ms:.6f} ms"
+                          for (lanes_b, w_b), ms in zip(shapes, per))
+        say("search", f"{name} over the main path's {len(batches)} batches "
+                      f"({n_bases} bases): kernel {k_ms:.6f} ms = "
+                      f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
+                      f"{plain_ms[kind]:.6f} ms = "
+                      f"{n_bases / plain_ms[kind] * 1e3:.6e} bases/s; kernel "
+                      f"per batch [{per_s}]  ({card})")
+    k_ms = cuda_ms(lambda: kernels.compose_search2_records(*comp, r, sigma),
+                   reps=3)
+    timings["compose_search2_records"] = (k_ms, compose_plain_ms)
+    say("search", f"search compose r={r}: kernel {k_ms / 1e3:.6f} s, plain "
+                  f"{compose_plain_ms / 1e3:.6f} s  ({card})")
+    del comp
+
+    # where a warm query's time goes: host batching, prepare + scan (codes
+    # to the card and the kernel), trim (results to the host, per-read
+    # lists)
+    for paired in (False, True):
+        layout = "paired" if paired else "one-step"
+        for kind in ("count", "zml"):
+            query = index.query_count if kind == "count" else index.query_zml
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            query(reads, paired=paired, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eng = index.search_engine(kind, paired, dev)
+            t0 = time.perf_counter()
+            bs = list(_as_batches(reads, QUERY_LANES))
+            t_batch = time.perf_counter() - t0
+            t_scan = t_trim = 0.0
+            for b in bs:
+                t0 = time.perf_counter()
+                out = eng.query_batch_device(b)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if kind == "count":
+                    ts.count_results(b, *out)
+                else:
+                    trim(out, b)
+                t_scan += t1 - t0
+                t_trim += time.perf_counter() - t1
+            k_ms = timings[SCAN_OF[kind + ("2" if paired else "")]][0]
+            busy = k_ms / 1e3 / wall
+            say("search", f"warm query_{kind} {layout}: wall {wall:.6f} s = "
+                          f"{n_bases / wall:.6e} bases/s; kernel "
+                          f"{k_ms:.6f} ms, device busy share (kernel / "
+                          f"wall) {busy:.6f}, idle share {1 - busy:.6f}; "
+                          f"host stages: batching {t_batch:.6f} s, "
+                          f"prepare+scan {t_scan:.6f} s, trim "
+                          f"{t_trim:.6f} s  ({card})")
+    say("search", f"peak device memory in this phase "
+                  f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
     return counts
 
 
@@ -422,27 +703,41 @@ def phase_cli(platform):
         rpath = os.path.join(d, "reads.fa")
         with open(rpath, "w") as f:
             f.writelines(f">{n}\n{s.decode()}\n" for n, s in reads)
-        report = f"{rpath}.regular-thresholds.pml.report"
-        texts = {}
-        for plat in (platform, "cpu"):
-            subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli",
-                            "query", "--index", idx, "--read", rpath,
-                            "--pml", "--classify", "--platform", plat,
-                            "--out-file", os.path.join(d, plat)],
-                           cwd=ROOT, check=True,
-                           capture_output=True, timeout=600)
-            with open(report) as f:
-                texts[plat] = f.read()
-            os.unlink(report)
-        if texts[platform] != texts["cpu"]:
-            raise AssertionError("CLI --classify report differs between "
-                                 f"--platform {platform} and cpu")
-        n_found = sum(ln.split()[1] == "FOUND"
-                      for ln in texts["cpu"].splitlines()[1:]
-                      if len(ln.split()) > 1)
-    say("cli", f"query --pml --classify on --platform {platform}: report "
-               f"({len(reads)} reads, {n_found} found) equals "
-               f"--platform cpu")
+        mode = "regular-thresholds"
+        # (query flags, the output compared: a file or stdout)
+        runs = [(["--pml", "--classify"], f"{rpath}.{mode}.pml.report"),
+                (["--zml", "--classify"], f"{rpath}.{mode}.zml.report"),
+                (["--count"], "{out}.count.matches"),
+                (["--zml", "--stdout"], None)]
+        n_found = {}
+        for flags, output in runs:
+            texts = {}
+            for plat in (platform, "cpu"):
+                out = os.path.join(d, plat)
+                res = subprocess.run(
+                    [sys.executable, "-m", "movi_tpu_torch.cli", "query",
+                     "--index", idx, "--read", rpath, *flags, "--platform",
+                     plat, "--out-file", out], cwd=ROOT, check=True,
+                    capture_output=True, text=True, timeout=600)
+                if output is None:
+                    texts[plat] = res.stdout
+                    continue
+                path = output.format(out=out)
+                with open(path) as f:
+                    texts[plat] = f.read()
+                os.unlink(path)
+            what = " ".join(flags)
+            if texts[platform] != texts["cpu"] or not texts["cpu"]:
+                raise AssertionError(f"CLI query {what}: output differs "
+                                     f"between --platform {platform} and "
+                                     f"cpu, or is empty")
+            if "--classify" in flags:
+                n_found[what] = sum(ln.split()[1] == "FOUND"
+                                    for ln in texts["cpu"].splitlines()[1:]
+                                    if len(ln.split()) > 1)
+    say("cli", f"query --pml --classify, --zml --classify, --count and "
+               f"--zml --stdout on --platform {platform} ({len(reads)} "
+               f"reads; found {n_found}) equal --platform cpu")
 
 
 def main() -> int:
@@ -467,7 +762,9 @@ def main() -> int:
     t0 = time.perf_counter()
     so = kernels.build()
     kernels._load()
-    say("build", f"nvcc sm_90a build of {len(CUDA_SOURCES)} kernels: "
+    n_src = len({src for src, _ in CUDA_SOURCES.values()})
+    say("build", f"nvcc sm_90a build of {n_src} kernel sources "
+                 f"({len(CUDA_SOURCES)} launch counters): "
                  f"{time.perf_counter() - t0:.3f} s -> "
                  f"{os.path.relpath(so, ROOT)}")
     mk = subprocess.run(["make", "-C", os.path.join(ROOT, "native")],
@@ -480,7 +777,10 @@ def main() -> int:
     errs = {}
     timings = {}
     phase_small(dev, errs)
-    counts = phase_full(dev, card, errs, timings)
+    phase_small_search(dev, errs)
+    counts, ctx = phase_full(dev, card, errs, timings)
+    counts.update(phase_search(dev, card, errs, timings, ctx))
+    del ctx
     phase_cli("gpu")
 
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -1,9 +1,9 @@
 """movi_tpu_torch: the PyTorch and CUDA port of movi_tpu.
 
-The PML query path of movi_tpu (one-step and paired step records, the
-paired-record compose, engine selection, the API and the `query --pml`
-CLI) on PyTorch, with each device function as a hand-written CUDA kernel
-for Hopper (`csrc/`).  The JAX package `movi_tpu` is the reference: every
+The PML, count and ZML query paths of movi_tpu (one-step and paired
+step and search records, the paired-record composes, engine selection,
+the API and the `query --pml/--count/--zml` CLI) on PyTorch, with each
+device function as a hand-written CUDA kernel for Hopper (`csrc/`).  The JAX package `movi_tpu` is the reference: every
 output here is bit-identical to it and to its scalar oracle.  The host
 layers of `movi_tpu` that import no JAX (index build, I/O, classify, the
 scalar oracle) are shared, not copied.

@@ -1,15 +1,17 @@
-"""High-level API, the PML surface of movi_tpu/api.py.
+"""High-level API, the PML, count and ZML surface of movi_tpu/api.py.
 
     from movi_tpu_torch import Index
 
     index = Index.build("ref.fasta")                    # or Index.load(dir)
     index.save("idx_dir")
     res = index.query_pml(reads)                        # [(name, pmls)]
+    res = index.query_count(reads)           # [(name, (pos_on_r, count))]
+    res = index.query_zml(reads)                        # [(name, zmls)]
 
 Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
 device passed in (default CUDA; without a card that raises unless the
-caller names the CPU).  Only PML is ported so far: the other query
-methods of the JAX API are absent.
+caller names the CPU).  The other query methods of the JAX API (MEMs,
+k-mers, color, SA entries) are not yet ported and are absent.
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ from .engine.fused import (FusedPMLEngine, build_fused_index, is_bounded,
                            save_fused_index)
 from .engine.fused2 import (Fused2PMLEngine, build_fused2_index,
                             save_fused2_index)
+from .engine.fused_search import (FusedCountEngine, FusedZMLEngine,
+                                  build_fused_search_index)
+from .engine.fused_search2 import (Fused2CountEngine, Fused2ZMLEngine,
+                                   build_fused_search2_index,
+                                   save_fused_search2_index)
 from .engine.select import pick_backend
 
 Reads = Union[str, Sequence[Tuple[str, bytes]]]
@@ -50,6 +57,8 @@ class Index:
         self.ix = ix
         self._fused = None    # FusedIndex (host or device tensors)
         self._paired = None   # Fused2Index
+        self._search = None   # FusedSearchIndex
+        self._paired_search = None  # FusedSearch2Index
         self._bounded = None
 
     @classmethod
@@ -77,6 +86,10 @@ class Index:
         if self._paired is not None:
             save_fused2_index(self._paired,
                               os.path.join(index_dir, "paired_records.npz"))
+        if self._paired_search is not None:
+            save_fused_search2_index(
+                self._paired_search,
+                os.path.join(index_dir, "paired_search_records.npz"))
 
     @classmethod
     def load(cls, index_dir: str, ix: Optional[MoveIndex] = None
@@ -87,13 +100,17 @@ class Index:
         if ix is None:
             ix = MoveIndex.load(os.path.join(index_dir, "index.npz"))
         self = cls(ix)
-        self._fused, self._paired = load_engine_caches(index_dir)
+        self._fused, self._paired, self._paired_search = \
+            load_engine_caches(index_dir)
         return self
 
-    def _pml_ported(self) -> bool:
+    def _is_bounded(self) -> bool:
         if self._bounded is None:
             self._bounded = is_bounded(self.ix)
-        return self.ix.thr is not None and self._bounded
+        return self._bounded
+
+    def _pml_ported(self) -> bool:
+        return self.ix.thr is not None and self._is_bounded()
 
     def engine(self, paired: Optional[bool] = None,
                device: DeviceLike = None):
@@ -104,7 +121,7 @@ class Index:
                 "PML on an index without thresholds or not built with "
                 "bound_ff=1 (the compact engine) is not yet ported")
         dev = resolve_device(device)
-        backend = pick_backend(self.ix.r, self.ix.sigma,
+        backend = pick_backend(self.ix.r, self.ix.sigma, "pml",
                                force_paired=paired, device=dev)
         if backend == "compact":
             raise NotImplementedError(
@@ -120,14 +137,61 @@ class Index:
             return Fused2PMLEngine(self._paired, dev)
         return FusedPMLEngine(self._fused, dev)
 
-    def query_pml(self, reads: Reads, lanes: int = 8192,
-                  paired: Optional[bool] = None, device: DeviceLike = None):
-        """[(name, pmls)] with pmls in processing (right-to-left) order."""
-        eng = self.engine(paired, device)
+    def search_engine(self, kind: str, paired: Optional[bool] = None,
+                      device: DeviceLike = None):
+        """The count (kind="count") or ZML ("zml") engine on `device`:
+        paired=True forces the paired search records, False the one-step
+        layout, None picks by capacity.  Needs an index built with
+        bound_ff=1 (thresholds are not used)."""
+        if kind not in ("count", "zml"):
+            raise ValueError(f"unknown search query {kind!r}")
+        if not self._is_bounded():
+            raise NotImplementedError(
+                f"{kind} on an index not built with bound_ff=1 (the compact "
+                f"engine) is not yet ported")
+        dev = resolve_device(device)
+        backend = pick_backend(self.ix.r, self.ix.sigma, "search",
+                               force_paired=paired, device=dev)
+        if backend == "compact":
+            raise NotImplementedError(
+                f"index (r={self.ix.r}) exceeds the device's record-table "
+                f"budget; the compact engine is not yet ported")
+        if backend == "paired":
+            if self._paired_search is None:
+                self._paired_search = build_fused_search2_index(self.ix, dev)
+            self._paired_search = self._paired_search.to(dev)
+            cls = Fused2CountEngine if kind == "count" else Fused2ZMLEngine
+            return cls(self._paired_search, dev)
+        if self._search is None:
+            self._search = build_fused_search_index(self.ix)
+        self._search = self._search.to(dev)
+        cls = FusedCountEngine if kind == "count" else FusedZMLEngine
+        return cls(self._search, dev)
+
+    @staticmethod
+    def _run(eng, reads: Reads, lanes: int):
         out = []
         for batch in _as_batches(reads, lanes):
             out.extend(zip(batch.names, eng.query_batch(batch)))
         return out
+
+    def query_pml(self, reads: Reads, lanes: int = 8192,
+                  paired: Optional[bool] = None, device: DeviceLike = None):
+        """[(name, pmls)] with pmls in processing (right-to-left) order."""
+        return self._run(self.engine(paired, device), reads, lanes)
+
+    def query_count(self, reads: Reads, lanes: int = 8192,
+                    paired: Optional[bool] = None,
+                    device: DeviceLike = None):
+        """[(name, (pos_on_r, match_count))] as query_backward_search."""
+        return self._run(self.search_engine("count", paired, device), reads,
+                         lanes)
+
+    def query_zml(self, reads: Reads, lanes: int = 8192,
+                  paired: Optional[bool] = None, device: DeviceLike = None):
+        """[(name, zmls)] with zmls in processing (right-to-left) order."""
+        return self._run(self.search_engine("zml", paired, device), reads,
+                         lanes)
 
 
 def build_index(fasta, **kw) -> Index:

@@ -1,15 +1,17 @@
-"""movi_tpu_torch command-line interface: `query --pml` on the port.
+"""movi_tpu_torch command-line interface: `query --pml`, `--zml` and
+`--count` on the port.
 
-    python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
-        [--classify | --filter [--invert]] [--stdout] [--platform cpu]
+    python -m movi_tpu_torch.cli query --index IDX --read READS \\
+        (--pml | --zml | --count) [--classify | --filter [--invert]] \\
+        [--stdout] [--platform cpu]
 
-Mirrors the PML branch of movi_tpu/cli.py `query` (index loading, the
-classifier, the stdout/BPF/report writers), sharing its host helpers; the
-record caches and the layout choice are `api.Index`'s.
-Indexes are built with `python -m movi_tpu.cli build`.  Other query types,
-and indexes the fused engines cannot run (no thresholds, or not built with
-bound_ff=1), are not yet ported: asking for them is an error, never a
-fallback to another engine.
+Mirrors the PML, ZML and count branches of movi_tpu/cli.py `query` (index
+loading, the classifier, the stdout/BPF/.matches/report writers), sharing
+its host helpers; the record caches and the layout choice are
+`api.Index`'s.  Indexes are built with `python -m movi_tpu.cli build`.
+Other query types (MEMs, k-mers), and indexes the fused engines cannot run
+(PML without thresholds, or not built with bound_ff=1), are not yet
+ported: asking for them is an error, never a fallback to another engine.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import os
 from movi_tpu.cli import _apply_ignore_illegal, _load_index, _paired_force
 from movi_tpu.commons import error, info, timing
 
-_NOT_PORTED = ("zml", "count", "mem", "kmer", "kmer_count")
+_NOT_PORTED = ("mem", "kmer", "kmer_count")
+_QUERIES = ("pml", "zml", "count")
 
 
 class NotPortedError(NotImplementedError):
@@ -29,7 +32,7 @@ class NotPortedError(NotImplementedError):
 
 def cmd_query(args):
     from movi_tpu.io.fastx import iter_fastx
-    from movi_tpu.io.outputs import BPFWriter, pml_stdout_lines
+    from movi_tpu.io.outputs import BPFWriter, count_line, pml_stdout_lines
 
     from .api import Index
     from .device import resolve_device
@@ -38,13 +41,13 @@ def cmd_query(args):
     if asked:
         raise NotPortedError(
             f"--{asked[0].replace('_', '-')} is not yet ported to "
-            f"movi_tpu_torch (only --pml)")
-    if not args.pml:
-        raise SystemExit("specify --pml")
+            f"movi_tpu_torch (only --pml, --zml and --count)")
+    qt = next((q for q in _QUERIES if getattr(args, q)), None)
+    if qt is None:
+        raise SystemExit("specify one of --pml/--zml/--count")
     device = resolve_device("cuda" if args.platform == "gpu" else "cpu")
 
     ix = _load_index(args.index)
-    qt = "pml"
     reads = list(iter_fastx(args.read))
     if args.reverse:
         reads = [(n, s[::-1]) for n, s in reads]
@@ -54,8 +57,10 @@ def cmd_query(args):
         reads = _apply_ignore_illegal(ix, reads, args.ignore_illegal_chars)
 
     index = Index.load(args.index, ix=ix)
-    results = index.query_pml(reads, lanes=args.lanes,
-                              paired=_paired_force(args), device=device)
+    query = {"pml": index.query_pml, "zml": index.query_zml,
+             "count": index.query_count}[qt]
+    results = query(reads, lanes=args.lanes, paired=_paired_force(args),
+                    device=device)
 
     classifier = None
     report_lines = []
@@ -72,7 +77,12 @@ def cmd_query(args):
     out_prefix = (args.out_file if args.out_file
                   else f"{args.read}.{ix.mode}") + f".{qt}"
     lines_out = []
-    for name, res in results:
+    # results are aligned with reads: a count line takes its read's length
+    for (name, res), (_, seq) in zip(results, reads):
+        if qt == "count":
+            pos, cnt = res
+            lines_out.append(count_line(name, len(seq), pos, cnt))
+            continue
         if classifier:
             from movi_tpu.classify import format_report_line
 
@@ -91,6 +101,11 @@ def cmd_query(args):
     elif args.stdout:
         for ln in lines_out:
             print(ln)
+    elif qt == "count":
+        with open(out_prefix + ".matches", "w") as f:
+            for ln in lines_out:
+                f.write(ln + "\n")
+        info(f"wrote {out_prefix}.matches")
     else:
         with BPFWriter(out_prefix + ".bpf") as w:
             for name, res in results:
@@ -112,13 +127,15 @@ def cmd_query(args):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="movi-tpu-torch",
-        description="PyTorch/CUDA port of movi_tpu (PML queries)")
+        description="PyTorch/CUDA port of movi_tpu (PML, ZML and count "
+                    "queries)")
     sub = p.add_subparsers(dest="command", required=True)
 
     q = sub.add_parser("query")
     q.add_argument("--index", "-i", required=True)
     q.add_argument("--read", "-r", required=True)
-    q.add_argument("--pml", action="store_true")
+    for flag in _QUERIES:
+        q.add_argument("--" + flag, action="store_true")
     # accepted so that asking for them says they are not yet ported
     for flag in _NOT_PORTED:
         q.add_argument("--" + flag.replace("_", "-"), action="store_true",

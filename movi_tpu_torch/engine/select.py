@@ -1,8 +1,9 @@
-"""Engine selection for PML: the paired layout when it fits the device.
+"""Engine selection: the paired layout when it fits the device.
 
-Port of the PML half of movi_tpu/engine/select.py.  The paired records
-cost 16*(sigma+1)^2 B per run (400 B for DNA) against 8*(sigma+1) B per
-run for the one-step layout.  The budget is the device's own memory
+Port of movi_tpu/engine/select.py.  For PML the paired records cost
+16*(sigma+1)^2 B per run (400 B for DNA) against 8*(sigma+1) B per run for
+the one-step layout; for count/ZML ("search") 48*sigma^2 B per run (768 B)
+against 32*sigma B per run.  The budget is the device's own memory
 (device.memory_budget_bytes).  The JAX package's VMEM-residency rule is a
 TPU measurement and is not carried over: no cache-residency rule has been
 measured on the card, so a small index takes the paired layout here.
@@ -15,6 +16,8 @@ from typing import Optional
 
 from ..device import DeviceLike, memory_budget_bytes
 from .fused2 import MAX_RUNS
+from .fused_search2 import MAX_RUNS as SEARCH2_MAX_RUNS
+from .fused_search2 import MAX_SIGMA as SEARCH2_MAX_SIGMA
 
 # leave room for the one-step records (the compose input) and the batches
 BUDGET_FRACTION = 0.5
@@ -28,22 +31,50 @@ def one_step_pml_table_bytes(r: int, sigma: int) -> int:
     return 8 * (sigma + 1) * r
 
 
+def paired_search_table_bytes(r: int, sigma: int) -> int:
+    return 2 * 24 * sigma * sigma * r
+
+
+def one_step_search_table_bytes(r: int, sigma: int) -> int:
+    return 32 * sigma * r
+
+
+def _fits(nbytes: int, device: DeviceLike) -> bool:
+    return nbytes <= BUDGET_FRACTION * memory_budget_bytes(device)
+
+
 def use_paired_pml(r: int, sigma: int, force: Optional[bool] = None,
                    device: DeviceLike = None) -> bool:
     """True when PML should run on the paired two-base records."""
     if force is not None:
         return force
-    return (r < MAX_RUNS and paired_pml_table_bytes(r, sigma)
-            <= BUDGET_FRACTION * memory_budget_bytes(device))
+    return r < MAX_RUNS and _fits(paired_pml_table_bytes(r, sigma), device)
 
 
-def pick_backend(r: int, sigma: int, force_paired: Optional[bool] = None,
+def use_paired_search(r: int, sigma: int, force: Optional[bool] = None,
+                      device: DeviceLike = None) -> bool:
+    """True when count/ZML should run on the paired search records."""
+    if force is not None:
+        return force
+    return (r < SEARCH2_MAX_RUNS and sigma <= SEARCH2_MAX_SIGMA
+            and _fits(paired_search_table_bytes(r, sigma), device))
+
+
+def pick_backend(r: int, sigma: int, kind: str = "pml",
+                 force_paired: Optional[bool] = None,
                  device: DeviceLike = None) -> str:
-    """'paired' when the two-step layout fits, else 'one-step' when the
-    one-step table fits, else 'compact' (not yet ported)."""
-    if use_paired_pml(r, sigma, force=force_paired, device=device):
+    """'paired' when the two-step layout of `kind` ("pml" or "search")
+    fits, else 'one-step' when the one-step table fits, else 'compact'
+    (not yet ported)."""
+    if kind not in ("pml", "search"):
+        raise ValueError(f"unknown query kind {kind!r}")
+    pml = kind == "pml"
+    paired = (use_paired_pml if pml else use_paired_search)(
+        r, sigma, force=force_paired, device=device)
+    if paired:
         return "paired"
-    if (one_step_pml_table_bytes(r, sigma)
-            <= BUDGET_FRACTION * memory_budget_bytes(device)):
+    one_step = (one_step_pml_table_bytes if pml
+                else one_step_search_table_bytes)(r, sigma)
+    if _fits(one_step, device):
         return "one-step"
     return "compact"

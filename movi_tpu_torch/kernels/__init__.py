@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 At first use, `nvcc` compiles every `movi_tpu_torch/csrc/*.cu` for
-`sm_90a` into one shared library with a plain C interface, kept in
+`sm_90a` (one process per source, all started together) and links them
+into one shared library with a plain C interface, kept in
 `movi_tpu_torch/_build/` under a hash of the sources and flags, and loads
 it with ctypes.  Each C entry launches on PyTorch's current stream and
 returns `cudaGetLastError()`; the wrappers here check their tensors,
@@ -28,23 +29,35 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
 launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
-            "fused2_pml_scan": 0}
+            "fused2_pml_scan": 0, "fused_count_scan": 0,
+            "fused_zml_scan": 0, "compose_search2_records": 0,
+            "fused2_count_scan": 0, "fused2_zml_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the four search scans share one C signature: (rec_all, init_rec, aux,
+# a0, chars, steps, lanes, r, sigma, first, state_in, state_out, out,
+# stream); aux is all_p (count) or restart_rec (paired ZML), a0 the paired
+# count's first chars, each NULL where the scan takes none
+_SEARCH = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _SIGNATURES = {
     "movi_fused_pml_scan": [_P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P],
     "movi_compose_paired_records": [_P, _I, _I, _I, _I, _P, _P, _P],
     "movi_fused2_pml_scan": [_P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _P],
+    "movi_fused_count_scan": _SEARCH,
+    "movi_fused_zml_scan": _SEARCH,
+    "movi_fused2_count_scan": _SEARCH,
+    "movi_fused2_zml_scan": _SEARCH,
+    "movi_compose_search2_records": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -71,7 +84,7 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into one .so (cached by content); return its
-    path.  Raises if the build fails."""
+    path.  Raises if any compile or the link fails."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
@@ -81,16 +94,32 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in srcs if p.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in srcs if p.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            log = open(obj + ".log", "w+")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+        failed = []
+        for cmd, _, log, proc in jobs:
+            rc = proc.wait()
+            log.seek(0)
+            if rc != 0:
+                failed.append(f"{' '.join(cmd)} (rc {rc}):\n{log.read()}")
+            log.close()
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        out = os.path.join(tmp, "movi_kernels.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", out,
+               *[obj for _, obj, _, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(out, so)  # atomic: a concurrent loader sees all or nothing
     return so
 
 
@@ -201,3 +230,126 @@ def compose_paired_records(records1: torch.Tensor, r: int, slots: int,
     launches["compose_paired_records"] += 1
     bmin, bmax = bminmax.tolist()
     return out, (bmin, bmax)
+
+
+SEARCH_STATE_ROWS = 6  # (rs, os, re, oe) + (matched, done) or (have, ml)
+
+
+def _search_scan(entry: str, counter: str, rec_all, rec_shape, init_rec,
+                 aux, chars, char_dtype, r: int, sigma: int, state, a0,
+                 out_rows: int):
+    """Shared launch of the four search scans: check, allocate, launch.
+    state None starts the scan (from a0 when given, else from the first
+    row of chars for the one-step scans, else from nothing matched);
+    `aux` is (tensor, name, shape) or None.  out_rows 0 gives count
+    [lanes], else ml [out_rows, lanes]."""
+    dev = rec_all.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check(rec_all, "rec_all", torch.int32, dev, rec_shape)
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    if aux is not None:
+        _check(aux[0], aux[1], torch.int32, dev, aux[2])
+    if chars.dim() != 2:
+        raise ValueError("chars must be [steps, lanes]")
+    _check(chars, "chars", char_dtype, dev)
+    steps, lanes = chars.shape
+    if state is not None:
+        _check(state, "state", torch.int32, dev, (SEARCH_STATE_ROWS, lanes))
+    if a0 is not None:
+        _check(a0, "a0", torch.int8, dev, (lanes,))
+    new_state = torch.empty((SEARCH_STATE_ROWS, lanes), dtype=torch.int32,
+                            device=dev)
+    out = torch.empty((out_rows, lanes) if out_rows else (lanes,),
+                      dtype=torch.int32, device=dev)
+    lib = _load()
+    code = getattr(lib, entry)(
+        rec_all.data_ptr(), init_rec.data_ptr(),
+        None if aux is None else aux[0].data_ptr(),
+        None if a0 is None else a0.data_ptr(), chars.data_ptr(),
+        steps, lanes, r, sigma, int(state is None),
+        None if state is None else state.data_ptr(), new_state.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    return new_state, out
+
+
+def _first_char_needed(state, alphas_t):
+    if state is None and alphas_t.shape[0] == 0:
+        raise ValueError("a scan from the first char needs at least one "
+                         "step")
+
+
+def fused_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
+                     alphas_t: torch.Tensor, state=None):
+    """Kernel 4, count: one-step backward search over alphas_t [W, lanes]
+    (int8 chars).  Returns (state [6, lanes], count [lanes])."""
+    _first_char_needed(state, alphas_t)
+    return _search_scan("movi_fused_count_scan", "fused_count_scan",
+                        rec_all, (2 * sigma * r, 4), init_rec,
+                        (all_p, "all_p", (r + 1,)), alphas_t, torch.int8,
+                        r, sigma, state, None, 0)
+
+
+def fused_zml_scan(rec_all, init_rec, r: int, sigma: int,
+                   alphas_t: torch.Tensor, state=None):
+    """Kernel 4, ZML: returns (state [6, lanes], ml [W, lanes])."""
+    _first_char_needed(state, alphas_t)
+    return _search_scan("movi_fused_zml_scan", "fused_zml_scan", rec_all,
+                        (2 * sigma * r, 4), init_rec, None, alphas_t,
+                        torch.int8, r, sigma, state, None,
+                        alphas_t.shape[0])
+
+
+def _pair_sigma(sigma: int):
+    if sigma > 6:
+        raise ValueError(f"pair codes hold sigma <= 6 chars, got {sigma}")
+
+
+def fused2_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
+                      pairs_t: torch.Tensor, state=None, a0=None):
+    """Kernel 6, count: paired backward search over pairs_t [W2, lanes]
+    (uint8 pair codes), from the first chars a0 [lanes] (int8) or from
+    state.  Returns (state [6, lanes], count [lanes])."""
+    _pair_sigma(sigma)
+    if (state is None) == (a0 is None):
+        raise ValueError("give either the first chars a0 or a state")
+    return _search_scan("movi_fused2_count_scan", "fused2_count_scan",
+                        rec_all, (2 * r * sigma * sigma, 6), init_rec,
+                        (all_p, "all_p", (r + 1,)), pairs_t, torch.uint8,
+                        r, sigma, state, a0, 0)
+
+
+def fused2_zml_scan(rec_all, init_rec, restart_rec, r: int, sigma: int,
+                    pairs_t: torch.Tensor, state=None):
+    """Kernel 6, ZML: returns (state [6, lanes], ml [2*W2, lanes])."""
+    _pair_sigma(sigma)
+    return _search_scan("movi_fused2_zml_scan", "fused2_zml_scan", rec_all,
+                        (2 * r * sigma * sigma, 6), init_rec,
+                        (restart_rec, "restart_rec", (sigma * sigma, 5)),
+                        pairs_t, torch.uint8, r, sigma, state, None,
+                        2 * pairs_t.shape[0])
+
+
+def compose_search2_records(id_a, off_a, n_a, nu, nd, r: int, sigma: int):
+    """Kernel 5: the paired search table int32 [2*r*sigma^2, 6] from the
+    run arrays id/offset/n int32 [r] and the next-run tables nu/nd int32
+    [sigma, r]."""
+    dev = id_a.device
+    if dev.type != "cuda":
+        raise ValueError("compose_search2_records launches on CUDA tensors "
+                         "only")
+    for t, name in ((id_a, "id"), (off_a, "offset"), (n_a, "n")):
+        _check(t, name, torch.int32, dev, (r,))
+    for t, name in ((nu, "nu"), (nd, "nd")):
+        _check(t, name, torch.int32, dev, (sigma, r))
+    out = torch.empty((2 * r * sigma * sigma, 6), dtype=torch.int32,
+                      device=dev)
+    lib = _load()
+    code = lib.movi_compose_search2_records(
+        id_a.data_ptr(), off_a.data_ptr(), n_a.data_ptr(), nu.data_ptr(),
+        nd.data_ptr(), r, sigma, out.data_ptr(), _stream(dev))
+    _raise_on(code, "compose_search2_records")
+    launches["compose_search2_records"] += 1
+    return out

@@ -1,6 +1,6 @@
-"""The port's API and CLI against movi_tpu's, on the CPU: identical PML
-lists, byte-identical `query --pml --stdout` output and --classify
-reports."""
+"""The port's API and CLI against movi_tpu's, on the CPU: identical PML,
+count and ZML lists, byte-identical `query --stdout` output, `.matches`
+files and --classify reports."""
 
 import os
 import subprocess
@@ -24,6 +24,42 @@ def test_api_query_pml_equals_jax(paired):
     got = tapi.Index(ix).query_pml(reads, lanes=32, paired=paired,
                                    device="cpu")
     assert got == want
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_api_query_count_zml_equal_jax(paired):
+    text, ix = small_index()
+    reads = mixed_reads(text, seed=3)
+    jix, tix = japi.Index(ix), tapi.Index(ix)
+    assert (tix.query_count(reads, lanes=32, paired=paired, device="cpu")
+            == jix.query_count(reads, lanes=32, paired=paired))
+    assert (tix.query_zml(reads, lanes=32, paired=paired, device="cpu")
+            == jix.query_zml(reads, lanes=32, paired=paired))
+
+
+def test_api_paired_search_cache_shared_between_packages(tmp_path):
+    """paired_search_records.npz written by either package's Index.save
+    is read by the other's Index.load, which then composes nothing."""
+    text, ix = small_index()
+    reads = mixed_reads(text, seed=6, count=20)
+    want = japi.Index(ix).query_zml(reads, paired=True)
+
+    jdir = str(tmp_path / "from_jax")
+    src = japi.Index(ix)
+    src.query_count(reads, paired=True)  # composes the table
+    src.save(jdir)
+    port = tapi.Index.load(jdir)
+    assert port._paired_search is not None
+    assert port.query_zml(reads, paired=True, device="cpu") == want
+
+    tdir = str(tmp_path / "from_torch")
+    src = tapi.Index(ix)
+    src.query_zml(reads, paired=True, device="cpu")
+    src.save(tdir)
+    assert "paired_search_records.npz" in os.listdir(tdir)
+    back = japi.Index.load(tdir)
+    assert back._paired_search is not None
+    assert back.query_zml(reads, paired=True) == want
 
 
 def test_api_caches_shared_between_packages(tmp_path):
@@ -122,7 +158,64 @@ def test_cli_classify_report_identical(built):
     assert len(texts[0].splitlines()) == 1 + 40
 
 
-@pytest.mark.parametrize("flag", ["--count", "--zml"])
+def _query_both(built, args, layout, output=None):
+    """Run `query` with `args` through both CLIs (the port with `layout`
+    added); return their stdouts, or the texts of the file `output`."""
+    idx, reads = built
+    base = ["query", "--index", idx, "--read", reads, "--platform", "cpu"]
+    texts = []
+    for module, extra in (("movi_tpu.cli", []),
+                          ("movi_tpu_torch.cli", layout)):
+        if output and os.path.exists(output):
+            os.unlink(output)
+        r = _cli(module, base + args + extra)
+        assert r.returncode == 0, r.stderr
+        if output:
+            with open(output) as f:
+                texts.append(f.read())
+        else:
+            texts.append(r.stdout)
+    return texts
+
+
+LAYOUTS = [["--paired-records"], ["--no-paired-records"]]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_count_stdout_byte_identical(built, layout):
+    want, got = _query_both(built, ["--count", "--stdout"], layout)
+    assert got == want
+    assert len(want.splitlines()) == 40
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_count_matches_file_identical(built, layout):
+    _, reads = built
+    out = reads + ".cnt"
+    want, got = _query_both(built, ["--count", "--out-file", out], layout,
+                            output=out + ".count.matches")
+    assert got == want
+    assert len(want.splitlines()) == 40
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_zml_stdout_byte_identical(built, layout):
+    want, got = _query_both(built, ["--zml", "--stdout"], layout)
+    assert got == want
+    assert len(want) > 0
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_zml_classify_report_identical(built, layout):
+    _, reads = built
+    want, got = _query_both(
+        built, ["--zml", "--classify", "--out-file", reads + ".z"], layout,
+        output=f"{reads}.regular-thresholds.zml.report")
+    assert got == want
+    assert len(want.splitlines()) == 1 + 40
+
+
+@pytest.mark.parametrize("flag", ["--mem", "--kmer"])
 def test_cli_other_queries_not_yet_ported(built, flag):
     idx, reads = built
     r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",

@@ -12,6 +12,8 @@ import movi_tpu_torch
 from movi_tpu_torch import device, kernels
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
+from movi_tpu_torch.engine import fused_search as ts
+from movi_tpu_torch.engine import fused_search2 as ts2
 from movi_tpu_torch.testing import small_index
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,10 +63,25 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     a12 = torch.randint(0, slots * slots, (5, 4), dtype=torch.uint8)
     tf2.fused2_pml_scan(f2.records, slots, f2.p_dollar, a12,
                         tf.initial_state(f2, 4, "cpu"))
+    si = ts.build_fused_search_index(ix)
+    chars = torch.randint(-2, si.sigma, (9, 4), dtype=torch.int8)
+    ts.fused_count_scan(si.rec_all, si.init_rec, si.all_p, si.r, si.sigma,
+                        chars)
+    ts.fused_zml_scan(si.rec_all, si.init_rec, si.r, si.sigma, chars)
+    s2 = ts2.build_fused_search2_index(ix, "cpu")  # runs the compose
+    a12 = torch.randint(0, s2.sigma + 2, (2, 5, 4))
+    pairs = (a12[0] * 8 + a12[1]).to(torch.uint8)
+    ts2.fused2_count_scan(s2.rec_all, s2.init_rec, s2.all_p, s2.r, s2.sigma,
+                          pairs, a0=chars[0])
+    ts2.fused2_zml_scan(s2.rec_all, s2.init_rec, s2.restart_rec, s2.r,
+                        s2.sigma, pairs)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
-                                     "fused2_pml_scan"}
+                                     "fused2_pml_scan", "fused_count_scan",
+                                     "fused_zml_scan",
+                                     "compose_search2_records",
+                                     "fused2_count_scan", "fused2_zml_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -75,6 +92,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                torch.zeros((3, 4), dtype=torch.uint8), st)
     with pytest.raises(ValueError):
         kernels.compose_paired_records(rec, 2, 5, (0, 0))
+    srec = torch.zeros((2 * 4 * 3, 4), dtype=torch.int32)
+    init = torch.zeros((5, 4), dtype=torch.int32)
+    all_p = torch.zeros(4, dtype=torch.int32)
+    chars = torch.zeros((3, 4), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        kernels.fused_count_scan(srec, init, all_p, 3, 4, chars)
+    with pytest.raises(ValueError):
+        kernels.fused_zml_scan(srec, init, 3, 4, chars)
+    prec = torch.zeros((2 * 3 * 16, 6), dtype=torch.int32)
+    pairs = torch.zeros((3, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        kernels.fused2_count_scan(prec, init, all_p, 3, 4, pairs,
+                                  a0=chars[0])
+    with pytest.raises(ValueError):
+        kernels.fused2_zml_scan(prec, init,
+                                torch.zeros((16, 5), dtype=torch.int32), 3,
+                                4, pairs)
+    runs = torch.zeros(3, dtype=torch.int32)
+    nxt = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.compose_search2_records(runs, runs, runs, nxt, nxt, 3, 4)
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
