@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels from movi_tpu_torch/csrc, checks each one
-against its plain PyTorch version on the card, drives the PML, count and
-ZML paths (`Index.query_pml`, `query_count` and `query_zml`, both record
-layouts each, and `python -m movi_tpu_torch.cli query`) at a real index
-size, checks the answers against the scalar oracle, and prints timings
-with the card's name and power limit.  Phases:
+Builds the CUDA kernels from movi_tpu_torch/csrc (eight sources, eleven
+launch counters), checks each one against its plain PyTorch version on
+the card, drives the PML, count, ZML and Movi Color paths
+(`Index.query_pml`, `query_count`, `query_zml` and `query_multiclass`/
+`multi_classify`, both record layouts each, and
+`python -m movi_tpu_torch.cli query`) at a real index size, checks the
+answers against the scalar oracles, and prints timings with the card's
+name and power limit.  Phases:
 
   1. device   the card, and its nvidia-smi name and power limit
   2. build    nvcc of the kernels; `make -C native` for the host SA-IS
@@ -35,10 +37,32 @@ with the card's name and power limit.  Phases:
               kernels 4-6 equal their plain versions over all lanes and
               the whole table, their timings, and a warm breakdown for
               each (query, layout)
-  6. cli     the port's CLI on the card against an index that
-              `movi_tpu.cli build` made: the PML and ZML --classify
-              reports, the count .matches file and ZML --stdout equal
-              --platform cpu
+  6. small color  the three-document index of tests/test_fused_color.py:
+              kernels A (3-word and two-load forms), B and C equal their
+              plain versions with early stop off and on (ml, color ids,
+              carried state, a scan split in two equal to one pass, the
+              compose table with real color ids and with ids past 2^15);
+              the one-step, two-load and paired engines equal ColorEngine
+              for every read; two exact 70 kb reads (5*csum past 2^31)
+              run to their end with early stop on (64-bit csum)
+  7. color    a 12-genome pangenome (12 x 500,000 bases, one ancestor
+              with 2% substitutions per genome, 12 species): 32,768 x
+              150 bp reads from the genomes (1% substitutions, seed 42),
+              64 x 10 kb from the genomes (seed 43) and 64 x 10 kb random
+              (seed 44) through Index.query_multiclass one-step and
+              paired (the color compose runs on the card), early stop off
+              and on, counted apart: the layouts agree, 256 sampled reads
+              equal ColorEngine, kernels A-C equal their plain versions
+              over all lanes and the whole table, timings and a warm
+              breakdown;
+              then a 24-genome pangenome (24 x 250,000 bases) whose
+              compressed color table keeps 2^16 sets: the two-load form
+              of kernel A, counted apart
+  8. cli     the port's CLI on the card against an index that
+              `movi_tpu.cli build --color` made: the PML and ZML
+              --classify reports, the count .matches file, ZML --stdout,
+              and --multi-classify (the CSV and .colors file, and
+              --early-stop --report-all on stdout) equal --platform cpu
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -82,11 +106,24 @@ CUDA_SOURCES = {
                           "movi_tpu/engine/fused_search2.py:383"),
     "fused2_zml_scan": ("movi_tpu_torch/csrc/fused_search2.cu",
                         "movi_tpu/engine/fused_search2.py:442"),
+    "fused_color_scan": ("movi_tpu_torch/csrc/fused_color.cu",
+                         "movi_tpu/engine/fused_color.py:113"),
+    "compose_paired_color_records": ("movi_tpu_torch/csrc/compose2.cu",
+                                     "movi_tpu/engine/fused2.py:96"),
+    "fused2_color_scan": ("movi_tpu_torch/csrc/fused2_color.cu",
+                          "movi_tpu/engine/fused2.py:482"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SEARCH_KERNELS = ("fused_count_scan", "fused_zml_scan",
                   "compose_search2_records", "fused2_count_scan",
                   "fused2_zml_scan")
+COLOR_KERNELS = ("fused_color_scan", "compose_paired_color_records",
+                 "fused2_color_scan")
+COLOR_GENOMES = 12        # the 12-genome pangenome of phase 7
+COLOR_GENOME_LEN = 500_000
+WIDE_GENOMES = 24         # its 24-genome, 2^16-set compressed twin
+WIDE_GENOME_LEN = 250_000
+EXACT_LEN = 70_000        # exact reads whose 5*csum passes 2^31
 
 
 def say(phase, msg):
@@ -681,6 +718,449 @@ def phase_search(dev, card, errs, timings, ctx):
     return counts
 
 
+def require_color_equal(what, got, want, errs, key):
+    """A color scan's (state, ml, cid) from the kernel and the plain
+    version must agree exactly, the early-stop state included."""
+    (st_k, ml_k, cid_k), (st_p, ml_p, cid_p) = got, want
+    require_equal(f"{what} ml", ml_k, ml_p, errs, key)
+    require_equal(f"{what} cid", cid_k, cid_p, errs, key)
+    for i, (a, b) in enumerate(zip(st_k, st_p)):
+        require_equal(f"{what} state[{i}]", a, b, errs, key)
+
+
+def color_scan(eng, batch):
+    """(kernel, plain, args, kw, rows per code) of a color engine's scan
+    of one batch: args (records, slots, p_dollar, codes, state), kw the
+    color ids of the two-load form and the early-stop lengths."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused2 as tf2
+    from movi_tpu_torch.engine import fused_color as tfc
+
+    if isinstance(eng, tf2.Fused2ColorEngine):
+        (rec, slots, pd, codes, st, lens), _ = eng.scan_args(batch)
+        return (kernels.fused2_color_scan, tf2.fused2_color_scan_plain,
+                (rec, slots, pd, codes, st), dict(lens=lens), 2)
+    rec, slots, pd, codes, st, cids, lens = eng.scan_args(batch)
+    return (kernels.fused_color_scan, tfc.fused_color_scan_plain,
+            (rec, slots, pd, codes, st), dict(cids=cids, lens=lens), 1)
+
+
+def color_pair(eng, batch, what, errs, key, split=False):
+    """Run an engine's color scan kernel and plain version on one batch;
+    with `split`, the kernel also runs in two pieces carried through its
+    state and t0, which must equal one pass.  Returns (the kernel's
+    output, the plain version's milliseconds, (fn, args, kw))."""
+    import torch
+
+    kern, plain, args, kw, rows = color_scan(eng, batch)
+    got = kern(*args, **kw)
+    want, plain_ms = timed_ms(lambda: plain(*args, **kw))
+    require_color_equal(what, got, want, errs, key)
+    if split:
+        codes, st0 = args[3], args[4]
+        cut = codes.shape[0] // 2 | 1
+        st, ml1, c1 = kern(*args[:3], codes[:cut], st0, **kw)
+        st, ml2, c2 = kern(*args[:3], codes[cut:], st, t0=rows * cut, **kw)
+        require_color_equal(f"{what} split",
+                            (st, torch.cat([ml1, ml2]), torch.cat([c1, c2])),
+                            got, errs, key)
+    return got, plain_ms, (kern, args, kw)
+
+
+def check_color_oracle(what, reads, got, oracle):
+    """got: [(name, (pmls, cell, colors))] against ColorEngine (built
+    with report_colors)."""
+    for (name, seq), (gname, res) in zip(reads, got):
+        pmls, cell = oracle.query_pml_multiclass(seq)
+        if gname != name or res != (pmls, cell, oracle.last_colors):
+            raise AssertionError(f"{what}: read {name} differs from "
+                                 f"ColorEngine")
+
+
+def check_exact_reads(dev, exact_len):
+    """Two reads copied from a two-document random text (100,000 bases
+    each): their PML is about t+1 at step t, so csum reaches
+    ~exact_len^2/2 and 5*csum passes 2^31 at the full length.  With early
+    stop on, both scans keep a 64-bit csum and run to the reads' end, as
+    the host rule says; the ml and color ids equal the scans without
+    early stop."""
+    from movi_tpu.io.fastx import make_batches
+    from movi_tpu_torch.api import Index
+    from movi_tpu_torch.engine import fused_color as tfc
+    from movi_tpu_torch.testing import colored_index, random_text
+
+    docs = [random_text(100_000, 31), random_text(100_000, 32)]
+    ix, ct = colored_index(docs, [1, 2])
+    exact = [(f"e{i}", d[1000:1000 + exact_len].tobytes())
+             for i, d in enumerate(docs)]
+    batch = next(make_batches(exact, lanes=2, bucket_widths=False))
+    index = Index(ix)
+    floor = 0.9 * exact_len * (exact_len + 1) // 2
+    for paired in (False, True):
+        outs = {}
+        for es in (False, True):
+            eng = index.color_engine(ct, paired, dev, early_stop=es)
+            kern, _, args, kw, _ = color_scan(eng, batch)
+            outs[es] = kern(*args, **kw)
+        (st, ml, cid), (_, ml0, cid0) = outs[True], outs[False]
+        require_equal("exact reads ml", ml[:exact_len], ml0[:exact_len])
+        require_equal("exact reads cid", cid[:exact_len], cid0[:exact_len])
+        mls = ml.cpu().numpy()
+        if (int(st[4].max()) != 0 or int(st[3].min()) < floor
+                or any(tfc.early_stop_len(mls[:exact_len, j], exact_len)
+                       != exact_len for j in range(2))):
+            raise AssertionError(f"exact reads (paired={paired}): stop "
+                                 f"{st[4].tolist()}, csum {st[3].tolist()}")
+    csum = int(st[3].min())
+    say("small color", f"two exact {exact_len}-base reads run to their end "
+                       f"with early stop on, both layouts: csum {csum}, "
+                       f"5*csum {5 * csum} (2^31 = {2**31})")
+
+
+def phase_small_color(dev, errs, exact_len=EXACT_LEN):
+    import torch
+
+    from movi_tpu.color import ColorEngine
+    from movi_tpu.io.fastx import make_batches
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.engine import fused2 as tf2
+    from movi_tpu_torch.engine import fused_color as tfc
+    from movi_tpu_torch.testing import early_stop_reads, small_color_index
+
+    _, ix, ct, reads = small_color_index()
+    reads = reads + early_stop_reads(reads, long_len=3000)
+    batch = next(make_batches(reads, lanes=len(reads), bucket_widths=False))
+    fi = tf.build_fused_index(ix).to(dev)
+    ci = tfc.build_fused_color_index(ix, ct, fi).to(dev)
+    ci_two = tfc.FusedColorIndex(fi=ci.fi, doc_set_inds=ci.doc_set_inds,
+                                 num_colors=ci.num_colors, records3=None)
+    slots = fi.sigma + 1
+
+    cids = ci.doc_set_inds
+    synth = torch.from_numpy(np.random.default_rng(8).integers(
+        1 << 15, 0xFFFF, size=ix.r).astype(np.int32)).to(dev)
+    for name, c in (("real", cids), ("ids past 2^15", synth)):
+        table_k, b_k = kernels.compose_paired_color_records(
+            fi.records, c, fi.r, slots, fi.p_dollar)
+        table_p, b_p = tf2.compose_records_plain(fi.records, fi.r, slots,
+                                                 fi.p_dollar, c)
+        require_equal(f"small color compose ({name})", table_k, table_p,
+                      errs, "compose_paired_color_records")
+        if b_k != b_p:
+            raise AssertionError(f"color compose B range {b_k} != {b_p}")
+    ci2 = tf2.build_fused2_color_index(fi, ct)
+
+    stopped = 0
+    for es in (False, True):
+        engs = {"3-word": tfc.FusedColorEngine(ci, ct, dev, early_stop=es),
+                "two-load": tfc.FusedColorEngine(ci_two, ct, dev,
+                                                 early_stop=es),
+                "paired": tf2.Fused2ColorEngine(ci2, ct, dev, early_stop=es)}
+        out = {}
+        for layout, eng in engs.items():
+            key = ("fused2_color_scan" if layout == "paired"
+                   else "fused_color_scan")
+            out[layout], _, _ = color_pair(
+                eng, batch, f"small {layout} early_stop={es}", errs, key,
+                split=True)
+        require_color_equal(f"small two-load vs 3-word early_stop={es}",
+                            out["two-load"], out["3-word"], errs,
+                            "fused_color_scan")
+        if es:
+            stopped = int((out["3-word"][0][4] > 0).sum())
+            if stopped == 0:
+                raise AssertionError("no lane stopped early")
+        oracle = ColorEngine(ix, ct, report_colors=True, early_stop=es)
+        index = Index(ix)
+        for paired in (False, True):
+            check_color_oracle(
+                f"small paired={paired} early_stop={es}", reads,
+                index.query_multiclass(reads, ct, paired=paired, device=dev,
+                                       early_stop=es), oracle)
+        eng = engs["two-load"]
+        got = [(n, r) for n, r in zip(batch.names, eng.query_batch(batch))]
+        check_color_oracle(f"small two-load early_stop={es}", reads, got,
+                           oracle)
+    say("small color", f"r={ix.r}, C={ci.num_colors}: kernels A (3-word and "
+                       f"two-load), B (real ids and ids past 2^15) and C "
+                       f"equal plain, early stop off and on ({stopped} "
+                       f"lanes stopped), split scans equal one pass; the "
+                       f"one-step, two-load and paired engines equal "
+                       f"ColorEngine on {len(reads)} reads")
+    check_exact_reads(dev, exact_len)
+
+
+def color_reads(genomes, lanes, long_reads):
+    """The phase-7 reads: 150 bp from the genomes (1% substitutions,
+    seed 42), 10 kb from the genomes (seed 43) and 10 kb random (seed
+    44)."""
+    from movi_tpu_torch.testing import ACGT, genome_reads
+
+    short = genome_reads(genomes, lanes, READ_LEN, seed=42)
+    longs = genome_reads(genomes, long_reads, LONG_LEN, seed=43)
+    rand = np.random.default_rng(44).choice(ACGT,
+                                            size=(long_reads, LONG_LEN))
+    return ([(f"s{i}", s.tobytes()) for i, s in enumerate(short)]
+            + [(f"g{i}", s.tobytes()) for i, s in enumerate(longs)]
+            + [(f"x{i}", s.tobytes()) for i, s in enumerate(rand)])
+
+
+def sample_picks(lanes, long_reads, n_short, n_long):
+    """Read indices sampled for the oracle: n_short of the 150 bp reads
+    and n_long of the 10 kb ones (at most as many as there are)."""
+    rng = np.random.default_rng(7)
+    return np.sort(np.concatenate([
+        rng.choice(lanes, min(n_short, lanes), replace=False),
+        lanes + rng.choice(2 * long_reads, min(n_long, 2 * long_reads),
+                           replace=False)]))
+
+
+def color_breakdown(index, ct, reads, paired, dev, k_ms, n_bases, card,
+                    tag):
+    """Where a warm query_multiclass's time goes: host batching, prepare
+    + scan (codes to the card and the kernel), tally (results to the
+    host, the per-read vote tally); the device's busy and idle shares."""
+    import torch
+
+    from movi_tpu_torch.api import _as_batches
+
+    layout = "paired" if paired else "one-step"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.query_multiclass(reads, ct, paired=paired, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = index.color_engine(ct, paired, dev)
+    t0 = time.perf_counter()
+    bs = list(_as_batches(reads, QUERY_LANES))
+    t_batch = time.perf_counter() - t0
+    t_scan = t_tally = 0.0
+    for b in bs:
+        t0 = time.perf_counter()
+        ml, color = eng.query_batch_device(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.host.results(ml, color, b)
+        t_scan += t1 - t0
+        t_tally += time.perf_counter() - t1
+    busy = k_ms / 1e3 / wall
+    say(tag, f"warm query_multiclass {layout}: wall {wall:.6f} s = "
+             f"{n_bases / wall:.6e} bases/s; kernel {k_ms:.6f} ms, device "
+             f"busy share (kernel / wall) {busy:.6f}, idle share "
+             f"{1 - busy:.6f}; host stages: batching {t_batch:.6f} s, "
+             f"prepare+scan {t_scan:.6f} s, tally {t_tally:.6f} s  ({card})")
+
+
+def phase_color(dev, card, errs, timings, lanes=FULL_LANES,
+                long_reads=LONG_READS, genomes=COLOR_GENOMES,
+                genome_len=COLOR_GENOME_LEN):
+    import torch
+
+    from movi_tpu.color import ColorEngine
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.engine import fused2 as tf2
+    from movi_tpu_torch.testing import colored_index, pangenome
+
+    t0 = time.perf_counter()
+    gen = pangenome(genomes, genome_len)
+    ix, ct = colored_index(gen, [1000 + g for g in range(genomes)])
+    t_build = time.perf_counter() - t0
+    r, slots = ix.r, ix.sigma + 1
+    C = len(ct.unique_doc_sets)
+    say("color", f"{genomes} genomes x {genome_len} bases, r={r}, C={C} "
+                 f"doc sets (widest {max(len(x) for x in ct.unique_doc_sets)}"
+                 f"); one-step color table {12 * slots * r} B, paired color "
+                 f"table {32 * slots**2 * r} B; host build (SA, index, "
+                 f"colors) {t_build:.3f} s")
+    reads = color_reads(gen, lanes, long_reads)
+    n_bases = sum(len(s) for _, s in reads)
+    index = Index(ix)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the color path, counted: nothing else launches between reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for paired in (False, True):
+        for es in (False, True):
+            t0 = time.perf_counter()
+            res[paired, es] = index.query_multiclass(
+                reads, ct, paired=paired, device=dev, early_stop=es)
+            torch.cuda.synchronize()
+            walls[paired, es] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in COLOR_KERNELS}
+    say("color", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"color path")
+    for es in (False, True):
+        if res[False, es] != res[True, es]:
+            raise AssertionError(f"color early_stop={es}: one-step and "
+                                 f"paired layouts disagree")
+    cells = index.multi_classify(reads, ct, paired=False, device=dev)
+    if cells != [(n, c) for n, (_, c, _) in res[False, False]]:
+        raise AssertionError("multi_classify cells differ from "
+                             "query_multiclass")
+    n_stop = sum(len(p) < len(s) for (_, s), (_, (p, _, _))
+                 in zip(reads, res[False, True]))
+    calls = {}
+    for _, c, _ in (x for _, x in res[False, False]):
+        calls[c] = calls.get(c, 0) + 1
+    say("color", "end to end (host clock, " + str(n_bases) + " bases): "
+        + "; ".join(f"{'paired' if p else 'one-step'} early_stop={es} "
+                    f"{w:.3f} s = {n_bases / w:.6e} bases/s"
+                    for (p, es), w in walls.items())
+        + f"; {n_stop} reads stopped early; the most frequent calls "
+        + str(sorted(calls.items(), key=lambda kv: -kv[1])[:4])
+        + f"  ({card})")
+
+    pick = sample_picks(lanes, long_reads, ORACLE_SAMPLE - 6, 6)
+    for es in (False, True):
+        oracle = ColorEngine(ix, ct, report_colors=True, early_stop=es)
+        check_color_oracle(f"color sample early_stop={es}",
+                           [reads[i] for i in pick],
+                           [res[False, es][i] for i in pick], oracle)
+    say("color", f"{len(pick)} sampled reads equal ColorEngine (pmls, "
+                 f"cells, colors; early stop off and on)")
+
+    # every kernel against its plain version over all lanes of the main
+    # path's batches, and the compose over the whole table
+    fi = index._fused
+    ci2 = index._paired_color[1]
+    cids = torch.from_numpy(np.minimum(ct.doc_set_inds, C)
+                            .astype(np.int32)).to(dev)
+    comp = (fi.records, cids, r, slots, fi.p_dollar)
+    (table_p, _), compose_plain_ms = timed_ms(
+        lambda: tf2.compose_records_plain(fi.records, r, slots, fi.p_dollar,
+                                          cids))
+    require_equal("full color compose table", ci2.f2.records, table_p, errs,
+                  "compose_paired_color_records")
+    del table_p
+    batches = list(_as_batches(reads, QUERY_LANES))
+    runs, plain_ms = {}, {}
+    for paired in (False, True):
+        for es in (False, True):
+            eng = index.color_engine(ct, paired, dev, early_stop=es)
+            key = "fused2_color_scan" if paired else "fused_color_scan"
+            runs[key, es], plain_ms[key, es] = [], 0.0
+            for b in batches:
+                _, ms, run = color_pair(eng, b, f"full {key} early_stop={es}",
+                                        errs, key)
+                runs[key, es].append(run)
+                plain_ms[key, es] += ms
+    say("color", "kernels A-C equal their plain versions over all lanes "
+                 "and the whole table")
+
+    shapes = [tuple(b.seqs.shape) for b in batches]
+    for (key, es), rs in runs.items():
+        k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
+        per = [cuda_ms(lambda: f(*a, **kw), reps=5) for f, a, kw in rs]
+        if not es:
+            timings[key] = (k_ms, plain_ms[key, es])
+        timings[key, es] = k_ms
+        per_s = ", ".join(f"{lb} lanes x {wb}: {ms:.6f} ms"
+                          for (lb, wb), ms in zip(shapes, per))
+        say("color", f"{key} early_stop={es} over the main path's "
+                     f"{len(batches)} batches ({n_bases} bases): kernel "
+                     f"{k_ms:.6f} ms = {n_bases / k_ms * 1e3:.6e} bases/s, "
+                     f"plain {plain_ms[key, es]:.6f} ms = "
+                     f"{n_bases / plain_ms[key, es] * 1e3:.6e} bases/s; "
+                     f"kernel per batch [{per_s}]  ({card})")
+    k_ms = cuda_ms(lambda: kernels.compose_paired_color_records(*comp),
+                   reps=3)
+    timings["compose_paired_color_records"] = (k_ms, compose_plain_ms)
+    say("color", f"color compose r={r}: kernel {k_ms / 1e3:.6f} s, plain "
+                 f"{compose_plain_ms / 1e3:.6f} s  ({card})")
+
+    for paired in (False, True):
+        key = "fused2_color_scan" if paired else "fused_color_scan"
+        color_breakdown(index, ct, reads, paired, dev, timings[key][0],
+                        n_bases, card, "color")
+    for (paired, es), w in walls.items():
+        if es:
+            key = "fused2_color_scan" if paired else "fused_color_scan"
+            busy = timings[key, True] / 1e3 / w
+            say("color", f"warm query_multiclass "
+                         f"{'paired' if paired else 'one-step'} early_stop"
+                         f"=True: wall {w:.6f} s = {n_bases / w:.6e} "
+                         f"bases/s; kernel {timings[key, True]:.6f} ms, "
+                         f"device busy share {busy:.6f}, idle share "
+                         f"{1 - busy:.6f}  ({card})")
+    say("color", f"peak device memory in this phase "
+                 f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
+    return counts
+
+
+def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
+                         long_reads=LONG_READS, genomes=WIDE_GENOMES,
+                         genome_len=WIDE_GENOME_LEN):
+    """A pangenome whose compressed color table keeps 2^16 sets: no
+    3-word records, no paired color records; kernel A's two-load form."""
+    import torch
+
+    from movi_tpu.color import ColorEngine, compress_color_table
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.testing import colored_index, pangenome
+
+    t0 = time.perf_counter()
+    gen = pangenome(genomes, genome_len)
+    ix, full = colored_index(gen, [1000 + g for g in range(genomes)])
+    ct = compress_color_table(full)  # the top 2^16 sets
+    t_build = time.perf_counter() - t0
+    C = len(ct.unique_doc_sets)
+    say("two-load", f"{genomes} genomes x {genome_len} bases, r={ix.r}, "
+                    f"{len(full.unique_doc_sets)} doc sets compressed to "
+                    f"C={C}; host build {t_build:.3f} s")
+    reads = color_reads(gen, lanes, long_reads)
+    n_bases = sum(len(s) for _, s in reads)
+    index = Index(ix)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = {es: index.query_multiclass(reads, ct, device=dev, early_stop=es)
+           for es in (False, True)}
+    torch.cuda.synchronize()
+    counts = {k: kernels.launches[k] for k in COLOR_KERNELS}
+    eng = index.color_engine(ct, paired=True, device=dev)
+    if (counts["fused_color_scan"] <= 0 or counts["fused2_color_scan"]
+            or counts["compose_paired_color_records"]
+            or eng.ci.records3 is not None):
+        raise AssertionError(f"the two-load form did not run alone: "
+                             f"{counts}, records3 "
+                             f"{eng.ci.records3 is not None}")
+    pick = sample_picks(lanes, long_reads, 60, 4)
+    for es in (False, True):
+        oracle = ColorEngine(ix, ct, report_colors=True, early_stop=es)
+        check_color_oracle(f"two-load sample early_stop={es}",
+                           [reads[i] for i in pick],
+                           [res[es][i] for i in pick], oracle)
+    batches = list(_as_batches(reads, QUERY_LANES))
+    for es in (False, True):
+        eng = index.color_engine(ct, device=dev, early_stop=es)
+        rs, p_ms = [], 0.0
+        for b in batches:
+            _, ms, run = color_pair(eng, b, f"two-load early_stop={es}",
+                                    errs, "fused_color_scan")
+            rs.append(run)
+            p_ms += ms
+        k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
+        timings["two-load", es] = (k_ms, p_ms)
+        say("two-load", f"fused_color_scan (two-load form) early_stop={es} "
+                        f"over {len(batches)} batches ({n_bases} bases): "
+                        f"kernel {k_ms:.6f} ms = "
+                        f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
+                        f"{p_ms:.6f} ms  ({card})")
+    say("two-load", f"launches {counts}; {len(pick)} sampled reads equal "
+                    f"ColorEngine; the kernel equals its plain version over "
+                    f"all lanes")
+    color_breakdown(index, ct, reads, False, dev,
+                    timings["two-load", False][0], n_bases, card, "two-load")
+
+
 def phase_cli(platform):
     from movi_tpu_torch.testing import mixed_reads, random_text
 
@@ -692,8 +1172,9 @@ def phase_cli(platform):
                 f.write(f">doc{i}\n{t.tobytes().decode()}\n")
         idx = os.path.join(d, "idx")
         subprocess.run([sys.executable, "-m", "movi_tpu.cli", "build",
-                        "--fasta", fasta, "--index", idx], cwd=ROOT,
-                       check=True, capture_output=True, timeout=600)
+                        "--fasta", fasta, "--index", idx, "--color"],
+                       cwd=ROOT, check=True, capture_output=True,
+                       timeout=600)
         reads = mixed_reads(refs[0], seed=5, count=30)
         rng = np.random.default_rng(4)
         for i in range(30):
@@ -704,13 +1185,17 @@ def phase_cli(platform):
         with open(rpath, "w") as f:
             f.writelines(f">{n}\n{s.decode()}\n" for n, s in reads)
         mode = "regular-thresholds"
-        # (query flags, the output compared: a file or stdout)
-        runs = [(["--pml", "--classify"], f"{rpath}.{mode}.pml.report"),
-                (["--zml", "--classify"], f"{rpath}.{mode}.zml.report"),
-                (["--count"], "{out}.count.matches"),
-                (["--zml", "--stdout"], None)]
+        # (query flags, the outputs compared: files, or stdout if none)
+        runs = [(["--pml", "--classify"], [f"{rpath}.{mode}.pml.report"]),
+                (["--zml", "--classify"], [f"{rpath}.{mode}.zml.report"]),
+                (["--count"], ["{out}.count.matches"]),
+                (["--zml", "--stdout"], []),
+                (["--pml", "--multi-classify", "--report-colors"],
+                 ["{out}", f"{rpath}.{mode}.colors"]),
+                (["--pml", "--multi-classify", "--early-stop", "--report-all",
+                  "--no-paired-records", "--stdout"], [])]
         n_found = {}
-        for flags, output in runs:
+        for flags, outputs in runs:
             texts = {}
             for plat in (platform, "cpu"):
                 out = os.path.join(d, plat)
@@ -719,13 +1204,12 @@ def phase_cli(platform):
                      "--index", idx, "--read", rpath, *flags, "--platform",
                      plat, "--out-file", out], cwd=ROOT, check=True,
                     capture_output=True, text=True, timeout=600)
-                if output is None:
-                    texts[plat] = res.stdout
-                    continue
-                path = output.format(out=out)
-                with open(path) as f:
-                    texts[plat] = f.read()
-                os.unlink(path)
+                texts[plat] = "" if outputs else res.stdout
+                for output in outputs:
+                    path = output.format(out=out)
+                    with open(path) as f:
+                        texts[plat] += f.read()
+                    os.unlink(path)
             what = " ".join(flags)
             if texts[platform] != texts["cpu"] or not texts["cpu"]:
                 raise AssertionError(f"CLI query {what}: output differs "
@@ -735,9 +1219,11 @@ def phase_cli(platform):
                 n_found[what] = sum(ln.split()[1] == "FOUND"
                                     for ln in texts["cpu"].splitlines()[1:]
                                     if len(ln.split()) > 1)
-    say("cli", f"query --pml --classify, --zml --classify, --count and "
-               f"--zml --stdout on --platform {platform} ({len(reads)} "
-               f"reads; found {n_found}) equal --platform cpu")
+    say("cli", f"query --pml --classify, --zml --classify, --count, --zml "
+               f"--stdout, --pml --multi-classify --report-colors and "
+               f"--multi-classify --early-stop --report-all --stdout on "
+               f"--platform {platform} ({len(reads)} reads; found "
+               f"{n_found}) equal --platform cpu")
 
 
 def main() -> int:
@@ -781,6 +1267,9 @@ def main() -> int:
     counts, ctx = phase_full(dev, card, errs, timings)
     counts.update(phase_search(dev, card, errs, timings, ctx))
     del ctx
+    phase_small_color(dev, errs)
+    counts.update(phase_color(dev, card, errs, timings))
+    phase_color_two_load(dev, card, errs, timings)
     phase_cli("gpu")
 
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,

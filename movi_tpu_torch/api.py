@@ -1,4 +1,5 @@
-"""High-level API, the PML, count and ZML surface of movi_tpu/api.py.
+"""High-level API, the PML, count, ZML and Movi Color surface of
+movi_tpu/api.py.
 
     from movi_tpu_torch import Index
 
@@ -7,11 +8,12 @@
     res = index.query_pml(reads)                        # [(name, pmls)]
     res = index.query_count(reads)           # [(name, (pos_on_r, count))]
     res = index.query_zml(reads)                        # [(name, zmls)]
+    res = index.multi_classify(reads, color_table)      # [(name, cell)]
 
 Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
 device passed in (default CUDA; without a card that raises unless the
 caller names the CPU).  The other query methods of the JAX API (MEMs,
-k-mers, color, SA entries) are not yet ported and are absent.
+k-mers, SA entries) are not yet ported and are absent.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from .convert import load_engine_caches
 from .device import DeviceLike, resolve_device
 from .engine.fused import (FusedPMLEngine, build_fused_index, is_bounded,
                            save_fused_index)
-from .engine.fused2 import (Fused2PMLEngine, build_fused2_index,
+from .engine.fused2 import (Fused2ColorEngine, Fused2PMLEngine,
+                            build_fused2_color_index, build_fused2_index,
                             save_fused2_index)
+from .engine.fused_color import FusedColorEngine, build_fused_color_index
 from .engine.fused_search import (FusedCountEngine, FusedZMLEngine,
                                   build_fused_search_index)
 from .engine.fused_search2 import (Fused2CountEngine, Fused2ZMLEngine,
@@ -59,6 +63,8 @@ class Index:
         self._paired = None   # Fused2Index
         self._search = None   # FusedSearchIndex
         self._paired_search = None  # FusedSearch2Index
+        self._color = None    # (ColorTable, FusedColorIndex)
+        self._paired_color = None   # (ColorTable, Fused2ColorIndex)
         self._bounded = None
 
     @classmethod
@@ -168,6 +174,44 @@ class Index:
         cls = FusedCountEngine if kind == "count" else FusedZMLEngine
         return cls(self._search, dev)
 
+    def color_engine(self, color_table, paired: Optional[bool] = None,
+                     device: DeviceLike = None, **color_kw):
+        """The Movi Color engine on `device` for `color_table`: paired=True
+        forces the paired 32 B records (when the kept doc sets fit 16-bit
+        color ids, else the one-step records), False the one-step layout,
+        None picks by capacity.  color_kw: min_match_len, pvalue_scoring,
+        report_all, min_diff_frac, min_score_frac, early_stop."""
+        if not self._pml_ported():
+            raise NotImplementedError(
+                "multi-class classification on an index without thresholds "
+                "or not built with bound_ff=1 (the scalar ColorEngine) is "
+                "not yet ported")
+        dev = resolve_device(device)
+        backend = pick_backend(self.ix.r, self.ix.sigma, "color",
+                               force_paired=paired, device=dev,
+                               num_sets=len(color_table.unique_doc_sets))
+        if backend == "compact":
+            raise NotImplementedError(
+                f"index (r={self.ix.r}) exceeds the device's record-table "
+                f"budget; the compact engine is not yet ported")
+        if self._fused is None:
+            self._fused = build_fused_index(self.ix)
+        self._fused = self._fused.to(dev)
+        if backend == "paired":
+            if self._paired_color is None or \
+                    self._paired_color[0] is not color_table:
+                self._paired_color = None  # free the old table first
+                self._paired_color = (color_table, build_fused2_color_index(
+                    self._fused, color_table))
+            return Fused2ColorEngine(self._paired_color[1], color_table, dev,
+                                     **color_kw)
+        if self._color is None or self._color[0] is not color_table:
+            self._color = (color_table, build_fused_color_index(
+                self.ix, color_table, self._fused))
+        self._color = (color_table, self._color[1].to(dev))
+        return FusedColorEngine(self._color[1], color_table, dev,
+                                **color_kw)
+
     @staticmethod
     def _run(eng, reads: Reads, lanes: int):
         out = []
@@ -192,6 +236,23 @@ class Index:
         """[(name, zmls)] with zmls in processing (right-to-left) order."""
         return self._run(self.search_engine("zml", paired, device), reads,
                          lanes)
+
+    def query_multiclass(self, reads: Reads, color_table, lanes: int = 8192,
+                         paired: Optional[bool] = None,
+                         device: DeviceLike = None, **color_kw):
+        """[(name, (pmls, csv_cell, colors))]: the per-base PMLs and color
+        ids (the `--report-colors` stream: the kept color id of each
+        counted base, the sentinel C for a skipped one), truncated at the
+        early-stop point when early_stop is on, in processing order."""
+        return self._run(self.color_engine(color_table, paired, device,
+                                           **color_kw), reads, lanes)
+
+    def multi_classify(self, reads: Reads, color_table, lanes: int = 8192,
+                       paired: Optional[bool] = None,
+                       device: DeviceLike = None, **color_kw):
+        """Movi Color multi-class classification: [(name, csv_cell)]."""
+        return [(name, cell) for name, (_, cell, _) in self.query_multiclass(
+            reads, color_table, lanes, paired, device, **color_kw)]
 
 
 def build_index(fasta, **kw) -> Index:

@@ -1,16 +1,21 @@
-"""movi_tpu_torch command-line interface: `query --pml`, `--zml` and
-`--count` on the port.
+"""movi_tpu_torch command-line interface: `query --pml`, `--zml`,
+`--count` and `--pml --multi-classify` on the port.
 
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
         (--pml | --zml | --count) [--classify | --filter [--invert]] \\
         [--stdout] [--platform cpu]
+    python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
+        --multi-classify [--early-stop] [--report-colors] [--report-all] \\
+        [--lca-tree nodes.dmp] [--stdout] [--platform cpu]
 
-Mirrors the PML, ZML and count branches of movi_tpu/cli.py `query` (index
-loading, the classifier, the stdout/BPF/.matches/report writers), sharing
-its host helpers; the record caches and the layout choice are
-`api.Index`'s.  Indexes are built with `python -m movi_tpu.cli build`.
-Other query types (MEMs, k-mers), and indexes the fused engines cannot run
-(PML without thresholds, or not built with bound_ff=1), are not yet
+Mirrors the PML, ZML, count and Movi Color branches of movi_tpu/cli.py
+`query` (index and color-table loading, the classifier, the
+stdout/BPF/.matches/report/.multiclass.csv/.colors writers, LCA
+post-processing), sharing its host helpers; the record caches and the
+layout choice are `api.Index`'s.  Indexes are built with
+`python -m movi_tpu.cli build` (`--color` for the color table).  Other
+query types (MEMs, k-mers), and indexes the fused engines cannot run (PML
+or color without thresholds, or not built with bound_ff=1), are not yet
 ported: asking for them is an error, never a fallback to another engine.
 """
 
@@ -19,7 +24,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from movi_tpu.cli import _apply_ignore_illegal, _load_index, _paired_force
+from movi_tpu.cli import (_apply_ignore_illegal, _load_color_table,
+                          _load_index, _paired_force)
 from movi_tpu.commons import error, info, timing
 
 _NOT_PORTED = ("mem", "kmer", "kmer_count")
@@ -57,6 +63,9 @@ def cmd_query(args):
         reads = _apply_ignore_illegal(ix, reads, args.ignore_illegal_chars)
 
     index = Index.load(args.index, ix=ix)
+    if args.multi_classify:
+        multi_classify(args, ix, index, reads, device)
+        return
     query = {"pml": index.query_pml, "zml": index.query_zml,
              "count": index.query_count}[qt]
     results = query(reads, lanes=args.lanes, paired=_paired_force(args),
@@ -124,11 +133,45 @@ def cmd_query(args):
             info(f"wrote {rpath}")
 
 
+def multi_classify(args, ix, index, reads, device):
+    """The --multi-classify branch: the CSV of per-read calls (or stdout),
+    the .colors file with --report-colors, LCA post-processing."""
+    ct = _load_color_table(args.index, ix)
+    report_colors = args.report_colors or args.report_color_ids
+    results = index.query_multiclass(
+        reads, ct, lanes=args.lanes, paired=_paired_force(args),
+        device=device, min_match_len=args.min_match_len,
+        pvalue_scoring=args.pvalue_scoring, report_all=args.report_all,
+        min_diff_frac=args.min_diff_frac, min_score_frac=args.min_score_frac,
+        early_stop=args.early_stop)
+    lines = [f"{name},{cell}" for name, (_, cell, _) in results]
+    if report_colors:
+        cpath = f"{args.read}.{ix.mode}.colors"
+        with open(cpath, "w") as f:
+            for name, (_, _, cols) in results:
+                f.write(f">{name}\n" + " ".join(map(str, reversed(cols)))
+                        + "\n")
+        info(f"wrote {cpath}")
+    if args.lca_tree:
+        from movi_tpu.lca import lca_postprocess, load_nodes_dmp
+
+        lines = lca_postprocess(lines, load_nodes_dmp(args.lca_tree))
+    if args.stdout:
+        for ln in lines:
+            print(ln)
+        return
+    out_path = args.out_file or f"{args.read}.{ix.mode}.multiclass.csv"
+    with open(out_path, "w") as f:
+        for ln in lines:
+            f.write(ln + "\n")
+    info(f"wrote {out_path}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="movi-tpu-torch",
-        description="PyTorch/CUDA port of movi_tpu (PML, ZML and count "
-                    "queries)")
+        description="PyTorch/CUDA port of movi_tpu (PML, ZML, count and "
+                    "Movi Color queries)")
     sub = p.add_subparsers(dest="command", required=True)
 
     q = sub.add_parser("query")
@@ -141,6 +184,24 @@ def main(argv=None):
         q.add_argument("--" + flag.replace("_", "-"), action="store_true",
                        help=argparse.SUPPRESS)
     q.add_argument("--classify", action="store_true")
+    q.add_argument("--multi-classify", action="store_true",
+                   help="Movi Color multi-class classification (with "
+                        "--pml)")
+    q.add_argument("--min-match-len", "--min-len", type=int, default=0)
+    q.add_argument("--pvalue-scoring", action="store_true")
+    q.add_argument("--lca-tree", default="",
+                   help="nodes.dmp for LCA post-processing of multi-class "
+                        "calls")
+    q.add_argument("--early-stop", action="store_true",
+                   help="abort unclassified reads early (multi-classify)")
+    q.add_argument("--report-all", action="store_true",
+                   help="report every document within min-diff-frac / "
+                        "min-score-frac of the best")
+    q.add_argument("--min-diff-frac", type=float, default=0.05)
+    q.add_argument("--min-score-frac", type=float, default=0.0)
+    q.add_argument("--report-colors", action="store_true",
+                   help="write per-base color ids to <reads>.<mode>.colors")
+    q.add_argument("--report-color-ids", action="store_true")
     q.add_argument("--filter", action="store_true")
     q.add_argument("--invert", action="store_true")
     q.add_argument("--stdout", action="store_true")

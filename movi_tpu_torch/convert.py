@@ -2,8 +2,8 @@
 
 Both packages keep the same host index (`movi_tpu.index.structure.
 MoveIndex`, shared as is) and the same record tables.  These helpers turn
-the JAX package's record objects, read as numpy arrays, into the port's,
-and read the `*.npz` caches that movi_tpu writes (`build --fused-cache`,
+the JAX package's record objects (PML, count/ZML and Movi Color), read as
+numpy arrays, into the port's, and read the `*.npz` caches that movi_tpu writes (`build --fused-cache`,
 `build --paired-cache`, `Index.save`): the one-step and paired PML
 records and the paired search records.  Nothing here imports JAX: a JAX
 array is only read through `np.asarray`.
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from .engine.fused import FusedIndex, load_fused_index
-from .engine.fused2 import Fused2Index, load_fused2_index
+from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
+from .engine.fused_color import FusedColorIndex
 from .engine.fused_search import FusedSearchIndex
 from .engine.fused_search2 import FusedSearch2Index, load_fused_search2_index
 
@@ -44,6 +45,21 @@ def fused_index_from_jax(fi) -> FusedIndex:
 def fused2_index_from_jax(f2) -> Fused2Index:
     """A movi_tpu Fused2Index (4-word PML records) -> the port's."""
     return Fused2Index(**_fields(f2))
+
+
+def fused_color_index_from_jax(ci) -> FusedColorIndex:
+    """A movi_tpu FusedColorIndex (3-word records, or None past 16-bit
+    color ids) -> the port's."""
+    return FusedColorIndex(
+        fi=fused_index_from_jax(ci.fi), doc_set_inds=_tensor(ci.doc_set_inds),
+        num_colors=int(ci.num_colors),
+        records3=None if ci.records3 is None else _tensor(ci.records3))
+
+
+def fused2_color_index_from_jax(ci2) -> Fused2ColorIndex:
+    """A movi_tpu Fused2ColorIndex (8-word color records) -> the port's."""
+    return Fused2ColorIndex(f2=fused2_index_from_jax(ci2.f2),
+                            num_colors=int(ci2.num_colors))
 
 
 def fused_search_index_from_jax(si) -> FusedSearchIndex:

@@ -8,9 +8,10 @@
 // past the L2).  Halving the dependent loads per base against kernel 1 is
 // the point of the layout.  Design: as kernel 1, one thread per read lane
 // with the state in registers and the loop over the W2 pair steps inside
-// the kernel; one int4 load per step, the decode in registers, and two
-// coalesced int32 stores (rows 2t and 2t+1 of ml).  Words are decoded
-// from uint32 because the A_hi field reaches bit 31; record rows are
+// the kernel; one int4 load per step, the decode in registers
+// (records.cuh decode_pair), and two coalesced int32 stores (rows 2t and
+// 2t+1 of ml).  Words are decoded from uint32 because the A_hi field
+// reaches bit 31; record rows are
 // indexed as int4 with 64-bit arithmetic (the word offset passes 2^31 at
 // r near 2^25).
 
@@ -38,50 +39,15 @@ __global__ void fused2_pml_scan_kernel(
     int m = ml_in[lane];
     for (int t = 0; t < W2; ++t) {
         const int a = (int)a12[(size_t)t * lanes + lane];
-        const int4 rec = records[(int64_t)idx * s2 + a];
-        const uint32_t w0 = (uint32_t)rec.x;
-        const uint32_t w3 = (uint32_t)rec.w;
-        const int T1 = (int)(w0 & 0x1FFFu) - movi::BIAS;
-        const int match1 = (int)((w0 >> 13) & 1u);
-        const bool hi = off >= T1;
-        const uint32_t wb = (uint32_t)(hi ? rec.z : rec.y);
-        const int A = hi ? (int)(((w3 >> 16) & 0xFFFFu)
-                                 | (((w0 >> 23) & 0x1FFu) << 16))
-                         : (int)((w3 & 0xFFFFu)
-                                 | (((w0 >> 14) & 0x1FFu) << 16));
-        const int B = (int)(wb & 0x1FFFu) - movi::BIAS;
-        const int C = (int)((wb >> 13) & 0xFFFu);
-        const int kind = (int)((wb >> 25) & 3u);
-        const int flags = (int)((wb >> 27) & 7u);
-        int nidx, noff;
-        if (kind == movi::KIND_LF2) {
-            const int off0 = B + off;
-            const int ff = off0 >= C ? 1 : 0;
-            nidx = A + ff;
-            noff = off0 - ff * C;
-        } else if (kind == movi::KIND_MIS2) {
-            const int bump = flags & 1;
-            const int d_up = (flags >> 1) & 1;
-            const int d_dn = (flags >> 2) & 1;
-            if (off >= B) {
-                nidx = d_dn ? pd_run : A + bump;
-                noff = d_dn ? pd_off : (bump ? 0 : C + 1);
-            } else {
-                nidx = d_up ? pd_run : A;
-                noff = d_up ? pd_off : C;
-            }
-        } else {
-            nidx = A;
-            noff = C;
-        }
-        const int match2 = kind == movi::KIND_MIS2 ? 0 : (flags & 1);
-        const int ml1 = match1 ? m + 1 : 0;
-        const int ml2 = match2 ? ml1 + 1 : 0;
+        const movi::PairStep d = movi::decode_pair(
+            records[(int64_t)idx * s2 + a], off, pd_run, pd_off);
+        const int ml1 = d.match1 ? m + 1 : 0;
+        const int ml2 = d.match2 ? ml1 + 1 : 0;
         const size_t row = (size_t)(2 * t) * lanes + lane;
         ml[row] = ml1;
         ml[row + lanes] = ml2;
-        idx = nidx;
-        off = noff;
+        idx = d.nidx;
+        off = d.noff;
         m = ml2;
     }
     idx_out[lane] = idx;

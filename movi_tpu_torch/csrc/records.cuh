@@ -69,6 +69,57 @@ __device__ __forceinline__ void step1(const Step1& f, int offset,
     }
 }
 
+// One paired step decoded from the first four words of a paired record
+// (fused2.py _fused2_decode): the next state, both bases' match bits, and
+// the selectors the color words read (the branch bit hi, the LF2
+// fast-forward ff, the MIS2 direction down, the kind).
+struct PairStep {
+    int nidx, noff, match1, match2, kind;
+    bool hi, ff, down;
+};
+
+__device__ __forceinline__ PairStep decode_pair(int4 rec, int off,
+                                                int pd_run, int pd_off) {
+    const uint32_t w0 = (uint32_t)rec.x;
+    const uint32_t w3 = (uint32_t)rec.w;
+    const int T1 = (int)(w0 & 0x1FFFu) - BIAS;
+    PairStep d;
+    d.match1 = (int)((w0 >> 13) & 1u);
+    d.hi = off >= T1;
+    const uint32_t wb = (uint32_t)(d.hi ? rec.z : rec.y);
+    const int A = d.hi ? (int)(((w3 >> 16) & 0xFFFFu)
+                               | (((w0 >> 23) & 0x1FFu) << 16))
+                       : (int)((w3 & 0xFFFFu)
+                               | (((w0 >> 14) & 0x1FFu) << 16));
+    const int B = (int)(wb & 0x1FFFu) - BIAS;
+    const int C = (int)((wb >> 13) & 0xFFFu);
+    d.kind = (int)((wb >> 25) & 3u);
+    const int flags = (int)((wb >> 27) & 7u);
+    const int off0 = B + off;
+    d.ff = off0 >= C;
+    d.down = off >= B;
+    if (d.kind == KIND_LF2) {
+        d.nidx = A + (d.ff ? 1 : 0);
+        d.noff = d.ff ? off0 - C : off0;
+    } else if (d.kind == KIND_MIS2) {
+        const int bump = flags & 1;
+        const int d_up = (flags >> 1) & 1;
+        const int d_dn = (flags >> 2) & 1;
+        if (d.down) {
+            d.nidx = d_dn ? pd_run : A + bump;
+            d.noff = d_dn ? pd_off : (bump ? 0 : C + 1);
+        } else {
+            d.nidx = d_up ? pd_run : A;
+            d.noff = d_up ? pd_off : C;
+        }
+    } else {
+        d.nidx = A;
+        d.noff = C;
+    }
+    d.match2 = d.kind == KIND_MIS2 ? 0 : (flags & 1);
+    return d;
+}
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }

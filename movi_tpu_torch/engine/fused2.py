@@ -14,6 +14,17 @@ Packing (4 int32 words; run ids are 25-bit, so r < 2^25):
 Bit 31 of w0 is set when A_hi >= 2^24: every decode masks after the
 arithmetic shift, and the packer builds words in int64 and wraps them to
 int32 explicitly.
+
+Paired Movi Color widens each record to 8 words (32 B) with the color
+ids of both steps' candidate destinations, 16 bits each:
+  w4: step-1 {lo (0-15), hi (16-31)}, selected by the branch bit
+  w5: the lo branch's step-2 {a, b}, selected by ff (LF2) or down (MIS2);
+      CONST branches carry their one destination in both halves
+  w6: the same for the hi branch
+  w7: zero (pads the row to 32 B)
+Built by csrc/compose2.cu's color entry on CUDA and the plain compose
+with `cids` on the CPU; scanned by csrc/fused2_color.cu and
+fused2_color_scan_plain.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from ..device import DeviceLike, resolve_device
 from .fused import (BIT_BUMP, BIT_DOLLAR_DN, BIT_DOLLAR_UP, BIT_MATCH,
                     BIT_USE_LF, FA_MASK, FB_MASK, FB_SHIFT, FusedIndex,
                     initial_state, trim)
+from .fused_color import (MAX_PACKED_COLORS, ColorTally, color_state,
+                          es_update, scanned_rows)
 
 KIND_LF2 = 0
 KIND_MIS2 = 1
@@ -48,7 +61,7 @@ COMPOSE_CHUNK = 1 << 19
 class Fused2Index:
     r: int
     sigma: int
-    records: torch.Tensor       # int32 [r*(sigma+1)^2, 4]
+    records: torch.Tensor       # int32 [r*(sigma+1)^2, 4] (8 for color)
     start_idx: int
     start_offset: int
     p_dollar: Tuple[int, int]
@@ -74,10 +87,17 @@ def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def pack_words(T1, match1, lo, hi) -> torch.Tensor:
+def _pair16(lo, hi) -> torch.Tensor:
+    """Two 16-bit ids in one word (int64; bit 31 set when hi >= 2^15)."""
+    return lo.to(torch.int64) | (hi.to(torch.int64) << 16)
+
+
+def pack_words(T1, match1, lo, hi, colors=None) -> torch.Tensor:
     """The four record words from the header (T1, match1) and the lo and
     hi branch descriptors (A, B, C, kind, flags), built in int64 and
-    wrapped to int32.  Returns int32 [..., 4]."""
+    wrapped to int32; with colors ((lo, hi) id pairs of step 1, of the lo
+    branch's step 2 and of the hi branch's step 2), the eight words of
+    the color records.  Returns int32 [..., 4] or [..., 8]."""
     Al, Bl, Cl, kl, fl = (v.to(torch.int64) for v in lo)
     Ah, Bh, Ch, kh, fh = (v.to(torch.int64) for v in hi)
     T1 = T1.to(torch.int64)
@@ -86,13 +106,18 @@ def pack_words(T1, match1, lo, hi) -> torch.Tensor:
     w1 = (Bl + _BIAS) | (Cl << 13) | (kl << 25) | (fl << 27)
     w2 = (Bh + _BIAS) | (Ch << 13) | (kh << 25) | (fh << 27)
     w3 = (Al & 0xFFFF) | ((Ah & 0xFFFF) << 16)
-    return _wrap_int32(torch.stack([w0, w1, w2, w3], dim=-1))
+    words = [w0, w1, w2, w3]
+    if colors is not None:
+        words += [_pair16(*pair) for pair in colors]
+        words.append(torch.zeros_like(w0))
+    return _wrap_int32(torch.stack(words, dim=-1))
 
 
 def _compose_chunk_plain(records1, c0: int, ch: int, r: int, slots: int,
-                         p_dollar):
-    """Records for runs [c0, c0+ch) as int32 [ch*slots^2, 4], and the
-    chunk's B min and max.  Axes: [run, a1, a2]."""
+                         p_dollar, cids=None):
+    """Records for runs [c0, c0+ch) as int32 [ch*slots^2, 4] (8 with
+    cids, int32 [r] clamped color ids), and the chunk's B min and max.
+    Axes: [run, a1, a2]."""
     pd_run, pd_off = p_dollar
     dev = records1.device
     chunk = records1[c0 * slots:(c0 + ch) * slots].reshape(ch, slots, 1, 2)
@@ -117,8 +142,12 @@ def _compose_chunk_plain(records1, c0: int, ch: int, r: int, slots: int,
     c_hi = where(use_lf1, fa1 - fb1, 0)
     y_hi = where(use_lf1, 0, y_dn)
 
+    def cid(ix_):
+        return cids[ix_.clamp(0, r - 1).to(torch.int64)]
+
     def descriptor(i_b, c_b, y_b):
-        """(A, B, C, kind, flags) per [run, a1, a2] for one branch."""
+        """(A, B, C, kind, flags) per [run, a1, a2] for one branch, and
+        with cids its step-2 destination color-id pair (a, b)."""
         # unreachable branches may carry out-of-range ids: clip to gather
         i = i_b.clamp(0, r - 1).to(torch.int64)
         rows = records1[i * slots + a2]               # [ch, slots, slots, 2]
@@ -148,30 +177,45 @@ def _compose_chunk_plain(records1, c0: int, ch: int, r: int, slots: int,
         C = where(lf2, g["fb"], where(mis2, g["fa"], d_c))
         kind = where(lf2, KIND_LF2, where(mis2, KIND_MIS2, KIND_CONST))
         flags = where(lf2, g["match"], where(mis2, fl_mis, fl_c))
-        return A, B, C, kind, flags
+        if cids is None:
+            return (A, B, C, kind, flags), None
+        # selected at query time by ff (LF2), down (MIS2) or nothing
+        up2 = where(g["d_up"] == 1, pd_run, g["m"])
+        dn2 = where(g["d_dn"] == 1, pd_run, g["m"] + g["bump"])
+        c2a = where(lf2, cid(A), where(mis2, cid(up2), cid(j_c)))
+        c2b = where(lf2, cid(A + 1), where(mis2, cid(dn2), cid(j_c)))
+        return (A, B, C, kind, flags), (c2a, c2b)
 
-    lo = descriptor(i_lo, c_lo, y_lo)
-    hi = descriptor(i_hi, c_hi, y_hi)
+    lo, c2_lo = descriptor(i_lo, c_lo, y_lo)
+    hi, c2_hi = descriptor(i_hi, c_hi, y_hi)
     shape = lo[0].shape
-    words = pack_words(T1.expand(shape), f1["match"].expand(shape), lo, hi)
+    colors = None
+    if cids is not None:
+        colors = ((cid(i_lo).expand(shape), cid(i_hi).expand(shape)),
+                  c2_lo, c2_hi)
+    words = pack_words(T1.expand(shape), f1["match"].expand(shape), lo, hi,
+                       colors)
     b_min = int(torch.minimum(lo[1].min(), hi[1].min()))
     b_max = int(torch.maximum(lo[1].max(), hi[1].max()))
-    return words.reshape(-1, 4), b_min, b_max
+    return words.reshape(-1, words.shape[-1]), b_min, b_max
 
 
 def compose_records_plain(records1: torch.Tensor, r: int, slots: int,
-                          p_dollar, chunk_runs: int = 0):
-    """Plain PyTorch compose, chunk by chunk into one preallocated table.
-    The last chunk re-composes a few overlapping runs rather than
-    composing a ragged tail.  Returns (table, (b_min, b_max))."""
+                          p_dollar, cids=None, chunk_runs: int = 0):
+    """Plain PyTorch compose, chunk by chunk into one preallocated table
+    (4 words per record, 8 with cids).  The last chunk re-composes a few
+    overlapping runs rather than composing a ragged tail.  Returns
+    (table, (b_min, b_max))."""
     assert chunk_runs >= 0, f"chunk_runs must be >= 0, got {chunk_runs}"
     ch = min(r, chunk_runs or COMPOSE_CHUNK)
     s2 = slots * slots
-    out = torch.zeros((r * s2, 4), dtype=torch.int32, device=records1.device)
+    nw = 4 if cids is None else 8
+    out = torch.zeros((r * s2, nw), dtype=torch.int32,
+                      device=records1.device)
     bmin, bmax = [], []
     for c0 in list(range(0, r - ch, ch)) + [r - ch]:
         words, bn, bx = _compose_chunk_plain(records1, c0, ch, r, slots,
-                                             p_dollar)
+                                             p_dollar, cids)
         out[c0 * s2:(c0 + ch) * s2] = words
         bmin.append(bn)
         bmax.append(bx)
@@ -179,15 +223,21 @@ def compose_records_plain(records1: torch.Tensor, r: int, slots: int,
 
 
 def compose_records(records1: torch.Tensor, r: int, slots: int, p_dollar,
-                    chunk_runs: int = 0):
-    """The paired table from the one-step records: the CUDA kernel on a
-    CUDA tensor (which needs no chunks), the plain compose on a CPU
-    tensor.  Returns (table, (b_min, b_max))."""
+                    cids=None, chunk_runs: int = 0):
+    """The paired table from the one-step records (the 8-word color
+    table with cids): the CUDA kernels on a CUDA tensor (which need no
+    chunks), the plain compose on a CPU tensor.  Returns (table, (b_min,
+    b_max))."""
     if records1.device.type == "cuda":
-        return kernels.compose_paired_records(records1, r, slots, p_dollar)
+        if cids is None:
+            return kernels.compose_paired_records(records1, r, slots,
+                                                  p_dollar)
+        return kernels.compose_paired_color_records(records1, cids, r,
+                                                    slots, p_dollar)
     if records1.device.type != "cpu":
         raise ValueError(f"no compose for device {records1.device}")
-    return compose_records_plain(records1, r, slots, p_dollar, chunk_runs)
+    return compose_records_plain(records1, r, slots, p_dollar, cids,
+                                 chunk_runs)
 
 
 def build_fused2_index(fi: FusedIndex) -> Fused2Index:
@@ -209,8 +259,9 @@ def build_fused2_index(fi: FusedIndex) -> Fused2Index:
 
 
 def _fused2_decode(rec: torch.Tensor, offset: torch.Tensor, p_dollar):
-    """Paired-record decode on a gathered [lanes, 4] record.  Returns
-    (new_idx, new_off, match1, match2)."""
+    """Paired-record decode on a gathered [lanes, >=4] record.  Returns
+    (new_idx, new_off, match1, match2, hi, ff, down, kind): the last four
+    are the selectors the color records read."""
     where = torch.where
     w0 = rec[:, 0]
     w3 = rec[:, 3]
@@ -251,7 +302,7 @@ def _fused2_decode(rec: torch.Tensor, offset: torch.Tensor, p_dollar):
     new_off = where(kind == KIND_LF2, lf_off,
                     where(kind == KIND_MIS2, mis_off, C))
     match2 = where(kind == KIND_MIS2, 0, flags & 1)
-    return new_idx, new_off, match1, match2
+    return new_idx, new_off, match1, match2, hi, ff, down, kind
 
 
 _FUSED2_FMT = 2  # on-disk cache format, shared with movi_tpu
@@ -286,7 +337,8 @@ def fused2_step(records: torch.Tensor, slots: int, p_dollar, state, a12):
     a12 = a1 * slots + a2.  Returns (state, (ml1, ml2))."""
     idx, offset, ml = state
     rec = records[idx.to(torch.int64) * (slots * slots) + a12]
-    new_idx, new_off, match1, match2 = _fused2_decode(rec, offset, p_dollar)
+    new_idx, new_off, match1, match2, *_ = _fused2_decode(rec, offset,
+                                                          p_dollar)
     ml1 = torch.where(match1 == 1, ml + 1, 0)
     ml2 = torch.where(match2 == 1, ml1 + 1, 0)
     return (new_idx, new_off, ml2), (ml1, ml2)
@@ -360,3 +412,155 @@ class Fused2PMLEngine:
 
     def query_batch(self, batch: ReadBatch) -> List[List[int]]:
         return trim(self.query_batch_device(batch), batch)
+
+
+# Paired Movi Color: PML and both bases' color ids per 32 B record
+
+
+@dataclass
+class Fused2ColorIndex:
+    f2: Fused2Index             # records: the 8-word color records
+    num_colors: int
+
+    def to(self, device) -> "Fused2ColorIndex":
+        return replace(self, f2=self.f2.to(device))
+
+
+def build_fused2_color_index(fi: FusedIndex, ct) -> Fused2ColorIndex:
+    """Compose the 8-word paired color records on the device fi's
+    records are on.  Needs the kept-set count C to fit 16 bits."""
+    r, sigma = fi.r, fi.sigma
+    assert r < MAX_RUNS, (
+        f"paired records hold 25-bit run ids; r={r} exceeds {MAX_RUNS}")
+    C = len(ct.unique_doc_sets)
+    assert C + 1 <= MAX_PACKED_COLORS, (
+        "paired color records need at most 2^16-2 kept doc sets")
+    cids = torch.from_numpy(np.minimum(np.asarray(ct.doc_set_inds), C)
+                            .astype(np.int32)).to(fi.records.device)
+    records, (bmin, bmax) = compose_records(fi.records, r, sigma + 1,
+                                            fi.p_dollar, cids)
+    assert bmin >= -_BIAS and bmax < _BIAS, (
+        "composed B field out of its 13-bit range -- corrupt index?")
+    f2 = Fused2Index(r=r, sigma=sigma, records=records,
+                     start_idx=fi.start_idx, start_offset=fi.start_offset,
+                     p_dollar=fi.p_dollar, alphamap_query=fi.alphamap_query)
+    return Fused2ColorIndex(f2=f2, num_colors=C)
+
+
+def fused2_color_step(records: torch.Tensor, slots: int, p_dollar, state,
+                      a12):
+    """Two PML base steps and both destinations' color ids from one 32 B
+    record: the shared decode, then word 4's half by the branch bit and
+    word 5 or 6's half by ff (LF2) or down (MIS2).  Returns (state, (ml1,
+    ml2, cid1, cid2))."""
+    idx, offset, ml = state
+    rec = records[idx.to(torch.int64) * (slots * slots) + a12]
+    (new_idx, new_off, match1, match2,
+     hi, ff, down, kind) = _fused2_decode(rec, offset, p_dollar)
+    ml1 = torch.where(match1 == 1, ml + 1, 0)
+    ml2 = torch.where(match2 == 1, ml1 + 1, 0)
+    w4 = rec[:, 4]
+    cid1 = torch.where(hi, (w4 >> 16) & 0xFFFF, w4 & 0xFFFF)
+    wc2 = torch.where(hi, rec[:, 6], rec[:, 5])
+    sel2 = torch.where(kind == KIND_LF2, ff,
+                       torch.where(kind == KIND_MIS2, down.to(torch.int32),
+                                   0))
+    cid2 = torch.where(sel2 == 1, (wc2 >> 16) & 0xFFFF, wc2 & 0xFFFF)
+    return (new_idx, new_off, ml2), (ml1, ml2, cid1, cid2)
+
+
+def fused2_color_scan_plain(records: torch.Tensor, slots: int, p_dollar,
+                            a12_t: torch.Tensor, state, lens=None,
+                            t0: int = 0):
+    """Plain PyTorch paired color scan over a12_t [W2, lanes].  state:
+    (idx, off, ml), plus (csum, stop) with lens (early stop, two checks
+    per pair step; t0, the global step of row 0, is even).  Returns
+    (state, ml, cid), both [2*W2, lanes]: rows 2t and 2t+1 are the
+    pair's bases."""
+    W2, lanes = a12_t.shape
+    dev = a12_t.device
+    es = lens is not None
+    fill = torch.zeros if es else torch.empty
+    ml = fill((2 * W2, lanes), dtype=torch.int32, device=dev)
+    cid = fill((2 * W2, lanes), dtype=torch.int32, device=dev)
+    a12 = a12_t.to(torch.int64)
+    core = tuple(state[:3])
+    if es:
+        csum, stop = state[3], state[4]
+    for t in range(W2):
+        new_core, outs = fused2_color_step(records, slots, p_dollar, core,
+                                           a12[t])
+        ml1, ml2, c1, c2 = outs
+        if not es:
+            core = new_core
+            ml[2 * t], ml[2 * t + 1], cid[2 * t], cid[2 * t + 1] = outs
+            continue
+        tg = t0 + 2 * t
+        live = (stop == 0) & (tg < lens)
+        core = tuple(torch.where(live, n, o) for n, o in zip(new_core, core))
+        ml[2 * t] = torch.where(live, ml1, 0)
+        ml[2 * t + 1] = torch.where(live, ml2, 0)
+        cid[2 * t] = torch.where(live, c1, 0)
+        cid[2 * t + 1] = torch.where(live, c2, 0)
+        csum, hit1 = es_update(csum, live, ml1, tg, lens)
+        csum, hit2 = es_update(csum, live, ml2, tg + 1, lens)
+        stop = torch.where(hit1 | hit2, tg + 2, stop).to(torch.int32)
+    state = core + ((csum, stop) if es else ())
+    return state, ml, cid
+
+
+def fused2_color_scan(records: torch.Tensor, slots: int, p_dollar,
+                      a12_t: torch.Tensor, state, lens=None, t0: int = 0):
+    """The paired color scan: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if records.device.type == "cuda":
+        return kernels.fused2_color_scan(records, slots, p_dollar, a12_t,
+                                         state, lens, t0)
+    if records.device.type != "cpu":
+        raise ValueError(f"no scan for device {records.device}")
+    return fused2_color_scan_plain(records, slots, p_dollar, a12_t, state,
+                                   lens, t0)
+
+
+class Fused2ColorEngine:
+    """Multi-class classification at one 32 B record load per two bases,
+    with the one-step engine's host tally; a batch of any width is one
+    scan."""
+
+    def __init__(self, ci: Fused2ColorIndex, ct, device: DeviceLike = None,
+                 **color_kw):
+        self.device = resolve_device(device)
+        self.ci = ci.to(self.device)
+        self.host = ColorTally(ct, **color_kw)
+        self.last_scanned_rows = 0
+
+    def prepare(self, batch: ReadBatch):
+        """Pair codes in scan order as [W2, lanes] on the device, and W."""
+        f2 = self.ci.f2
+        a12, W = pack_pairs(f2.alphamap_query[batch.seqs[:, ::-1]],
+                            f2.sigma)
+        return torch.from_numpy(a12).to(self.device), W
+
+    def scan_args(self, batch: ReadBatch):
+        """(records, slots, p_dollar, a12_t, state, lens) of the batch's
+        scan from the start of every read, and W."""
+        f2 = self.ci.f2
+        a12_t, W = self.prepare(batch)
+        es = self.host.early_stop
+        lens = (torch.from_numpy(batch.lengths.astype(np.int32))
+                .to(self.device) if es else None)
+        state = color_state(f2, a12_t.shape[1], self.device, es)
+        return (f2.records, f2.sigma + 1, f2.p_dollar, a12_t, state,
+                lens), W
+
+    def query_batch_device(self, batch: ReadBatch):
+        """(ml, color) int32 [W, lanes] on the device."""
+        args, W = self.scan_args(batch)
+        state, ml, color = fused2_color_scan(*args)
+        self.last_scanned_rows = (scanned_rows(state, args[-1], W)
+                                  if self.host.early_stop else W)
+        return ml[:W], color[:W]
+
+    def query_batch(self, batch: ReadBatch):
+        """Per lane: (pmls, csv_cell, per-base color ids)."""
+        return self.host.results(*self.query_batch_device(batch), batch)

@@ -3,7 +3,9 @@
 Port of movi_tpu/engine/select.py.  For PML the paired records cost
 16*(sigma+1)^2 B per run (400 B for DNA) against 8*(sigma+1) B per run for
 the one-step layout; for count/ZML ("search") 48*sigma^2 B per run (768 B)
-against 32*sigma B per run.  The budget is the device's own memory
+against 32*sigma B per run; for Movi Color ("color") 32*(sigma+1)^2 B per
+run (800 B) against 12*(sigma+1) B per run, and the paired color records
+also need the kept doc sets to fit 16-bit color ids.  The budget is the device's own memory
 (device.memory_budget_bytes).  The JAX package's VMEM-residency rule is a
 TPU measurement and is not carried over: no cache-residency rule has been
 measured on the card, so a small index takes the paired layout here.
@@ -16,6 +18,7 @@ from typing import Optional
 
 from ..device import DeviceLike, memory_budget_bytes
 from .fused2 import MAX_RUNS
+from .fused_color import MAX_PACKED_COLORS
 from .fused_search2 import MAX_RUNS as SEARCH2_MAX_RUNS
 from .fused_search2 import MAX_SIGMA as SEARCH2_MAX_SIGMA
 
@@ -39,6 +42,14 @@ def one_step_search_table_bytes(r: int, sigma: int) -> int:
     return 32 * sigma * r
 
 
+def paired_color_table_bytes(r: int, sigma: int) -> int:
+    return 2 * paired_pml_table_bytes(r, sigma)
+
+
+def one_step_color_table_bytes(r: int, sigma: int) -> int:
+    return 12 * (sigma + 1) * r
+
+
 def _fits(nbytes: int, device: DeviceLike) -> bool:
     return nbytes <= BUDGET_FRACTION * memory_budget_bytes(device)
 
@@ -60,21 +71,39 @@ def use_paired_search(r: int, sigma: int, force: Optional[bool] = None,
             and _fits(paired_search_table_bytes(r, sigma), device))
 
 
+def use_paired_color(r: int, sigma: int, num_sets: int,
+                     force: Optional[bool] = None,
+                     device: DeviceLike = None) -> bool:
+    """True when Movi Color should run on the paired 32 B records, which
+    also need num_sets + 1 (the sentinel) to fit 16 bits; a forced
+    paired layout that cannot hold the color ids gives the one-step
+    engine."""
+    if force is not None:
+        return force and num_sets + 1 <= MAX_PACKED_COLORS
+    return (r < MAX_RUNS and num_sets + 1 <= MAX_PACKED_COLORS
+            and _fits(paired_color_table_bytes(r, sigma), device))
+
+
 def pick_backend(r: int, sigma: int, kind: str = "pml",
                  force_paired: Optional[bool] = None,
-                 device: DeviceLike = None) -> str:
-    """'paired' when the two-step layout of `kind` ("pml" or "search")
-    fits, else 'one-step' when the one-step table fits, else 'compact'
-    (not yet ported)."""
-    if kind not in ("pml", "search"):
+                 device: DeviceLike = None, num_sets: int = 0) -> str:
+    """'paired' when the two-step layout of `kind` ("pml", "search" or
+    "color", which takes the kept doc-set count num_sets) fits, else
+    'one-step' when the one-step table fits, else 'compact' (not yet
+    ported)."""
+    if kind == "pml":
+        paired = use_paired_pml(r, sigma, force_paired, device)
+        one_step = one_step_pml_table_bytes(r, sigma)
+    elif kind == "search":
+        paired = use_paired_search(r, sigma, force_paired, device)
+        one_step = one_step_search_table_bytes(r, sigma)
+    elif kind == "color":
+        paired = use_paired_color(r, sigma, num_sets, force_paired, device)
+        one_step = one_step_color_table_bytes(r, sigma)
+    else:
         raise ValueError(f"unknown query kind {kind!r}")
-    pml = kind == "pml"
-    paired = (use_paired_pml if pml else use_paired_search)(
-        r, sigma, force=force_paired, device=device)
     if paired:
         return "paired"
-    one_step = (one_step_pml_table_bytes if pml
-                else one_step_search_table_bytes)(r, sigma)
     if _fits(one_step, device):
         return "one-step"
     return "compact"

@@ -35,7 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused2_pml_scan": 0, "fused_count_scan": 0,
             "fused_zml_scan": 0, "compose_search2_records": 0,
-            "fused2_count_scan": 0, "fused2_zml_scan": 0}
+            "fused2_count_scan": 0, "fused2_zml_scan": 0,
+            "fused_color_scan": 0, "compose_paired_color_records": 0,
+            "fused2_color_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -58,6 +60,15 @@ _SIGNATURES = {
     "movi_fused2_count_scan": _SEARCH,
     "movi_fused2_zml_scan": _SEARCH,
     "movi_compose_search2_records": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # the color scans: (records, rec_words [, cids] or pair_bytes, codes,
+    # steps, lanes, slots, pd_run, pd_off, lens, t0, 5 state in, 5 state
+    # out, ml, cid, stream); lens NULL runs without early stop
+    "movi_fused_color_scan": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                              *[_P] * 13],
+    "movi_compose_paired_color_records": [_P, _P, _I, _I, _I, _I, _P, _P,
+                                          _P],
+    "movi_fused2_color_scan": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
+                               *[_P] * 13],
 }
 
 
@@ -230,6 +241,116 @@ def compose_paired_records(records1: torch.Tensor, r: int, slots: int,
     launches["compose_paired_records"] += 1
     bmin, bmax = bminmax.tolist()
     return out, (bmin, bmax)
+
+
+def compose_paired_color_records(records1: torch.Tensor, cids: torch.Tensor,
+                                 r: int, slots: int, p_dollar):
+    """Kernel B: the paired color table int32 [r*slots^2, 8] from the
+    one-step records int32 [r*slots, 2] and the clamped color ids int32
+    [r].  Returns (table, (b_min, b_max))."""
+    dev = records1.device
+    if dev.type != "cuda":
+        raise ValueError("compose_paired_color_records launches on CUDA "
+                         "tensors only")
+    _check(records1, "records1", torch.int32, dev, (r * slots, 2))
+    _check(cids, "cids", torch.int32, dev, (r,))
+    out = torch.empty((r * slots * slots, 8), dtype=torch.int32, device=dev)
+    bminmax = torch.tensor([2**31 - 1, -2**31], dtype=torch.int32,
+                           device=dev)
+    lib = _load()
+    code = lib.movi_compose_paired_color_records(
+        records1.data_ptr(), cids.data_ptr(), r, slots, int(p_dollar[0]),
+        int(p_dollar[1]), out.data_ptr(), bminmax.data_ptr(), _stream(dev))
+    _raise_on(code, "compose_paired_color_records")
+    launches["compose_paired_color_records"] += 1
+    bmin, bmax = bminmax.tolist()
+    return out, (bmin, bmax)
+
+
+def _color_scan(entry: str, counter: str, records, codes, code_dtypes,
+                slots: int, p_dollar, state, lens, t0: int, rows_per_step,
+                lead):
+    """Shared launch of the two color scans: check, allocate, launch.
+    state is (idx, off, ml) int32 [lanes], plus (csum int64, stop int32)
+    when lens (int32 [lanes]) asks for early stop; the outputs are then
+    zero-filled, so rows past a lane's retirement read zero.  `lead` are
+    the entry's arguments between the records and the codes pointer."""
+    dev = records.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check(records, "records", torch.int32, dev)
+    if codes.dtype not in code_dtypes:
+        raise ValueError(f"codes have dtype {codes.dtype}, expected one "
+                         f"of {code_dtypes}")
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", codes.dtype, dev)
+    steps, lanes = codes.shape
+    es = lens is not None
+    if len(state) != (5 if es else 3):
+        raise ValueError("state is (idx, off, ml), plus (csum, stop) with "
+                         "lens")
+    for i, s in enumerate(state):
+        _check(s, f"state[{i}]", torch.int64 if i == 3 else torch.int32,
+               dev, (lanes,))
+    if es:
+        _check(lens, "lens", torch.int32, dev, (lanes,))
+    new_state = tuple(torch.empty_like(s) for s in state)
+    fill = torch.zeros if es else torch.empty
+    ml = fill((rows_per_step * steps, lanes), dtype=torch.int32, device=dev)
+    cid = fill((rows_per_step * steps, lanes), dtype=torch.int32, device=dev)
+    es_ptrs = ([state[3].data_ptr(), state[4].data_ptr()] if es
+               else [None, None])
+    es_out = ([new_state[3].data_ptr(), new_state[4].data_ptr()] if es
+              else [None, None])
+    lib = _load()
+    code = getattr(lib, entry)(
+        records.data_ptr(), *lead, codes.data_ptr(), steps, lanes, slots,
+        int(p_dollar[0]), int(p_dollar[1]),
+        None if lens is None else lens.data_ptr(), int(t0),
+        *[s.data_ptr() for s in state[:3]], *es_ptrs,
+        *[s.data_ptr() for s in new_state[:3]], *es_out,
+        ml.data_ptr(), cid.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    return new_state, ml, cid
+
+
+def fused_color_scan(records: torch.Tensor, slots: int, p_dollar,
+                     alphas_t: torch.Tensor, state, cids=None, lens=None,
+                     t0: int = 0):
+    """Kernel A: one-step PML and color ids over alphas_t [W, lanes]
+    (uint8 slots), from the 3-word color records int32 [rows, 3], or from
+    the PML records int32 [rows, 2] and cids int32 [r].  With lens, early
+    stop from global step t0.  Returns (state, ml, cid [W, lanes])."""
+    words = 3 if cids is None else 2
+    if records.dim() != 2 or records.shape[1] != words:
+        raise ValueError(f"records must be [rows, {words}]"
+                         + ("" if cids is None else " with cids"))
+    if cids is not None:
+        _check(cids, "cids", torch.int32, records.device,
+               (records.shape[0] // slots,))
+    return _color_scan("movi_fused_color_scan", "fused_color_scan", records,
+                       alphas_t, (torch.uint8,), slots, p_dollar, state,
+                       lens, t0, 1,
+                       (words, None if cids is None else cids.data_ptr()))
+
+
+def fused2_color_scan(records: torch.Tensor, slots: int, p_dollar,
+                      a12_t: torch.Tensor, state, lens=None, t0: int = 0):
+    """Kernel C: paired PML and color ids over a12_t [W2, lanes] (uint8
+    or int32 pair codes) on the 8-word color records.  With lens, early
+    stop from global step t0 (even).  Returns (state, ml, cid [2*W2,
+    lanes])."""
+    if records.dim() != 2 or records.shape[1] != 8:
+        raise ValueError("records must be [rows, 8]")
+    if t0 % 2:
+        raise ValueError("a paired scan starts on a pair boundary (even "
+                         "t0)")
+    return _color_scan("movi_fused2_color_scan", "fused2_color_scan",
+                       records, a12_t, (torch.uint8, torch.int32), slots,
+                       p_dollar, state, lens, t0, 2,
+                       (a12_t.element_size(),))
 
 
 SEARCH_STATE_ROWS = 6  # (rs, os, re, oe) + (matched, done) or (have, ml)

@@ -1,6 +1,7 @@
 """The port's API and CLI against movi_tpu's, on the CPU: identical PML,
-count and ZML lists, byte-identical `query --stdout` output, `.matches`
-files and --classify reports."""
+count, ZML and multi-class lists, byte-identical `query --stdout` output,
+`.matches` files, --classify reports, and --multi-classify CSVs and
+.colors files."""
 
 import os
 import subprocess
@@ -222,3 +223,88 @@ def test_cli_other_queries_not_yet_ported(built, flag):
                                     reads, flag, "--platform", "cpu"])
     assert r.returncode != 0
     assert "not yet ported" in r.stderr
+
+
+@pytest.mark.parametrize("paired,early_stop", [(None, False), (True, True),
+                                               (False, True)])
+def test_api_multi_classify_equals_jax(paired, early_stop):
+    """Index.multi_classify's cells equal the JAX API's, and
+    query_multiclass's streams equal ColorEngine's (with --report-colors)."""
+    from movi_tpu.color import ColorEngine
+    from movi_tpu_torch.testing import early_stop_reads, small_color_index
+
+    _, ix, ct, reads = small_color_index()
+    reads = reads + early_stop_reads(reads)
+    kw = dict(early_stop=early_stop, report_all=early_stop)
+    want = japi.Index(ix).multi_classify(reads, ct, lanes=16, paired=paired,
+                                         **kw)
+    index = tapi.Index(ix)
+    assert index.multi_classify(reads, ct, lanes=16, paired=paired,
+                                device="cpu", **kw) == want
+    sc = ColorEngine(ix, ct, report_colors=True, **kw)
+    got = index.query_multiclass(reads, ct, lanes=16, paired=paired,
+                                 device="cpu", **kw)
+    for (name, seq), (gname, res) in zip(reads, got):
+        pmls, cell = sc.query_pml_multiclass(seq)
+        assert gname == name and res == (pmls, cell, sc.last_colors)
+
+
+@pytest.fixture(scope="module")
+def built_color(tmp_path_factory):
+    """A colored index (`movi_tpu.cli build --color`) of three documents,
+    two sharing a stretch, and reads from them plus random ones long
+    enough to stop early."""
+    d = tmp_path_factory.mktemp("torch_cli_color")
+    refs = [random_text(3000, 21), random_text(2500, 22)]
+    refs.append(np.concatenate([refs[0][:1500], random_text(1500, 23)]))
+    fasta = d / "ref.fa"
+    fasta.write_text("".join(f">doc{i}\n{t.tobytes().decode()}\n"
+                             for i, t in enumerate(refs)))
+    idx = str(d / "idx")
+    r = _cli("movi_tpu.cli", ["build", "--fasta", str(fasta), "--index",
+                              idx, "--color"])
+    assert r.returncode == 0, r.stderr
+    reads = []
+    for i, ref in enumerate(refs):
+        reads += [(f"d{i}_{n}", s) for n, s in mixed_reads(ref, seed=30 + i,
+                                                           count=8)]
+    reads += [(f"u{i}", random_text(250 + 40 * i, 60 + i).tobytes())
+              for i in range(6)]
+    rpath = d / "reads.fa"
+    rpath.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in reads))
+    return idx, str(rpath)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_multi_classify_csv_and_colors_identical(built_color, layout):
+    """query --pml --multi-classify --report-colors: the CSV and the
+    .colors file equal the JAX CLI's."""
+    idx, reads = built_color
+    csv = reads + ".mc.csv"
+    colors = f"{reads}.regular-thresholds.colors"
+    base = ["query", "--index", idx, "--read", reads, "--pml",
+            "--multi-classify", "--report-colors", "--out-file", csv,
+            "--platform", "cpu"]
+    texts = []
+    for module, extra in (("movi_tpu.cli", []),
+                          ("movi_tpu_torch.cli", layout)):
+        for p in (csv, colors):
+            if os.path.exists(p):
+                os.unlink(p)
+        r = _cli(module, base + extra)
+        assert r.returncode == 0, r.stderr
+        with open(csv) as f, open(colors) as g:
+            texts.append((f.read(), g.read()))
+    assert texts[0] == texts[1]
+    assert len(texts[0][0].splitlines()) == 30
+    assert len(texts[0][1].splitlines()) == 60
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cli_multi_classify_early_stop_stdout_identical(built_color, layout):
+    want, got = _query_both(
+        built_color, ["--pml", "--multi-classify", "--early-stop",
+                      "--report-all", "--min-match-len", "2", "--stdout"],
+        layout)
+    assert got == want
+    assert len(want.splitlines()) == 30

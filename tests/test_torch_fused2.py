@@ -146,7 +146,7 @@ def test_25_bit_run_ids_decode_exactly(A_lo, A_hi):
     T1 = 5
     for off, want_A, want_C in [(T1 - 1, A_lo, 7), (T1, A_hi, 9)]:
         offs = torch.tensor([off], dtype=torch.int32)
-        idx, o, m1, _ = tf2._fused2_decode(rec, offs, (0, 0))
+        idx, o, m1, *_ = tf2._fused2_decode(rec, offs, (0, 0))
         assert (int(idx[0]), int(o[0]), int(m1[0])) == (want_A, want_C, 1)
         jidx, jo, *_ = jf2._fused2_decode(jnp.asarray(rec.numpy()),
                                           jnp.asarray([off]), (0, 0))

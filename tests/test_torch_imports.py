@@ -12,9 +12,10 @@ import movi_tpu_torch
 from movi_tpu_torch import device, kernels
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
+from movi_tpu_torch.engine import fused_color as tfc
 from movi_tpu_torch.engine import fused_search as ts
 from movi_tpu_torch.engine import fused_search2 as ts2
-from movi_tpu_torch.testing import small_index
+from movi_tpu_torch.testing import small_color_index, small_index
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(movi_tpu_torch.__file__)
@@ -34,6 +35,7 @@ def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded by conftest)."""
     mods = _modules()
     assert "movi_tpu_torch.cli" in mods and len(mods) >= 10
+    assert "movi_tpu_torch.engine.fused_color" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -75,13 +77,30 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                           pairs, a0=chars[0])
     ts2.fused2_zml_scan(s2.rec_all, s2.init_rec, s2.restart_rec, s2.r,
                         s2.sigma, pairs)
+    _, cix, ct, _ = small_color_index()
+    cfi = tf.build_fused_index(cix)
+    ci = tfc.build_fused_color_index(cix, ct, cfi)
+    lens = torch.full((4,), 9, dtype=torch.int32)
+    for es in (False, True):
+        st = tfc.color_state(cfi, 4, "cpu", es)
+        tfc.fused_color_scan(ci.records3, slots, cfi.p_dollar, alphas, st,
+                             lens=lens if es else None)
+        tfc.fused_color_scan(cfi.records, slots, cfi.p_dollar, alphas, st,
+                             ci.doc_set_inds, lens if es else None)
+        c2 = tf2.build_fused2_color_index(cfi, ct)  # runs the compose
+        a12 = torch.randint(0, slots * slots, (5, 4), dtype=torch.uint8)
+        tf2.fused2_color_scan(c2.f2.records, slots, cfi.p_dollar, a12, st,
+                              lens if es else None)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
                                      "fused2_pml_scan", "fused_count_scan",
                                      "fused_zml_scan",
                                      "compose_search2_records",
-                                     "fused2_count_scan", "fused2_zml_scan"}
+                                     "fused2_count_scan", "fused2_zml_scan",
+                                     "fused_color_scan",
+                                     "compose_paired_color_records",
+                                     "fused2_color_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -113,6 +132,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     nxt = torch.zeros((4, 3), dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.compose_search2_records(runs, runs, runs, nxt, nxt, 3, 4)
+    codes = torch.zeros((3, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        kernels.fused_color_scan(torch.zeros((10, 3), dtype=torch.int32), 5,
+                                 (0, 0), codes, st)
+    with pytest.raises(ValueError):
+        kernels.fused_color_scan(rec, 5, (0, 0), codes, st,
+                                 cids=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.compose_paired_color_records(
+            rec, torch.zeros(2, dtype=torch.int32), 2, 5, (0, 0))
+    with pytest.raises(ValueError):
+        kernels.fused2_color_scan(torch.zeros((50, 8), dtype=torch.int32), 5,
+                                  (0, 0), codes, st)
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
