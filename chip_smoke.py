@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (eight sources, eleven
+Builds the CUDA kernels from movi_tpu_torch/csrc (nine sources, thirteen
 launch counters), checks each one against its plain PyTorch version on
-the card, drives the PML, count, ZML and Movi Color paths
-(`Index.query_pml`, `query_count`, `query_zml` and `query_multiclass`/
-`multi_classify`, both record layouts each, and
-`python -m movi_tpu_torch.cli query`) at a real index size, checks the
-answers against the scalar oracles, and prints timings with the card's
-name and power limit.  Phases:
+the card, drives the PML, count, ZML, SA-entries and Movi Color paths
+(`Index.query_pml`, `query_count`, `query_zml`, `FusedSAEngine.query`
+and `query_multiclass`/`multi_classify`, both record layouts each, and
+`python -m movi_tpu_torch.cli build` and `query`) at a real index size,
+checks the answers against the scalar oracles, and prints timings with
+the card's name and power limit.  Phases:
 
   1. device   the card, and its nvidia-smi name and power limit
   2. build    nvcc of the kernels; `make -C native` for the host SA-IS
@@ -19,6 +19,13 @@ name and power limit.  Phases:
               equal to one pass, the compose tables); every layout of PML,
               count and ZML equals ScalarEngine; kernel 3 on synthetic
               records whose run ids pass 2^24 (w0's sign bit)
+     small SA the 5,000-base index of tests/test_fused_sa.py with its
+              sampled SA at rates 100, 37 and 1,000 (long walks), reads
+              with N's and of lengths 1-4097: kernels 8a and 8b equal
+              their plain versions (ml, pre-LF run and offset, carried
+              state, a scan split in two equal to one pass, the SA values
+              over every element, padding included); FusedSAEngine
+              equals ScalarEngine.query_pml(collect_sa=True)
   4. full     bench.py's synthetic index (6 Mb random ACGT, seed 0,
               regular thresholds, bound_ff=1): 32,768 reads x 150 bp with
               1% substitutions (seed 42) plus 64 reads of 10 kb, through
@@ -37,6 +44,13 @@ name and power limit.  Phases:
               kernels 4-6 equal their plain versions over all lanes and
               the whole table, their timings, and a warm breakdown for
               each (query, layout)
+     SA       the same index with its sampled SA at rate 100 and the same
+              reads through FusedSAEngine.query, counted apart: kernels
+              8a and 8b equal their plain versions over all lanes, 256
+              sampled reads equal ScalarEngine(collect_sa=True), the
+              walk's mean and longest steps per element, timings and a
+              warm breakdown (batching, prepare, pre-scan, walk, D2H,
+              tolist)
   6. small color  the three-document index of tests/test_fused_color.py:
               kernels A (3-word and two-load forms), B and C equal their
               plain versions with early stop off and on (ml, color ids,
@@ -58,16 +72,22 @@ name and power limit.  Phases:
               then a 24-genome pangenome (24 x 250,000 bases) whose
               compressed color table keeps 2^16 sets: the two-load form
               of kernel A, counted apart
-  8. cli     the port's CLI on the card against an index that
-              `movi_tpu.cli build --color` made: the PML and ZML
+  8. cli     the port's CLI on the card against an index that its own
+              `build --color --sa-entries` made: the PML and ZML
               --classify reports, the count .matches file, ZML --stdout,
-              and --multi-classify (the CSV and .colors file, and
-              --early-stop --report-all on stdout) equal --platform cpu
+              --multi-classify (the CSV and .colors file, and
+              --early-stop --report-all on stdout) and --pml --sa-entries
+              (both .bpf files) equal --platform cpu byte for byte
 
 Any failed check raises and the script exits nonzero.  The line before
-the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a card it exits nonzero and
-prints no result.  It imports nothing of JAX.
+the last is the kernels' JSON record: for each launch counter its
+launches on its path, its largest difference from its plain version, its
+time and the plain version's over the path's batches, and its bound (the
+larger of the bytes it must move over the card's memory rate and its
+integer operations over the card's scalar rate, from this run's inputs).
+The last line is {"ok": true, "device": {...}}.  Without a card it exits
+nonzero and prints no result.  It imports nothing of JAX and nothing of
+the JAX package.
 """
 
 import json
@@ -112,8 +132,21 @@ CUDA_SOURCES = {
                                      "movi_tpu/engine/fused2.py:96"),
     "fused2_color_scan": ("movi_tpu_torch/csrc/fused2_color.cu",
                           "movi_tpu/engine/fused2.py:482"),
+    "fused_sa_pre_scan": ("movi_tpu_torch/csrc/fused_sa.cu",
+                          "movi_tpu/engine/fused_sa.py:83"),
+    "sa_walk": ("movi_tpu_torch/csrc/fused_sa.cu",
+                "movi_tpu/engine/fused_sa.py:119"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
+SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
+SA_RATE = 100             # build --sa-sample-rate's default
+SMALL_SA_RATES = (100, 37, 1000)
+# the bound: NVIDIA's published H100 SXM peaks (HBM3, and float32 outside
+# the tensor cores, the table's rate for scalar work), and an upper
+# estimate of the integer operations of one record step or composed record
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+OPS_PER_ROW = 32
 SEARCH_KERNELS = ("fused_count_scan", "fused_zml_scan",
                   "compose_search2_records", "fused2_count_scan",
                   "fused2_zml_scan")
@@ -171,6 +204,30 @@ def require_state_equal(what, st_a, st_b, errs, key):
         require_equal(f"{what} state {name}", a, b, errs, key)
 
 
+def add_work(work, key, nbytes, nops):
+    """Add a launch's bytes moved and integer operations to work[key]."""
+    b, o = work.get(key, (0, 0))
+    work[key] = (b + int(nbytes), o + int(nops))
+
+
+def scan_work(codes, row_bytes, out_bytes, state_bytes):
+    """(bytes, ops) of a scan that gathers row_bytes per code of codes
+    [steps, lanes] and writes out_bytes per code, with state_bytes per
+    lane in and out."""
+    n = codes.numel()
+    return (n * (row_bytes + codes.element_size() + out_bytes)
+            + 2 * state_bytes * codes.shape[1], n * OPS_PER_ROW)
+
+
+def bound(nbytes, nops):
+    """The least milliseconds the card could take: the larger of bytes
+    over the memory rate and operations over the scalar rate, and which
+    of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def timed_ms(fn):
     """fn() and the milliseconds it took on the card (CUDA events)."""
     import torch
@@ -206,12 +263,12 @@ def check_oracle(what, reads, got, oracle):
 def phase_small(dev, errs):
     import torch
 
-    from movi_tpu.cpu_ref.scalar import ScalarEngine
-    from movi_tpu.io.fastx import make_batches
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch.engine import fused as tf
     from movi_tpu_torch.engine import fused2 as tf2
+    from movi_tpu_torch.io.fastx import make_batches
     from movi_tpu_torch.testing import length_reads, mixed_reads, small_index
 
     text, ix = small_index()
@@ -293,7 +350,8 @@ def search_pair(kernel, plain, args, kw, what, errs, key, split=None):
     """Run a search scan kernel and its plain version on the same inputs
     (args, then the chars as args[-1]); with `split`, the kernel also
     runs in two pieces carried through its state, which must equal one
-    pass.  Returns the plain version's milliseconds."""
+    pass.  Returns the plain version's milliseconds and the kernel's
+    (state, out)."""
     import torch
 
     got = kernel(*args, **kw)
@@ -309,7 +367,31 @@ def search_pair(kernel, plain, args, kw, what, errs, key, split=None):
         else:  # count: the last piece's count is the pass's
             require_equal(f"{what} split count", out2, got[1], errs, key)
         require_equal(f"{what} split state", st, got[0], errs, key)
-    return plain_ms
+    return plain_ms, got
+
+
+def search_work(kind, codes, state):
+    """(bytes, ops) of one search scan over codes [steps, lanes] ending in
+    state [6, lanes]: ZML gathers two rows a step (16 B one-step, 24 B
+    paired) and writes every ml; count loads rows only until its lane is
+    done, so its steps come from the final (matched x, done y): x-1+y
+    steps one-step, (x-1)//2+y pair steps paired, none where the first
+    char is illegal."""
+    import torch
+
+    paired = "2" in kind
+    row = 2 * (24 if paired else 16)
+    if kind.startswith("zml"):
+        return scan_work(codes, row, 4 * (2 if paired else 1), 24)
+    x = state[4].to(torch.int64)
+    y = state[5].to(torch.int64)
+    steps = torch.where(x > 0, (x - 1) // 2 + y if paired else x - 1 + y,
+                        0)
+    n = int(steps.sum())
+    lanes = codes.shape[1]
+    # each step's rows and char; per lane the first char, the state out,
+    # the count and its two run starts
+    return n * (row + 1) + lanes * (1 + 24 + 4 + 8), n * OPS_PER_ROW
 
 
 def search_args(kind, s, batch, dev):
@@ -362,12 +444,12 @@ def check_search_oracle(what, reads, count, zml, oracle):
 
 
 def phase_small_search(dev, errs):
-    from movi_tpu.cpu_ref.scalar import ScalarEngine
-    from movi_tpu.io.fastx import make_batches
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch.engine import fused_search as ts
     from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.io.fastx import make_batches
     from movi_tpu_torch.testing import length_reads, mixed_reads, small_index
 
     text, ix = small_index()
@@ -401,20 +483,20 @@ def phase_small_search(dev, errs):
                  f"reads; count and ZML in both layouts equal ScalarEngine")
 
 
-def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
+def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
                lanes=FULL_LANES, long_reads=LONG_READS, long_len=LONG_LEN):
     import torch
 
-    from movi_tpu.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch.engine import fused as tf
     from movi_tpu_torch.engine import fused2 as tf2
     from movi_tpu_torch.testing import index_from_text, random_text, sim_reads
 
     t0 = time.perf_counter()
     text = random_text(text_len, 0)
-    ix = index_from_text(text)
+    ix = index_from_text(text, sa_rate=SA_RATE)  # the SA phase's too
     t_ix = time.perf_counter() - t0
     index = Index(ix)
     t0 = time.perf_counter()
@@ -495,7 +577,12 @@ def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
         args["fused2_pml_scan"].append(a2)
         plain_ms["fused_pml_scan"] += ms1
         plain_ms["fused2_pml_scan"] += ms2
+        add_work(work, "fused_pml_scan", *scan_work(a1[3], 8, 4, 12))
+        add_work(work, "fused2_pml_scan", *scan_work(a12_t, 16, 8, 12))
     say("full", "each kernel equals its plain version over all lanes")
+    # the compose reads the one-step table and writes the paired one
+    add_work(work, "compose_paired_records", r * slots * (8 + 16 * slots),
+             r * slots * slots * OPS_PER_ROW)
 
     # timings at the main path's shapes, CUDA events: a scan's time is
     # that of all the batches of one query_pml, as the main path ran them
@@ -579,10 +666,10 @@ def phase_full(dev, card, errs, timings, text_len=FULL_TEXT,
     say("full", f"peak device memory {torch.cuda.max_memory_allocated(dev)}"
                 f" B  ({card})")
     return counts, dict(index=index, reads=reads, n_bases=n_bases,
-                        pick=pick, oracle=oracle)
+                        pick=pick, oracle=oracle, pmls=res_one)
 
 
-def phase_search(dev, card, errs, timings, ctx):
+def phase_search(dev, card, errs, timings, work, ctx):
     """Count and ZML on phase 4's index and reads, counted apart."""
     import torch
 
@@ -649,11 +736,17 @@ def phase_search(dev, card, errs, timings, ctx):
         for kind in SCAN_OF:
             kern, plain, a, kw = search_args(kind, s2 if "2" in kind else si,
                                              batch, dev)
-            plain_ms[kind] += search_pair(kern, plain, a, kw, f"full {kind}",
-                                          errs, SCAN_OF[kind])
+            ms, (st, _) = search_pair(kern, plain, a, kw, f"full {kind}",
+                                      errs, SCAN_OF[kind])
+            plain_ms[kind] += ms
             args[kind].append((kern, a, kw))
+            add_work(work, SCAN_OF[kind], *search_work(kind, a[-1], st))
     say("search", "kernels 4-6 equal their plain versions over all lanes "
                   "and the whole table")
+    # the compose reads the run arrays and next-run tables, writes the table
+    add_work(work, "compose_search2_records",
+             4 * r * (3 + 2 * sigma) + 24 * 2 * r * sigma * sigma,
+             2 * r * sigma * sigma * OPS_PER_ROW)
 
     shapes = [tuple(b.seqs.shape) for b in batches]
     for kind, name in SCAN_OF.items():
@@ -715,6 +808,240 @@ def phase_search(dev, card, errs, timings, ctx):
                           f"{t_trim:.6f} s  ({card})")
     say("search", f"peak device memory in this phase "
                   f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
+    return counts
+
+
+def require_sa_scan_equal(what, got, want, errs):
+    """Kernel 8a's (state, ml, pre_idx, pre_off) against the plain
+    version's, exactly."""
+    for name, a, b in zip(("ml", "pre_idx", "pre_off"), got[1:], want[1:]):
+        require_equal(f"{what} {name}", a, b, errs, "fused_sa_pre_scan")
+    require_state_equal(what, got[0], want[0], errs, "fused_sa_pre_scan")
+
+
+def sa_scan_pair(sx, codes, state, what, errs):
+    """Kernel 8a and its plain version on the same inputs.  Returns the
+    kernel's (state, ml, pre_idx, pre_off), the plain version's
+    milliseconds and the kernel's arguments."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_sa as tsa
+
+    fi = sx.fi
+    args = (fi.records, sx.pre_tab, fi.sigma + 1, fi.p_dollar, codes, state)
+    got = kernels.fused_sa_pre_scan(*args)
+    want, plain_ms = timed_ms(lambda: tsa.pml_pre_state_scan_plain(*args))
+    require_sa_scan_equal(what, got, want, errs)
+    return got, plain_ms, args
+
+
+def sa_walk_pair(sx, pre_idx, pre_off, what, errs):
+    """Kernel 8b and the plain walk over the same flat elements, every one
+    of the [W, lanes] batch (padding included): the SA values agree
+    exactly and no walk is cut at max_steps.  Returns the plain walk's
+    steps per element, its milliseconds and the kernel's arguments."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_sa as tsa
+
+    fi = sx.fi
+    args = (fi.records, fi.sigma + 1, sx.all_p, sx.sampled, sx.rate, sx.n,
+            pre_idx.reshape(-1), pre_off.reshape(-1))
+    got = kernels.sa_walk(*args)
+    (want, steps), plain_ms = timed_ms(lambda: tsa.sa_walk_steps_plain(*args))
+    require_equal(f"{what} SA values", got, want, errs, "sa_walk")
+    if bool((got < 0).any()):
+        raise AssertionError(f"{what}: a walk passed max_steps")
+    return steps, plain_ms, args
+
+
+def check_sa_oracle(what, reads, got, oracle):
+    for (name, seq), (gname, res) in zip(reads, got):
+        if gname != name or res != oracle.query_pml(seq, collect_sa=True):
+            raise AssertionError(f"{what}: read {name} differs from "
+                                 f"ScalarEngine(collect_sa=True)")
+
+
+def phase_small_sa(dev, errs):
+    import torch
+
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.engine import fused_sa as tsa
+    from movi_tpu_torch.io.fastx import make_batches
+    from movi_tpu_torch.testing import length_reads, small_sa_index
+
+    for rate in SMALL_SA_RATES:
+        text, ix, reads = small_sa_index(rate)
+        reads = reads + length_reads(text)
+        eng = tsa.FusedSAEngine(tf.build_fused_index(ix), ix, dev)
+        sx = eng.sx
+        batch = next(make_batches(reads, lanes=len(reads),
+                                  bucket_widths=False))
+        codes = eng.pml.prepare(batch)
+        st0 = tf.initial_state(sx.fi, codes.shape[1], dev)
+        what = f"small SA rate {rate}"
+        whole, _, _ = sa_scan_pair(sx, codes, st0, what, errs)
+        cut = codes.shape[0] // 2 | 1
+        first, _, _ = sa_scan_pair(sx, codes[:cut], st0, f"{what} piece 1",
+                                   errs)
+        second, _, _ = sa_scan_pair(sx, codes[cut:], first[0],
+                                    f"{what} piece 2", errs)
+        joined = [torch.cat([a, b]) for a, b in zip(first[1:], second[1:])]
+        require_sa_scan_equal(f"{what} split", (second[0], *joined), whole,
+                              errs)
+        steps, _, _ = sa_walk_pair(sx, whole[2], whole[3], what, errs)
+        check_sa_oracle(what, reads, eng.query(reads, lanes=16),
+                        ScalarEngine(ix))
+        say("small SA", f"rate {rate}, r={ix.r}, n={sx.n}: kernels 8a and "
+                        f"8b equal plain on {len(reads)} reads (lengths "
+                        f"1-4097, with N; a scan split in two, "
+                        f"{steps.numel()} walks, mean "
+                        f"{float(steps.double().mean()):.3f} and at most "
+                        f"{int(steps.max())} steps); FusedSAEngine equals "
+                        f"ScalarEngine(collect_sa=True)")
+
+
+def phase_sa(dev, card, errs, timings, work, ctx):
+    """SA entries on phase 4's index (its sampled SA at rate 100) and
+    reads, counted apart."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.engine import fused_sa as tsa
+    from movi_tpu_torch.io.fastx import make_batches
+
+    index, reads, n_bases = ctx["index"], ctx["reads"], ctx["n_bases"]
+    ix = index.ix
+    t0 = time.perf_counter()
+    eng = tsa.FusedSAEngine(index._fused, ix, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    sx = eng.sx
+    fi = sx.fi
+    say("SA", f"r={ix.r}, n={sx.n}, rate {sx.rate}: one-step records "
+              f"{fi.records.numel() * 4} B, pre_tab {sx.pre_tab.numel() * 4} "
+              f"B, all_p {sx.all_p.numel() * 8} B, sampled SA "
+              f"{sx.sampled.numel()} entries ({sx.sampled.numel() * 8} B); "
+              f"side tables built and moved to the card in {t_build:.3f} s "
+              f"(host CPU)")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the SA path, counted: nothing else launches between reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.query(reads, lanes=QUERY_LANES)
+    torch.cuda.synchronize()
+    wall_cold = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in SA_KERNELS}
+    say("SA", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the SA "
+                                 f"path")
+    if [(n, p) for n, (p, _) in res] != ctx["pmls"]:
+        raise AssertionError("SA path PMLs differ from query_pml's")
+    pick = ctx["pick"]
+    check_sa_oracle("full SA sample", [reads[i] for i in pick],
+                    [res[i] for i in pick], ctx["oracle"])
+    say("SA", f"first query (host clock, {n_bases} bases): "
+              f"{wall_cold:.3f} s = {n_bases / wall_cold:.6e} bases/s; PMLs "
+              f"equal query_pml's; {len(pick)} sampled reads equal "
+              f"ScalarEngine(collect_sa=True)  ({card})")
+    del res
+
+    # both kernels against their plain versions over all lanes of the main
+    # path's batches; the plain versions are timed in this pass
+    batches = list(make_batches(list(reads), lanes=QUERY_LANES,
+                                bucket_widths=False))
+    scans, walks, steps_all = [], [], []
+    plain_ms = dict.fromkeys(SA_KERNELS, 0.0)
+    for b in batches:
+        codes = eng.pml.prepare(b)
+        got, ms, a = sa_scan_pair(sx, codes, tf.initial_state(
+            fi, codes.shape[1], dev), "full SA", errs)
+        plain_ms["fused_sa_pre_scan"] += ms
+        scans.append(a)
+        # a record and a pre_tab row per code; ml, pre_idx, pre_off out
+        add_work(work, "fused_sa_pre_scan", *scan_work(codes, 20, 12, 12))
+        steps, ms, a = sa_walk_pair(sx, got[2], got[3], "full SA", errs)
+        plain_ms["sa_walk"] += ms
+        walks.append(a)
+        # each step: the run's start and its record (8 B each); each
+        # element: its (run, offset) in, the last start, the sample, out
+        s = int(steps.sum())
+        add_work(work, "sa_walk", 16 * s + 24 * steps.numel(),
+                 s * OPS_PER_ROW)
+        steps_all.append(steps)
+    steps = torch.cat(steps_all)
+    say("SA", f"kernels 8a and 8b equal their plain versions over all "
+              f"lanes ({steps.numel()} walks, padding included): walk steps "
+              f"per element mean {float(steps.double().mean()):.6f}, max "
+              f"{int(steps.max())}, total {int(steps.sum())}; per batch "
+              f"max {[int(s.max()) for s in steps_all]}")
+
+    shapes = [tuple(b.seqs.shape) for b in batches]
+    for name, fn, runs, reps in (
+            ("fused_sa_pre_scan", kernels.fused_sa_pre_scan, scans, 5),
+            ("sa_walk", kernels.sa_walk, walks, 3)):
+        k_ms = cuda_ms(lambda: [fn(*a) for a in runs], reps=reps)
+        timings[name] = (k_ms, plain_ms[name])
+        per = ", ".join(f"{lb} lanes x {wb}: "
+                        f"{cuda_ms(lambda: fn(*a), reps=reps):.6f} ms"
+                        for (lb, wb), a in zip(shapes, runs))
+        say("SA", f"{name} over the main path's {len(batches)} batches "
+                  f"({n_bases} bases): kernel {k_ms:.6f} ms = "
+                  f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
+                  f"{plain_ms[name]:.6f} ms; kernel per batch [{per}]  "
+                  f"({card})")
+    del scans, walks
+
+    # where a warm query's time goes: host batching, prepare (codes to the
+    # card), the two kernels, D2H of ml and SA values, per-read lists
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.query(reads, lanes=QUERY_LANES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stage = dict.fromkeys(("batching", "prepare", "pre-scan", "walk", "D2H",
+                           "tolist"), 0.0)
+    t0 = time.perf_counter()
+    bs = list(make_batches(list(reads), lanes=QUERY_LANES,
+                           bucket_widths=False))
+    stage["batching"] = time.perf_counter() - t0
+    for b in bs:
+        marks = [time.perf_counter()]
+        codes = eng.pml.prepare(b)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        _, ml, pre_idx, pre_off = tsa.pml_pre_state_scan(
+            fi.records, sx.pre_tab, fi.sigma + 1, fi.p_dollar, codes,
+            tf.initial_state(fi, codes.shape[1], dev))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        sa = tsa.sa_walk(fi.records, fi.sigma + 1, sx.all_p, sx.sampled,
+                         sx.rate, sx.n, pre_idx.reshape(-1),
+                         pre_off.reshape(-1))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        ml_h, sa_h = ml.cpu().numpy(), sa.reshape(ml.shape).cpu().numpy()
+        marks.append(time.perf_counter())
+        [(ml_h[:int(L), j].tolist(), sa_h[:int(L), j].tolist())
+         for j, L in enumerate(b.lengths)]
+        marks.append(time.perf_counter())
+        for key, t_a, t_b in zip(("prepare", "pre-scan", "walk", "D2H",
+                                  "tolist"), marks, marks[1:]):
+            stage[key] += t_b - t_a
+    k_ms = timings["fused_sa_pre_scan"][0] + timings["sa_walk"][0]
+    busy = k_ms / 1e3 / wall
+    say("SA", f"warm FusedSAEngine.query: wall {wall:.6f} s = "
+              f"{n_bases / wall:.6e} bases/s; kernels {k_ms:.6f} ms, device "
+              f"busy share (kernels / wall) {busy:.6f}, idle share "
+              f"{1 - busy:.6f}; host stages: "
+              + ", ".join(f"{k} {v:.6f} s" for k, v in stage.items())
+              + f"  ({card})")
+    say("SA", f"peak device memory in this phase "
+              f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
     return counts
 
 
@@ -784,9 +1111,9 @@ def check_exact_reads(dev, exact_len):
     stop on, both scans keep a 64-bit csum and run to the reads' end, as
     the host rule says; the ml and color ids equal the scans without
     early stop."""
-    from movi_tpu.io.fastx import make_batches
     from movi_tpu_torch.api import Index
     from movi_tpu_torch.engine import fused_color as tfc
+    from movi_tpu_torch.io.fastx import make_batches
     from movi_tpu_torch.testing import colored_index, random_text
 
     docs = [random_text(100_000, 31), random_text(100_000, 32)]
@@ -820,13 +1147,13 @@ def check_exact_reads(dev, exact_len):
 def phase_small_color(dev, errs, exact_len=EXACT_LEN):
     import torch
 
-    from movi_tpu.color import ColorEngine
-    from movi_tpu.io.fastx import make_batches
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index
+    from movi_tpu_torch.color import ColorEngine
     from movi_tpu_torch.engine import fused as tf
     from movi_tpu_torch.engine import fused2 as tf2
     from movi_tpu_torch.engine import fused_color as tfc
+    from movi_tpu_torch.io.fastx import make_batches
     from movi_tpu_torch.testing import early_stop_reads, small_color_index
 
     _, ix, ct, reads = small_color_index()
@@ -953,14 +1280,14 @@ def color_breakdown(index, ct, reads, paired, dev, k_ms, n_bases, card,
              f"prepare+scan {t_scan:.6f} s, tally {t_tally:.6f} s  ({card})")
 
 
-def phase_color(dev, card, errs, timings, lanes=FULL_LANES,
+def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
                 long_reads=LONG_READS, genomes=COLOR_GENOMES,
                 genome_len=COLOR_GENOME_LEN):
     import torch
 
-    from movi_tpu.color import ColorEngine
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.color import ColorEngine
     from movi_tpu_torch.engine import fused2 as tf2
     from movi_tpu_torch.testing import colored_index, pangenome
 
@@ -1052,8 +1379,19 @@ def phase_color(dev, card, errs, timings, lanes=FULL_LANES,
                                         errs, key)
                 runs[key, es].append(run)
                 plain_ms[key, es] += ms
+                if not es:  # a record row (and a color id) per code
+                    _, (rec, _, _, codes, _), kw = run
+                    row = 4 * rec.shape[1] + (4 if kw.get("cids") is not None
+                                              else 0)
+                    add_work(work, key, *scan_work(
+                        codes, row, 8 * (2 if paired else 1), 12))
     say("color", "kernels A-C equal their plain versions over all lanes "
                  "and the whole table")
+    # the compose reads the one-step table and the color ids, writes the
+    # paired color table
+    add_work(work, "compose_paired_color_records",
+             r * (4 + slots * (8 + 32 * slots)),
+             r * slots * slots * OPS_PER_ROW)
 
     shapes = [tuple(b.seqs.shape) for b in batches]
     for (key, es), rs in runs.items():
@@ -1102,9 +1440,9 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
     3-word records, no paired color records; kernel A's two-load form."""
     import torch
 
-    from movi_tpu.color import ColorEngine, compress_color_table
     from movi_tpu_torch import kernels
     from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.color import ColorEngine, compress_color_table
     from movi_tpu_torch.testing import colored_index, pangenome
 
     t0 = time.perf_counter()
@@ -1171,8 +1509,9 @@ def phase_cli(platform):
             for i, t in enumerate(refs):
                 f.write(f">doc{i}\n{t.tobytes().decode()}\n")
         idx = os.path.join(d, "idx")
-        subprocess.run([sys.executable, "-m", "movi_tpu.cli", "build",
-                        "--fasta", fasta, "--index", idx, "--color"],
+        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
+                        "--fasta", fasta, "--index", idx, "--color",
+                        "--sa-entries"],
                        cwd=ROOT, check=True, capture_output=True,
                        timeout=600)
         reads = mixed_reads(refs[0], seed=5, count=30)
@@ -1193,7 +1532,9 @@ def phase_cli(platform):
                 (["--pml", "--multi-classify", "--report-colors"],
                  ["{out}", f"{rpath}.{mode}.colors"]),
                 (["--pml", "--multi-classify", "--early-stop", "--report-all",
-                  "--no-paired-records", "--stdout"], [])]
+                  "--no-paired-records", "--stdout"], []),
+                (["--pml", "--sa-entries"],
+                 ["{out}.pml.sa_entries.bpf", "{out}.pml.bpf"])]
         n_found = {}
         for flags, outputs in runs:
             texts = {}
@@ -1204,10 +1545,10 @@ def phase_cli(platform):
                      "--index", idx, "--read", rpath, *flags, "--platform",
                      plat, "--out-file", out], cwd=ROOT, check=True,
                     capture_output=True, text=True, timeout=600)
-                texts[plat] = "" if outputs else res.stdout
+                texts[plat] = b"" if outputs else res.stdout.encode()
                 for output in outputs:
                     path = output.format(out=out)
-                    with open(path) as f:
+                    with open(path, "rb") as f:
                         texts[plat] += f.read()
                     os.unlink(path)
             what = " ".join(flags)
@@ -1217,13 +1558,16 @@ def phase_cli(platform):
                                      f"cpu, or is empty")
             if "--classify" in flags:
                 n_found[what] = sum(ln.split()[1] == "FOUND"
-                                    for ln in texts["cpu"].splitlines()[1:]
+                                    for ln in texts["cpu"].decode()
+                                    .splitlines()[1:]
                                     if len(ln.split()) > 1)
     say("cli", f"query --pml --classify, --zml --classify, --count, --zml "
-               f"--stdout, --pml --multi-classify --report-colors and "
-               f"--multi-classify --early-stop --report-all --stdout on "
-               f"--platform {platform} ({len(reads)} reads; found "
-               f"{n_found}) equal --platform cpu")
+               f"--stdout, --pml --multi-classify --report-colors, "
+               f"--multi-classify --early-stop --report-all --stdout and "
+               f"--pml --sa-entries (both .bpf files) on --platform "
+               f"{platform} ({len(reads)} reads; found {n_found}; index by "
+               f"movi_tpu_torch.cli build --color --sa-entries) equal "
+               f"--platform cpu byte for byte")
 
 
 def main() -> int:
@@ -1234,8 +1578,8 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from movi_tpu.build.suffix import _load_native
     from movi_tpu_torch import kernels
+    from movi_tpu_torch.build.suffix import _load_native
     from movi_tpu_torch.device import card_line, resolve_device
 
     dev = resolve_device("cuda")
@@ -1260,22 +1604,33 @@ def main() -> int:
                            f"its library does not load:\n{mk.stderr}")
     say("build", "make -C native: rc 0; native SA-IS yes")
 
-    errs = {}
-    timings = {}
+    errs, timings, work = {}, {}, {}
     phase_small(dev, errs)
     phase_small_search(dev, errs)
-    counts, ctx = phase_full(dev, card, errs, timings)
-    counts.update(phase_search(dev, card, errs, timings, ctx))
+    phase_small_sa(dev, errs)
+    counts, ctx = phase_full(dev, card, errs, timings, work)
+    counts.update(phase_search(dev, card, errs, timings, work, ctx))
+    counts.update(phase_sa(dev, card, errs, timings, work, ctx))
     del ctx
     phase_small_color(dev, errs)
-    counts.update(phase_color(dev, card, errs, timings))
+    counts.update(phase_color(dev, card, errs, timings, work))
     phase_color_two_load(dev, card, errs, timings)
     phase_cli("gpu")
 
-    rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=counts[name], max_abs_err=errs[name],
-                 ms=timings[name][0], plain_ms=timings[name][1])
-            for name, (src, rep) in CUDA_SOURCES.items()]
+    rows = []
+    for name, (src, rep) in CUDA_SOURCES.items():
+        ms, plain_ms = timings[name]
+        nbytes, nops = work[name]
+        bound_ms, bound_by = bound(nbytes, nops)
+        say("bound", f"{name}: {nbytes} B and {nops} integer ops on the "
+                     f"path's inputs -> bound {bound_ms:.6f} ms "
+                     f"({bound_by}); kernel {ms:.6f} ms, "
+                     f"{bound_ms / ms:.6f} of the bound  ({card})")
+        # no single PyTorch call computes any of these scans or composes
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         launches=counts[name], max_abs_err=errs[name],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

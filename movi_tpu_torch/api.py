@@ -21,10 +21,10 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence, Tuple, Union
 
-from movi_tpu.build.prepare_ref import prepare_ref
-from movi_tpu.build.suffix import build_bwt_runs
-from movi_tpu.index.structure import MoveIndex, build_move_index
-from movi_tpu.io.fastx import batches_from_file, make_batches
+from .build.prepare_ref import prepare_ref
+from .build.suffix import build_bwt_runs
+from .index.structure import MoveIndex, build_move_index
+from .io.fastx import batches_from_file, make_batches
 
 from .convert import load_engine_caches
 from .device import DeviceLike, resolve_device

@@ -1,44 +1,251 @@
-"""movi_tpu_torch command-line interface: `query --pml`, `--zml`,
-`--count` and `--pml --multi-classify` on the port.
+"""movi_tpu_torch command-line interface: `build`, and `query --pml`,
+`--zml`, `--count`, `--pml --sa-entries` and `--pml --multi-classify` on
+the port.
 
+    python -m movi_tpu_torch.cli build --fasta REF.fa --index IDX \\
+        [--color] [--sa-entries [--sa-sample-rate 100]] [--skip-null]
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
         (--pml | --zml | --count) [--classify | --filter [--invert]] \\
-        [--stdout] [--platform cpu]
+        [--stdout] [--no-output] [--platform cpu]
+    python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
+        --sa-entries [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
         --multi-classify [--early-stop] [--report-colors] [--report-all] \\
         [--lca-tree nodes.dmp] [--stdout] [--platform cpu]
 
-Mirrors the PML, ZML, count and Movi Color branches of movi_tpu/cli.py
-`query` (index and color-table loading, the classifier, the
-stdout/BPF/.matches/report/.multiclass.csv/.colors writers, LCA
-post-processing), sharing its host helpers; the record caches and the
-layout choice are `api.Index`'s.  Indexes are built with
-`python -m movi_tpu.cli build` (`--color` for the color table).  Other
-query types (MEMs, k-mers), and indexes the fused engines cannot run (PML
-or color without thresholds, or not built with bound_ff=1), are not yet
-ported: asking for them is an error, never a fallback to another engine.
+Mirrors `build` and the PML, SA-entries, ZML, count and Movi Color
+branches of movi_tpu/cli.py (index and color-table loading, the
+classifier, the stdout/BPF/.matches/report/.multiclass.csv/.colors
+writers, LCA post-processing) with the port's own copies of its host
+modules; the record caches and the layout choice are `api.Index`'s.  The
+files `build` writes (index.npz, colors.npz, the null databases) load in
+either package.  Other query types (MEMs, k-mers), the other build
+outputs (index.movi, index.mmap, record caches, ftab), and indexes the
+fused engines cannot run (PML, SA entries or color without thresholds,
+or not built with bound_ff=1; SA entries without a sampled SA) are not
+yet ported: asking for them is an error, never a fallback to another
+engine.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
-from movi_tpu.cli import (_apply_ignore_illegal, _load_color_table,
-                          _load_index, _paired_force)
-from movi_tpu.commons import error, info, timing
+import numpy as np
+
+from .commons import error, info, success, timing
 
 _NOT_PORTED = ("mem", "kmer", "kmer_count")
 _QUERIES = ("pml", "zml", "count")
+# build flags of movi_tpu/cli.py whose outputs the port does not write
+_BUILD_NOT_PORTED = ("movi_format", "mmap", "fused_cache", "paired_cache",
+                     "ftab_k", "bwt_file", "resume", "verify", "keep",
+                     "legacy_header", "no_header", "checkpoint")
 
 
 class NotPortedError(NotImplementedError):
     pass
 
 
+def cmd_build(args):
+    """FASTA -> index directory, as movi_tpu/cli.py cmd_build on its FASTA
+    path: prepare-ref, suffix array and BWT runs, the move index (NT
+    splitting by default for threshold modes), the sampled SA, document
+    offsets, the Movi Color tables, index.npz and the null statistics."""
+    from .build.prepare_ref import iter_fasta, prepare_ref
+    from .build.suffix import build_bwt_runs
+    from .classify import build_nulldb_pml
+    from .constants import MODE_INFO
+    from .cpu_ref.scalar import ScalarEngine
+    from .index.structure import build_move_index
+
+    asked = [f for f in _BUILD_NOT_PORTED
+             if getattr(args, f) not in (None, "0")]
+    if asked:
+        raise NotPortedError(
+            f"build --{asked[0].replace('_', '-')} is not yet ported to "
+            f"movi_tpu_torch")
+    fasta_paths = args.fasta
+    if not fasta_paths:
+        raise SystemExit("build requires --fasta")
+    os.makedirs(args.index, exist_ok=True)
+    t0 = time.time()
+    ref = prepare_ref(fasta_paths, rc=not args.fw,
+                      separators=args.separators, is_list=args.list,
+                      out_fasta=os.path.join(args.index, "ref.fa")
+                      if args.keep_ref else None)
+    info(f"prepared reference: {len(ref.text)} bases "
+         f"({time.time()-t0:.1f}s)")
+
+    t0 = time.time()
+    runs = build_bwt_runs(ref.text)
+    info(f"BWT: n={len(runs.bwt)} original_r={len(runs.starts)} "
+         f"({time.time()-t0:.1f}s)")
+
+    t0 = time.time()
+    bound_ff = args.bound_ff
+    if bound_ff is None and MODE_INFO[args.type][2]:
+        # NT splitting enables the fused one-step engine
+        bound_ff = 1
+    ix = build_move_index(runs, args.type, separators=args.separators,
+                          bound_ff=bound_ff)
+    info(f"move index: r={ix.r} mode={args.type} ({time.time()-t0:.1f}s)")
+    eng = ScalarEngine(ix)
+
+    if args.sa_entries:
+        if runs.sa is not None:
+            ix.sampled_SA = runs.sampled_sa(args.sa_sample_rate)
+        else:
+            from .index.sweeps import lf_sweep
+
+            ix.sampled_SA, _ = lf_sweep(ix, sa_sample_rate=args.sa_sample_rate)
+        ix.sa_sample_rate = args.sa_sample_rate
+        info(f"sampled SA: {len(ix.sampled_SA)} entries "
+             f"(rate {args.sa_sample_rate})")
+
+    # document metadata (always written; needed by color / multi-classify)
+    with open(os.path.join(args.index, "ref.fa.doc_offsets"), "w") as f:
+        for off in ref.doc_offsets:
+            f.write(f"{off}\n")
+
+    if args.color:
+        from .color import (DocumentInfo, build_color_table,
+                            build_color_table_from_index,
+                            compress_color_table)
+
+        di = DocumentInfo.create(ref.doc_offsets)
+        if runs.sa is not None:
+            ct = build_color_table(ix, runs.sa, di)
+        else:
+            ct = build_color_table_from_index(ix, di)
+        if args.compress_colors:
+            ct = compress_color_table(ct)
+        if args.tree_compress_colors:
+            from .lca import tree_compress_color_table
+
+            ct = tree_compress_color_table(ct, ix.r)
+        ct.save(os.path.join(args.index, "colors.npz"))
+        ct.save_reference(args.index,
+                          compressed=(args.compress_colors
+                                      or args.tree_compress_colors),
+                          flat=True)
+        info(f"colors: {len(ct.unique_doc_sets)} unique doc sets over "
+             f"{di.num_docs} documents")
+
+    ix.save(os.path.join(args.index, "index.npz"))
+    success(f"The index is built and stored in {args.index}")
+
+    if not args.skip_null:
+        # PML and ZML null statistics, like the reference build
+        records = []
+        for p in fasta_paths:
+            records.extend(iter_fasta(p))
+        random_rep = ix.thr is None
+        db = build_nulldb_pml(
+            ix, lambda s: eng.query_pml(s, random_repositioning=random_rep),
+            records, seed=args.seed,
+            null_reads_path=os.path.join(args.index, "null_reads.fasta"))
+        db.save(os.path.join(args.index, "movi.pml.nulldb"))
+        info(f"pml null statistics: percentile={db.percentile_value}")
+        dbz = build_nulldb_pml(ix, eng.query_zml, records, seed=args.seed)
+        dbz.save(os.path.join(args.index, "movi.zml.nulldb"))
+        info(f"zml null statistics: percentile={dbz.percentile_value}")
+    info("build done")
+
+
+def _load_index(index_dir):
+    """Load index.npz, or a reference-built index.movi NT re-split for the
+    fused engines (movi_tpu/cli.py _load_index without --mmap and
+    --no-resplit)."""
+    from .index.structure import MoveIndex
+
+    npz = os.path.join(index_dir, "index.npz")
+    movi = os.path.join(index_dir, "index.movi")
+    if os.path.exists(npz):
+        return MoveIndex.load(npz)
+    if os.path.exists(movi):
+        from .index.movi_format import read_movi
+
+        ix = read_movi(movi)
+        if not ix.separators:
+            from .index.resplit import needs_resplit, resplit_index
+
+            if needs_resplit(ix):
+                r_old = ix.r
+                ix = resplit_index(ix)
+                info(f"re-split reference-format index for the fused "
+                     f"engines (r {r_old} -> {ix.r})")
+        return ix
+    raise SystemExit(f"no index found in {index_dir}")
+
+
+def _apply_ignore_illegal(ix, reads, mode, seed=0):
+    """Host-side --ignore-illegal-chars substitution: mode 1 maps illegal
+    chars to 'A', mode 2 to a seeded-random base, drawn per read right to
+    left (the scalar engine's order), so every engine gives the output
+    ScalarEngine(ignore_illegal_chars=mode, seed=seed) would."""
+    from .constants import SEPARATOR
+
+    rng = np.random.default_rng(seed)
+    keep = np.zeros(256, dtype=bool)
+    keep[ix.alphabet] = True
+    if ix.separators:
+        keep[SEPARATOR] = True  # separators pass through unsubstituted
+    out = []
+    for name, seq in reads:
+        arr = np.frombuffer(seq, np.uint8).copy()
+        bad = np.flatnonzero(~keep[arr])
+        if len(bad):
+            if mode == 1:
+                arr[bad] = ord("A")
+            else:
+                for p in bad[::-1]:
+                    arr[p] = ix.alphabet[rng.integers(0, ix.sigma)]
+        out.append((name, arr.tobytes()))
+    return out
+
+
+def _load_color_table(index_dir, ix):
+    """The Movi Color tables: colors.npz; else the colored rows of
+    index_colored.movi plus a doc_sets binary; else the reference doc_sets
+    binaries with per-run indices."""
+    from .color import ColorTable, load_document_info
+
+    npz = os.path.join(index_dir, "colors.npz")
+    if os.path.exists(npz):
+        return ColorTable.load(npz)
+    di = load_document_info(index_dir)
+    colored = os.path.join(index_dir, "index_colored.movi")
+    if os.path.exists(colored):
+        from .index.movi_format import read_doc_sets_bin, read_movi_colored
+
+        _, color_ids = read_movi_colored(colored)
+        for name in ("doc_sets.bin", "compress_doc_sets.bin",
+                     "tree_doc_sets.bin"):
+            p = os.path.join(index_dir, name)
+            if os.path.exists(p):
+                # the per-run indices live in the colored rows
+                sets, _ = read_doc_sets_bin(p, ix.r, with_inds=False)
+                return ColorTable(doc_pats=None, doc_set_inds=color_ids,
+                                  unique_doc_sets=sets, doc_info=di)
+    return ColorTable.load_reference(index_dir, ix.r, di, length=ix.length)
+
+
+def _paired_force(args):
+    """--paired-records forces the paired engines, --no-paired-records the
+    one-step ones; None picks by capacity (engine/select.py)."""
+    if args.paired_records:
+        return True
+    if args.no_paired_records:
+        return False
+    return None
+
+
 def cmd_query(args):
-    from movi_tpu.io.fastx import iter_fastx
-    from movi_tpu.io.outputs import BPFWriter, count_line, pml_stdout_lines
+    from .io.fastx import iter_fastx
+    from .io.outputs import BPFWriter, count_line, pml_stdout_lines
 
     from .api import Index
     from .device import resolve_device
@@ -62,6 +269,10 @@ def cmd_query(args):
         # engine's order so the output equals ScalarEngine's
         reads = _apply_ignore_illegal(ix, reads, args.ignore_illegal_chars)
 
+    # --sa-entries changes nothing in a ZML or count query's output
+    if args.sa_entries and qt == "pml":
+        sa_entries(args, ix, reads, device)
+        return
     index = Index.load(args.index, ix=ix)
     if args.multi_classify:
         multi_classify(args, ix, index, reads, device)
@@ -75,8 +286,8 @@ def cmd_query(args):
     report_lines = []
     found_list = []  # positional, aligned with reads/results
     if args.classify:
-        from movi_tpu.classify import (Classifier, EmpNullDatabase,
-                                       format_report_header)
+        from .classify import (Classifier, EmpNullDatabase,
+                               format_report_header)
 
         db = EmpNullDatabase.load(os.path.join(args.index,
                                                f"movi.{qt}.nulldb"))
@@ -93,7 +304,7 @@ def cmd_query(args):
             lines_out.append(count_line(name, len(seq), pos, cnt))
             continue
         if classifier:
-            from movi_tpu.classify import format_report_line
+            from .classify import format_report_line
 
             found, avg, above, below = classifier.classify(res)
             found_list.append(found)
@@ -110,6 +321,8 @@ def cmd_query(args):
     elif args.stdout:
         for ln in lines_out:
             print(ln)
+    elif args.no_output:
+        pass
     elif qt == "count":
         with open(out_prefix + ".matches", "w") as f:
             for ln in lines_out:
@@ -125,12 +338,48 @@ def cmd_query(args):
         if args.stdout:
             for ln in report_lines:
                 print(ln)
-        else:
+        elif not args.no_output:
             rpath = f"{args.read}.{ix.mode}.{qt}.report"
             with open(rpath, "w") as f:
                 for ln in report_lines:
                     f.write(ln + "\n")
             info(f"wrote {rpath}")
+
+
+def sa_entries(args, ix, reads, device):
+    """The --pml --sa-entries branch: per-base PMLs and SA entries on the
+    fused SA engine; <prefix>.pml.sa_entries.bpf (64-bit entries) and
+    <prefix>.pml.bpf, or with --no-output the PML lines on --stdout."""
+    from .engine.fused import build_fused_index, is_bounded
+    from .engine.fused_sa import FusedSAEngine
+    from .io.outputs import BPFWriter, pml_stdout_lines
+
+    if not (is_bounded(ix) and ix.thr is not None
+            and ix.sampled_SA is not None):
+        raise NotPortedError(
+            "--sa-entries on an index without thresholds, not built with "
+            "bound_ff=1, or without a sampled SA (build --sa-entries) takes "
+            "the scalar SA path, which is not yet ported")
+    info("using the fused SA-entries engine")
+    eng = FusedSAEngine(build_fused_index(ix), ix, device)
+    out = eng.query(reads, lanes=args.lanes)
+    results = [(name, pmls) for name, (pmls, _) in out]
+    sa_results = [(name, sas) for name, (_, sas) in out]
+    prefix = args.out_file or f"{args.read}.{ix.mode}"
+    if not args.no_output:
+        out_sa = prefix + ".pml.sa_entries.bpf"
+        with BPFWriter(out_sa, entry_size=64) as w:
+            for name, sas in sa_results:
+                w.write_read(name, sas)
+        info(f"wrote {out_sa}")
+        with BPFWriter(prefix + ".pml.bpf") as w:
+            for name, pmls in results:
+                w.write_read(name, pmls)
+        info(f"wrote {prefix}.pml.bpf")
+    elif args.stdout:
+        for name, pmls in results:
+            for ln in pml_stdout_lines(name, pmls):
+                print(ln)
 
 
 def multi_classify(args, ix, index, reads, device):
@@ -145,7 +394,7 @@ def multi_classify(args, ix, index, reads, device):
         min_diff_frac=args.min_diff_frac, min_score_frac=args.min_score_frac,
         early_stop=args.early_stop)
     lines = [f"{name},{cell}" for name, (_, cell, _) in results]
-    if report_colors:
+    if report_colors and not args.no_output:
         cpath = f"{args.read}.{ix.mode}.colors"
         with open(cpath, "w") as f:
             for name, (_, _, cols) in results:
@@ -153,12 +402,14 @@ def multi_classify(args, ix, index, reads, device):
                         + "\n")
         info(f"wrote {cpath}")
     if args.lca_tree:
-        from movi_tpu.lca import lca_postprocess, load_nodes_dmp
+        from .lca import lca_postprocess, load_nodes_dmp
 
         lines = lca_postprocess(lines, load_nodes_dmp(args.lca_tree))
     if args.stdout:
         for ln in lines:
             print(ln)
+        return
+    if args.no_output:
         return
     out_path = args.out_file or f"{args.read}.{ix.mode}.multiclass.csv"
     with open(out_path, "w") as f:
@@ -170,9 +421,34 @@ def multi_classify(args, ix, index, reads, device):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="movi-tpu-torch",
-        description="PyTorch/CUDA port of movi_tpu (PML, ZML, count and "
-                    "Movi Color queries)")
+        description="PyTorch/CUDA port of movi_tpu (index build; PML, SA "
+                    "entries, ZML, count and Movi Color queries)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    b = sub.add_parser("build")
+    b.add_argument("--fasta", "-f", nargs="+", default=None)
+    b.add_argument("--index", "-i", required=True)
+    b.add_argument("--type", default="regular-thresholds")
+    b.add_argument("--fw", action="store_true",
+                   help="do not add reverse complements")
+    b.add_argument("--separators", action="store_true")
+    b.add_argument("--list", action="store_true")
+    b.add_argument("--keep-ref", action="store_true")
+    b.add_argument("--skip-null", action="store_true")
+    b.add_argument("--bound-ff", type=int, default=None)
+    b.add_argument("--seed", type=int, default=0)
+    b.add_argument("--sa-entries", action="store_true",
+                   help="store the sampled suffix array (query --pml "
+                        "--sa-entries)")
+    b.add_argument("--sa-sample-rate", type=int, default=100)
+    b.add_argument("--color", action="store_true")
+    b.add_argument("--compress-colors", action="store_true")
+    b.add_argument("--tree-compress-colors", action="store_true")
+    # accepted so that asking for them says they are not yet ported
+    for flag in _BUILD_NOT_PORTED:
+        b.add_argument("--" + flag.replace("_", "-"), default=None,
+                       nargs="?", const=True, help=argparse.SUPPRESS)
+    b.set_defaults(func=cmd_build)
 
     q = sub.add_parser("query")
     q.add_argument("--index", "-i", required=True)
@@ -184,6 +460,9 @@ def main(argv=None):
         q.add_argument("--" + flag.replace("_", "-"), action="store_true",
                        help=argparse.SUPPRESS)
     q.add_argument("--classify", action="store_true")
+    q.add_argument("--sa-entries", action="store_true",
+                   help="per-base SA entries (with --pml; the index needs "
+                        "build --sa-entries)")
     q.add_argument("--multi-classify", action="store_true",
                    help="Movi Color multi-class classification (with "
                         "--pml)")
@@ -205,6 +484,8 @@ def main(argv=None):
     q.add_argument("--filter", action="store_true")
     q.add_argument("--invert", action="store_true")
     q.add_argument("--stdout", action="store_true")
+    q.add_argument("--no-output", action="store_true",
+                   help="write no output files")
     q.add_argument("--reverse", action="store_true")
     q.add_argument("--bin-width", type=int, default=150)
     q.add_argument("--out-file", "-o", default="")
@@ -223,7 +504,7 @@ def main(argv=None):
     q.set_defaults(func=cmd_query)
 
     args = p.parse_args(argv)
-    if args.filter:
+    if getattr(args, "filter", False):
         args.classify = True
     try:
         with timing(args.command):

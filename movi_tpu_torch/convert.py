@@ -1,27 +1,33 @@
 """Carry index state from the JAX package into the port.
 
-Both packages keep the same host index (`movi_tpu.index.structure.
-MoveIndex`, shared as is) and the same record tables.  These helpers turn
-the JAX package's record objects (PML, count/ZML and Movi Color), read as
-numpy arrays, into the port's, and read the `*.npz` caches that movi_tpu writes (`build --fused-cache`,
-`build --paired-cache`, `Index.save`): the one-step and paired PML
-records and the paired search records.  Nothing here imports JAX: a JAX
-array is only read through `np.asarray`.
+The port keeps its own copies of the JAX package's host classes
+(`index.structure.MoveIndex`, `color.ColorTable`), field for field the
+same.  These helpers turn the JAX package's objects, read as numpy arrays,
+into the port's: the host index and color table, and the record objects
+of PML, count/ZML, Movi Color and SA entries; and they read the `*.npz`
+caches that movi_tpu writes (`build --fused-cache`, `build
+--paired-cache`, `Index.save`): the one-step and paired PML records and
+the paired search records.  Nothing here imports JAX or the JAX package:
+a JAX array is only read through `np.asarray`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .color import ColorTable, DocumentInfo
 from .engine.fused import FusedIndex, load_fused_index
 from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
 from .engine.fused_color import FusedColorIndex
 from .engine.fused_search import FusedSearchIndex
+from .engine.fused_sa import FusedSAIndex
 from .engine.fused_search2 import FusedSearch2Index, load_fused_search2_index
+from .index.structure import MoveIndex
 
 
 def _tensor(x) -> torch.Tensor:
@@ -35,6 +41,28 @@ def _fields(src) -> dict:
                 start_offset=int(src.start_offset),
                 p_dollar=(int(src.p_dollar[0]), int(src.p_dollar[1])),
                 alphamap_query=np.asarray(src.alphamap_query))
+
+
+def _same_fields(cls, src, **override):
+    """cls built field by field from the like-named attributes of src."""
+    kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def move_index_from_jax(ix) -> MoveIndex:
+    """A movi_tpu MoveIndex -> the port's (the same numpy arrays)."""
+    return _same_fields(MoveIndex, ix, extras=dict(ix.extras),
+                        sep_row_map=None if ix.sep_row_map is None
+                        else dict(ix.sep_row_map))
+
+
+def color_table_from_jax(ct) -> ColorTable:
+    """A movi_tpu ColorTable (and its DocumentInfo) -> the port's."""
+    di = None if ct.doc_info is None else _same_fields(DocumentInfo,
+                                                       ct.doc_info)
+    return _same_fields(ColorTable, ct,
+                        unique_doc_sets=list(ct.unique_doc_sets), doc_info=di)
 
 
 def fused_index_from_jax(fi) -> FusedIndex:
@@ -81,6 +109,16 @@ def fused_search2_index_from_jax(s2) -> FusedSearch2Index:
                              restart_rec=_tensor(s2.restart_rec),
                              all_p=_tensor(s2.all_p),
                              alphamap_query=np.asarray(s2.alphamap_query))
+
+
+def fused_sa_index_from_jax(sx) -> FusedSAIndex:
+    """A movi_tpu FusedSAIndex -> the port's (host tensors; the run starts
+    and the sampled SA as int64, whatever width the JAX arrays have)."""
+    return FusedSAIndex(
+        fi=fused_index_from_jax(sx.fi), pre_tab=_tensor(sx.pre_tab),
+        all_p=torch.from_numpy(np.array(sx.all_p, dtype=np.int64)),
+        sampled=torch.from_numpy(np.array(sx.sampled, dtype=np.int64)),
+        rate=int(sx.rate), n=int(sx.n))
 
 
 def load_engine_caches(index_dir: str) -> Tuple[

@@ -21,9 +21,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from movi_tpu.constants import ALPHAMAP_3, SEPARATOR
-from movi_tpu.index.structure import MoveIndex
-from movi_tpu.io.fastx import ReadBatch
+from ..constants import ALPHAMAP_3, SEPARATOR
+from ..index.structure import MoveIndex
+from ..io.fastx import ReadBatch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device

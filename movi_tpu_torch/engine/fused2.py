@@ -35,7 +35,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from movi_tpu.io.fastx import ReadBatch
+from ..io.fastx import ReadBatch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device

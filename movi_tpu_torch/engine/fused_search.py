@@ -28,9 +28,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from movi_tpu.constants import SEPARATOR
-from movi_tpu.index.structure import MoveIndex
-from movi_tpu.io.fastx import ReadBatch
+from ..constants import SEPARATOR
+from ..index.structure import MoveIndex
+from ..io.fastx import ReadBatch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device

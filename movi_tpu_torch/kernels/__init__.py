@@ -37,13 +37,14 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused_zml_scan": 0, "compose_search2_records": 0,
             "fused2_count_scan": 0, "fused2_zml_scan": 0,
             "fused_color_scan": 0, "compose_paired_color_records": 0,
-            "fused2_color_scan": 0}
+            "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_walk": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # the four search scans share one C signature: (rec_all, init_rec, aux,
 # a0, chars, steps, lanes, r, sigma, first, state_in, state_out, out,
 # stream); aux is all_p (count) or restart_rec (paired ZML), a0 the paired
@@ -69,6 +70,12 @@ _SIGNATURES = {
                                           _P],
     "movi_fused2_color_scan": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
                                *[_P] * 13],
+    # (records, pre_tab, codes, steps, lanes, slots, pd_run, pd_off, 3 state
+    # in, 3 state out, ml, pre_idx, pre_off, stream)
+    "movi_fused_sa_pre_scan": [_P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 10],
+    # (records, slots, all_p, sampled, rate, max_steps, idx, off, n, out,
+    # stream)
+    "movi_sa_walk": [_P, _I, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P],
 }
 
 
@@ -473,4 +480,73 @@ def compose_search2_records(id_a, off_a, n_a, nu, nd, r: int, sigma: int):
         nd.data_ptr(), r, sigma, out.data_ptr(), _stream(dev))
     _raise_on(code, "compose_search2_records")
     launches["compose_search2_records"] += 1
+    return out
+
+
+def fused_sa_pre_scan(records: torch.Tensor, pre_tab: torch.Tensor,
+                      slots: int, p_dollar, alphas_t: torch.Tensor, state):
+    """Kernel 8a: the one-step PML scan over alphas_t [W, lanes] (uint8
+    slots) from state (idx, off, ml) int32 [lanes], also writing each
+    base's pre-LF (run, offset) from pre_tab int32 [rows, 3].  Returns
+    (state, ml, pre_idx, pre_off), the last three int32 [W, lanes]."""
+    dev = records.device
+    if dev.type != "cuda":
+        raise ValueError("fused_sa_pre_scan launches on CUDA tensors only")
+    if records.dim() != 2 or records.shape[1] != 2:
+        raise ValueError("records must be [rows, 2]")
+    _check(records, "records", torch.int32, dev)
+    _check(pre_tab, "pre_tab", torch.int32, dev, (records.shape[0], 3))
+    if alphas_t.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(alphas_t, "codes", torch.uint8, dev)
+    steps, lanes = alphas_t.shape
+    for i, s in enumerate(state):
+        _check(s, f"state[{i}]", torch.int32, dev, (lanes,))
+    new_state = tuple(torch.empty_like(s) for s in state)
+    ml, pre_idx, pre_off = (torch.empty((steps, lanes), dtype=torch.int32,
+                                        device=dev) for _ in range(3))
+    lib = _load()
+    code = lib.movi_fused_sa_pre_scan(
+        records.data_ptr(), pre_tab.data_ptr(), alphas_t.data_ptr(), steps,
+        lanes, slots, int(p_dollar[0]), int(p_dollar[1]),
+        *[s.data_ptr() for s in state], *[s.data_ptr() for s in new_state],
+        ml.data_ptr(), pre_idx.data_ptr(), pre_off.data_ptr(), _stream(dev))
+    _raise_on(code, "fused_sa_pre_scan")
+    launches["fused_sa_pre_scan"] += 1
+    return new_state, ml, pre_idx, pre_off
+
+
+def sa_walk(records: torch.Tensor, slots: int, all_p: torch.Tensor,
+            sampled: torch.Tensor, rate: int, max_steps: int,
+            idx: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Kernel 8b: LF-walk every flat (run, offset) int32 [n] to a row whose
+    absolute position is a multiple of rate, through the one-step records
+    int32 [r*slots, 2] and the run starts all_p int64 [r]; returns the SA
+    values sampled[pos / rate] + steps, int64 [n] (-1 for a walk past
+    max_steps)."""
+    dev = records.device
+    if dev.type != "cuda":
+        raise ValueError("sa_walk launches on CUDA tensors only")
+    if records.dim() != 2 or records.shape[1] != 2 or \
+            records.shape[0] % slots:
+        raise ValueError("records must be [r*slots, 2]")
+    _check(records, "records", torch.int32, dev)
+    _check(all_p, "all_p", torch.int64, dev, (records.shape[0] // slots,))
+    if sampled.dim() != 1:
+        raise ValueError("sampled must be 1-D")
+    _check(sampled, "sampled", torch.int64, dev)
+    if idx.dim() != 1:
+        raise ValueError("idx must be 1-D")
+    _check(idx, "idx", torch.int32, dev)
+    _check(off, "off", torch.int32, dev, tuple(idx.shape))
+    if int(rate) <= 0:
+        raise ValueError(f"rate must be positive, got {rate}")
+    out = torch.empty(idx.shape, dtype=torch.int64, device=dev)
+    lib = _load()
+    code = lib.movi_sa_walk(
+        records.data_ptr(), slots, all_p.data_ptr(), sampled.data_ptr(),
+        int(rate), int(max_steps), idx.data_ptr(), off.data_ptr(),
+        idx.numel(), out.data_ptr(), _stream(dev))
+    _raise_on(code, "sa_walk")
+    launches["sa_walk"] += 1
     return out

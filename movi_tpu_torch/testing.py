@@ -7,8 +7,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from movi_tpu.build.suffix import build_bwt_runs
-from movi_tpu.index.structure import MoveIndex, build_move_index
+from .build.suffix import build_bwt_runs
+from .index.structure import MoveIndex, build_move_index
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 EDGE_LENGTHS = (1, 2, 3, 2047, 2048, 2049, 4097)
@@ -23,6 +23,27 @@ def small_index(seed: int = 47, n: int = 5000):
     regular thresholds and NT splitting (bound_ff=1)."""
     text = random_text(n, seed)
     return text, index_from_text(text)
+
+
+def small_sa_index(rate: int):
+    """The 5,000-base ACGT text of tests/test_fused_sa.py
+    (default_rng(17)), indexed with regular thresholds and NT splitting,
+    with its sampled SA at `rate`; and that test's 25 reads of 30-100
+    bases with 3% substitutions, every sixth with two N's.  Returns
+    (text, ix, reads)."""
+    rng = np.random.default_rng(17)
+    text = rng.choice(ACGT, size=5000)
+    ix = index_from_text(text, sa_rate=rate)
+    reads = []
+    for i in range(25):
+        L = int(rng.integers(30, 100))
+        s = int(rng.integers(0, len(text) - L))
+        seq = text[s:s + L].copy()
+        seq = np.where(rng.random(L) < 0.03, rng.choice(ACGT, size=L), seq)
+        if i % 6 == 0:
+            seq[rng.integers(0, L, size=2)] = ord("N")
+        reads.append((f"r{i}", seq.tobytes()))
+    return text, ix, reads
 
 
 def mixed_reads(text: np.ndarray, seed: int = 1, count: int = 60
@@ -67,15 +88,21 @@ def sim_reads(text: np.ndarray, lanes: int, read_len: int, seed: int,
     return np.where(flip, rng.choice(ACGT, size=reads.shape), reads)
 
 
-def index_from_text(text: np.ndarray) -> MoveIndex:
-    return build_move_index(build_bwt_runs(text), "regular-thresholds",
-                            bound_ff=1)
+def index_from_text(text: np.ndarray, sa_rate: int = 0) -> MoveIndex:
+    """Regular thresholds with NT splitting; with sa_rate, also the
+    sampled SA at that rate (build --sa-entries)."""
+    runs = build_bwt_runs(text)
+    ix = build_move_index(runs, "regular-thresholds", bound_ff=1)
+    if sa_rate:
+        ix.sampled_SA = runs.sampled_sa(sa_rate)
+        ix.sa_sample_rate = sa_rate
+    return ix
 
 
 def colored_index(docs: Sequence[np.ndarray], taxon_ids: Sequence[int]):
     """(ix, ct) for the concatenated documents: a regular-thresholds
     index with NT splitting and its Movi Color table."""
-    from movi_tpu.color import DocumentInfo, build_color_table
+    from .color import DocumentInfo, build_color_table
 
     text = np.concatenate(docs)
     offs = np.cumsum([len(d) for d in docs]).astype(np.int64)

@@ -308,3 +308,92 @@ def test_cli_multi_classify_early_stop_stdout_identical(built_color, layout):
         layout)
     assert got == want
     assert len(want.splitlines()) == 30
+
+
+@pytest.fixture(scope="module", params=[100, 37])
+def built_sa(request, tmp_path_factory):
+    """An index with its sampled SA (`movi_tpu_torch.cli build
+    --sa-entries` at the rate given) of two documents, and the reads of
+    `built`'s recipe from it (with N's)."""
+    rate = request.param
+    d = tmp_path_factory.mktemp(f"torch_cli_sa{rate}")
+    refs = [random_text(3000, 41), random_text(2500, 42)]
+    fasta = d / "ref.fa"
+    fasta.write_text("".join(f">doc{i}\n{t.tobytes().decode()}\n"
+                             for i, t in enumerate(refs)))
+    idx = str(d / "idx")
+    r = _cli("movi_tpu_torch.cli", ["build", "--fasta", str(fasta),
+                                    "--index", idx, "--sa-entries",
+                                    "--sa-sample-rate", str(rate),
+                                    "--skip-null"])
+    assert r.returncode == 0, r.stderr
+    reads = mixed_reads(refs[1], seed=7, count=16)
+    reads += [(f"u{i}", random_text(120 + 30 * i, 80 + i).tobytes())
+              for i in range(4)]
+    rpath = d / "reads.fa"
+    rpath.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in reads))
+    return idx, str(rpath), reads
+
+
+def test_cli_sa_entries_bpf_byte_identical(built_sa):
+    """query --pml --sa-entries: <out>.pml.sa_entries.bpf (64-bit) and
+    <out>.pml.bpf equal the JAX CLI's byte for byte, and hold
+    ScalarEngine's PMLs and SA entries for every read."""
+    from movi_tpu.cpu_ref.scalar import ScalarEngine
+    from movi_tpu.index.structure import MoveIndex
+    from movi_tpu_torch.io.outputs import read_bpf
+
+    idx, reads, seqs = built_sa
+    out = reads + ".sa"
+    files = [out + ".pml.sa_entries.bpf", out + ".pml.bpf"]
+    got = []
+    for module in ("movi_tpu.cli", "movi_tpu_torch.cli"):
+        for p in files:
+            if os.path.exists(p):
+                os.unlink(p)
+        r = _cli(module, ["query", "--index", idx, "--read", reads, "--pml",
+                          "--sa-entries", "--out-file", out, "--platform",
+                          "cpu"])
+        assert r.returncode == 0, r.stderr
+        got.append([open(p, "rb").read() for p in files])
+    assert got[0] == got[1]
+    oracle = ScalarEngine(MoveIndex.load(os.path.join(idx, "index.npz")))
+    sas, pmls = read_bpf(files[0]), read_bpf(files[1])
+    assert len(sas) == len(pmls) == len(seqs) == 20
+    for (name, seq), (sn, sa), (pn, ml) in zip(seqs, sas, pmls):
+        assert sn == pn == name
+        assert (ml, sa) == oracle.query_pml(seq, collect_sa=True), name
+
+
+def test_cli_sa_entries_stdout_byte_identical(built_sa):
+    """With --no-output --stdout, the PML lines, as the JAX CLI prints."""
+    idx, reads, _ = built_sa
+    want, got = _query_both((idx, reads), ["--pml", "--sa-entries",
+                                           "--no-output", "--stdout"], [])
+    assert got == want
+    assert len(want.splitlines()) == 2 * 20
+
+
+def test_cli_sa_entries_without_sampled_sa_not_yet_ported(built):
+    idx, reads = built
+    r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",
+                                    reads, "--pml", "--sa-entries",
+                                    "--platform", "cpu"])
+    assert r.returncode == 1
+    assert "not yet ported" in r.stderr
+
+
+@pytest.mark.parametrize("flags", [["--movi-format"], ["--mmap"],
+                                   ["--fused-cache"], ["--paired-cache"],
+                                   ["--ftab-k", "4"], ["--bwt-file", "x"],
+                                   ["--resume"], ["--verify"]])
+def test_cli_build_unported_flags_raise(tmp_path, flags):
+    fasta = tmp_path / "ref.fa"
+    fasta.write_text(f">d\n{random_text(500, 3).tobytes().decode()}\n")
+    idx = tmp_path / "idx"
+    r = _cli("movi_tpu_torch.cli", ["build", "--fasta", str(fasta),
+                                    "--index", str(idx), "--skip-null"]
+             + flags)
+    assert r.returncode == 1
+    assert "not yet ported" in r.stderr
+    assert not os.path.exists(idx / "index.npz")

@@ -1,6 +1,7 @@
-"""The port never imports JAX, and its wrappers never reach the CUDA
-kernel loader for a CPU tensor."""
+"""The port never imports JAX or anything of the JAX package, and its
+wrappers never reach the CUDA kernel loader for a CPU tensor."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -13,9 +14,11 @@ from movi_tpu_torch import device, kernels
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
 from movi_tpu_torch.engine import fused_color as tfc
+from movi_tpu_torch.engine import fused_sa as tsa
 from movi_tpu_torch.engine import fused_search as ts
 from movi_tpu_torch.engine import fused_search2 as ts2
-from movi_tpu_torch.testing import small_color_index, small_index
+from movi_tpu_torch.testing import (small_color_index, small_index,
+                                    small_sa_index)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(movi_tpu_torch.__file__)
@@ -46,6 +49,54 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_imports_nothing_of_movi_tpu():
+    """Importing every port module and chip_smoke.py in a fresh
+    interpreter loads no `movi_tpu` or `movi_tpu.*` module."""
+    mods = _modules() + ["chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'movi_tpu' "
+            "or k.startswith('movi_tpu.'))\n"
+            "print('MOVI_TPU', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imported_names(path):
+    """Every module an import statement of `path` names (absolute, or
+    relative with its dots), and every string constant in it."""
+    tree = ast.parse(open(path).read(), path)
+    names, strings = [], []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("." * node.level + (node.module or ""))
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            strings.append(node.value)
+    return names, strings
+
+
+def test_no_source_names_movi_tpu():
+    """No import in the port's sources or chip_smoke.py names `movi_tpu`
+    or `jax` (a relative import stays inside the port), and none runs the
+    JAX package's CLI."""
+    paths = [os.path.join(root, f) for root, _, files in os.walk(PKG)
+             for f in files if f.endswith(".py")]
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(paths) > 30
+    for path in paths:
+        names, strings = _imported_names(path)
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("movi_tpu", "jax", "jaxlib"), (path, name)
+        assert not any("movi_tpu.cli" in s and "movi_tpu_torch.cli" not in s
+                       for s in strings), path
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
@@ -91,6 +142,14 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
         a12 = torch.randint(0, slots * slots, (5, 4), dtype=torch.uint8)
         tf2.fused2_color_scan(c2.f2.records, slots, cfi.p_dollar, a12, st,
                               lens if es else None)
+    _, six, _ = small_sa_index(37)
+    sfi = tf.build_fused_index(six)
+    sx = tsa.build_fused_sa_index(six, sfi)
+    _, _, pre_idx, pre_off = tsa.pml_pre_state_scan(
+        sfi.records, sx.pre_tab, slots, sfi.p_dollar, alphas,
+        tf.initial_state(sfi, 4, "cpu"))
+    tsa.sa_walk(sfi.records, slots, sx.all_p, sx.sampled, sx.rate, sx.n,
+                pre_idx.reshape(-1), pre_off.reshape(-1))
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
@@ -100,7 +159,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "fused2_count_scan", "fused2_zml_scan",
                                      "fused_color_scan",
                                      "compose_paired_color_records",
-                                     "fused2_color_scan"}
+                                     "fused2_color_scan",
+                                     "fused_sa_pre_scan", "sa_walk"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -145,6 +205,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.fused2_color_scan(torch.zeros((50, 8), dtype=torch.int32), 5,
                                   (0, 0), codes, st)
+    with pytest.raises(ValueError):
+        kernels.fused_sa_pre_scan(rec, torch.zeros((10, 3), dtype=torch.int32),
+                                  5, (0, 0), codes, st)
+    i64 = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        kernels.sa_walk(rec, 5, i64, i64, 100, 10, st[0], st[1])
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
