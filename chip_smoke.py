@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (nine sources, thirteen
-launch counters), checks each one against its plain PyTorch version on
-the card, drives the PML, count, ZML, SA-entries and Movi Color paths
-(`Index.query_pml`, `query_count`, `query_zml`, `FusedSAEngine.query`
-and `query_multiclass`/`multi_classify`, both record layouts each, and
+Builds the CUDA kernels from movi_tpu_torch/csrc (eleven sources,
+seventeen launch counters), checks each one against its plain PyTorch
+version on the card, drives the PML, count, ZML, SA-entries, k-mer and
+Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
+`FusedSAEngine.query`, `query_kmers` and
+`query_multiclass`/`multi_classify`, both record layouts each, and
 `python -m movi_tpu_torch.cli build` and `query`) at a real index size,
 checks the answers against the scalar oracles, and prints timings with
 the card's name and power limit.  Phases:
@@ -51,6 +52,22 @@ the card's name and power limit.  Phases:
               walk's mean and longest steps per element, timings and a
               warm breakdown (batching, prepare, pre-scan, walk, D2H,
               tolist)
+     small k-mer  the 2,500-base rc index (seed 9) and the forward-only
+              index (seed 31) of tests/test_fused_kmer.py, probe-heavy
+              reads with N's, shorter than k and past 512 bases: kernel 10a
+              (fk 0, 4, 6) and 9a (fk 0, 4, 6; a run split in two equal to
+              one pass) equal their plain versions, 9b and 7b too (k = 8,
+              15, 31); the three k-mer engines equal AdvancedEngine
+     k-mer    phase 4's index with ftab-10 anchor rows: 16,384 x 150 bp
+              reads of bench.py's contamination-screening mix (half from
+              the text with 1% substitutions, half random; seed 77) and
+              phase 4's 64 x 10 kb reads through Index.query_kmers (k = 31)
+              membership, then exact counts paired=False and paired=True,
+              counted apart: the count layouts agree, membership's found
+              k-mers equal the counts', 256 sampled reads equal
+              AdvancedEngine, kernels 9a, 9b, 7b and 10a equal their plain
+              versions over all lanes, timings, the longest lane's ticks
+              and steps, and a warm breakdown of each query
   6. small color  the three-document index of tests/test_fused_color.py:
               kernels A (3-word and two-load forms), B and C equal their
               plain versions with early stop off and on (ml, color ids,
@@ -76,8 +93,12 @@ the card's name and power limit.  Phases:
               `build --color --sa-entries` made: the PML and ZML
               --classify reports, the count .matches file, ZML --stdout,
               --multi-classify (the CSV and .colors file, and
-              --early-stop --report-all on stdout) and --pml --sa-entries
-              (both .bpf files) equal --platform cpu byte for byte
+              --early-stop --report-all on stdout), --pml --sa-entries
+              (both .bpf files), --kmer and --kmer-count
+              --no-paired-records (the .kmers.15 file), and --kmer-count
+              --paired-records on a `build --fw` index equal --platform cpu
+              byte for byte; where the default index is reverse-complement
+              closed, its paired --kmer-count exits 1 "not yet ported"
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the kernels' JSON record: for each launch counter its
@@ -136,6 +157,14 @@ CUDA_SOURCES = {
                           "movi_tpu/engine/fused_sa.py:83"),
     "sa_walk": ("movi_tpu_torch/csrc/fused_sa.cu",
                 "movi_tpu/engine/fused_sa.py:119"),
+    "kmer_member_scan": ("movi_tpu_torch/csrc/fused_kmer.cu",
+                         "movi_tpu/engine/fused_kmer.py:52"),
+    "kmer_count_scan": ("movi_tpu_torch/csrc/fused_kmer.cu",
+                        "movi_tpu/engine/fused_kmer.py:245"),
+    "fused2_kmer_count_scan": ("movi_tpu_torch/csrc/fused2_kmer_count.cu",
+                               "movi_tpu/engine/fused_search2.py:478"),
+    "prep_alc": ("movi_tpu_torch/csrc/fused_kmer.cu",
+                 "movi_tpu/engine/fused_mem2.py:343"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
@@ -157,6 +186,11 @@ COLOR_GENOME_LEN = 500_000
 WIDE_GENOMES = 24         # its 24-genome, 2^16-set compressed twin
 WIDE_GENOME_LEN = 250_000
 EXACT_LEN = 70_000        # exact reads whose 5*csum passes 2^31
+KMER_KERNELS = ("kmer_member_scan", "kmer_count_scan",
+                "fused2_kmer_count_scan", "prep_alc")
+KMER_K = 31               # query --k's default
+KMER_LANES = 16384        # the screening reads of the k-mer phase
+KMER_SEED = 77
 
 
 def say(phase, msg):
@@ -370,24 +404,29 @@ def search_pair(kernel, plain, args, kw, what, errs, key, split=None):
     return plain_ms, got
 
 
+def count_steps(kind, state):
+    """The steps of each lane of a count scan ending in state [6, lanes]:
+    it loads rows only until its lane is done, so they come from the final
+    (matched x, done y): x-1+y steps one-step ("count"), (x-1)//2+y pair
+    steps paired ("count2"), none where the first char is illegal."""
+    import torch
+
+    x = state[4].to(torch.int64)
+    y = state[5].to(torch.int64)
+    return torch.where(x > 0, (x - 1) // 2 + y if "2" in kind else x - 1 + y,
+                       0)
+
+
 def search_work(kind, codes, state):
     """(bytes, ops) of one search scan over codes [steps, lanes] ending in
     state [6, lanes]: ZML gathers two rows a step (16 B one-step, 24 B
-    paired) and writes every ml; count loads rows only until its lane is
-    done, so its steps come from the final (matched x, done y): x-1+y
-    steps one-step, (x-1)//2+y pair steps paired, none where the first
-    char is illegal."""
-    import torch
-
+    paired) and writes every ml; count loads rows only for its steps
+    (count_steps)."""
     paired = "2" in kind
     row = 2 * (24 if paired else 16)
     if kind.startswith("zml"):
         return scan_work(codes, row, 4 * (2 if paired else 1), 24)
-    x = state[4].to(torch.int64)
-    y = state[5].to(torch.int64)
-    steps = torch.where(x > 0, (x - 1) // 2 + y if paired else x - 1 + y,
-                        0)
-    n = int(steps.sum())
+    n = int(count_steps(kind, state).sum())
     lanes = codes.shape[1]
     # each step's rows and char; per lane the first char, the state out,
     # the count and its two run starts
@@ -666,7 +705,7 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
     say("full", f"peak device memory {torch.cuda.max_memory_allocated(dev)}"
                 f" B  ({card})")
     return counts, dict(index=index, reads=reads, n_bases=n_bases,
-                        pick=pick, oracle=oracle, pmls=res_one)
+                        pick=pick, oracle=oracle, pmls=res_one, text=text)
 
 
 def phase_search(dev, card, errs, timings, work, ctx):
@@ -732,6 +771,7 @@ def phase_search(dev, card, errs, timings, work, ctx):
     batches = list(_as_batches(reads, QUERY_LANES))
     args = {k: [] for k in SCAN_OF}
     plain_ms = dict.fromkeys(SCAN_OF, 0.0)
+    longest = {"count": [], "count2": []}
     for batch in batches:
         for kind in SCAN_OF:
             kern, plain, a, kw = search_args(kind, s2 if "2" in kind else si,
@@ -741,8 +781,14 @@ def phase_search(dev, card, errs, timings, work, ctx):
             plain_ms[kind] += ms
             args[kind].append((kern, a, kw))
             add_work(work, SCAN_OF[kind], *search_work(kind, a[-1], st))
+            if kind in longest:
+                longest[kind].append(int(count_steps(kind, st).max()))
     say("search", "kernels 4-6 equal their plain versions over all lanes "
                   "and the whole table")
+    say("search", "the longest count lane's dependent steps per batch "
+                  "(latency floor): " + "; ".join(
+                      f"{SCAN_OF[kind]} {steps} (max {max(steps)})"
+                      for kind, steps in longest.items()))
     # the compose reads the run arrays and next-run tables, writes the table
     add_work(work, "compose_search2_records",
              4 * r * (3 + 2 * sigma) + 24 * 2 * r * sigma * sigma,
@@ -1042,6 +1088,416 @@ def phase_sa(dev, card, errs, timings, work, ctx):
               + f"  ({card})")
     say("SA", f"peak device memory in this phase "
               f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
+    return counts
+
+
+def require_kmer_equal(what, got, want, errs, key):
+    """The membership kernel's (state, work) against the plain version's:
+    every register, the emissions, and each lane's ticks and rows."""
+    (st_k, work_k), (st_p, work_p) = got, want
+    for name in st_p:
+        require_equal(f"{what} {name}", st_k[name], st_p[name], errs, key)
+    require_equal(f"{what} ticks and rows", work_k, work_p, errs, key)
+
+
+def kmer_member_pair(si, alc, state, k, ticks, what, errs, split=None):
+    """Kernel 9a and its plain version on the same inputs (the rows with
+    ftab codes when alc is [lanes, 2W]); with `split`, the kernel also runs
+    `split` ticks and then the rest from that state, which must equal one
+    pass.  Returns the kernel's (state, work), the plain version's
+    milliseconds and the kernel's arguments."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_kmer as tk
+
+    use_ftab = alc.shape[1] == 2 * state["out"].shape[1]
+    args = (si.rec_all, si.init_rec, si.r, si.sigma, si.ftab_k, alc, state,
+            k, ticks, use_ftab)
+    got = kernels.kmer_member_scan(*args)
+    want, plain_ms = timed_ms(
+        lambda: tk.kmer_scan_plain(si, alc, state, k, ticks, use_ftab))
+    require_kmer_equal(what, got, want, errs, "kmer_member_scan")
+    if split is not None:
+        half = kernels.kmer_member_scan(*args[:8], split, use_ftab)
+        rest = kernels.kmer_member_scan(*args[:6], half[0], k, ticks,
+                                        use_ftab)
+        require_kmer_equal(f"{what} split", (rest[0], half[1] + rest[1]),
+                           got, errs, "kmer_member_scan")
+    return got, plain_ms, args
+
+
+def prep_pair(al8, fk, what, errs):
+    """Kernel 10a and its plain version; returns the kernel's output and
+    the plain version's milliseconds."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+
+    got = kernels.prep_alc(al8, fk)
+    want, plain_ms = timed_ms(lambda: tm2.prep_alc_plain(al8, fk))
+    require_equal(f"{what} prep fk={fk}", got, want, errs, "prep_alc")
+    return got, plain_ms
+
+
+def kmer_count_pair(paired, idx, slots, lane, start, k, what, errs):
+    """Kernel 9b (one-step index) or 7b (paired) and the plain version
+    over the [k, nk] windows of the same k-mers.  Returns the kernel's
+    (found, count), the plain version's milliseconds, the windows and the
+    kernel's (counter, fn, args)."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_search2 as ts2
+
+    tabs = (idx.rec_all, idx.init_rec, idx.all_p, idx.r, idx.sigma)
+    if paired:
+        kern, plain = (kernels.fused2_kmer_count_scan,
+                       ts2.fused2_kmer_count_scan_plain)
+        key = "fused2_kmer_count_scan"
+    else:
+        kern, plain, key = (kernels.kmer_count_scan,
+                            tk.kmer_count_scan_plain, "kmer_count_scan")
+    args = (*tabs, slots, lane, start, k)
+    got = kern(*args)
+    win = tk.kmer_windows(slots, lane, start, k)
+    want, plain_ms = timed_ms(lambda: plain(*tabs, win, k))
+    for name, a, b in zip(("found", "count"), got, want):
+        require_equal(f"{what} {key} {name}", a, b, errs, key)
+    return got, plain_ms, win, (key, kern, args)
+
+
+def kmer_count_steps(si, win, k):
+    """The backward-search steps kernel 9b takes for each k-mer of win
+    [k, nk] (up to its first empty step; none with an illegal char).  A
+    k-mer's pair steps in kernel 7b are (steps - 1) // 2 + 1, none for
+    none."""
+    import torch
+
+    from movi_tpu_torch.engine import fused_search as ts
+
+    dead = ~(win >= 0).all(dim=0)
+    rs, os_, re, oe = ts.init_interval(si.init_rec, win[k - 1])
+    steps = torch.zeros(win.shape[1], dtype=torch.int64, device=win.device)
+    for j in range(k - 2, -1, -1):
+        steps += (~dead).to(torch.int64)
+        nrs, nos, nre, noe, empty = ts.fused_bs_step(si.rec_all, si.r,
+                                                     si.sigma, rs, os_, re,
+                                                     oe, win[j])
+        ok = ~dead & ~empty
+        rs, os_, re, oe = (torch.where(ok, n, c) for n, c in
+                           zip((nrs, nos, nre, noe), (rs, os_, re, oe)))
+        dead = dead | empty
+    return steps
+
+
+def kmer_batch_inputs(batch, amap, k, dev):
+    """(int8 read-order slots, lane int32, start int32) of every k-mer
+    window of the batch, on dev."""
+    import torch
+
+    from movi_tpu_torch.engine import fused_kmer as tk
+
+    al, own, pos = tk.kmer_starts(batch, amap, k)
+    return [torch.from_numpy(x.astype(d)).to(dev)
+            for x, d in ((al, np.int8), (own, np.int32), (pos, np.int32))]
+
+
+def check_kmer_oracle(what, reads, got, oracle, k, counts):
+    for (name, seq), (gname, res) in zip(reads, got):
+        want = (oracle.count_kmers_bidirectional(seq, k) if counts
+                else oracle.query_all_kmers(seq, k))
+        if gname != name or res != want:
+            raise AssertionError(f"{what}: read {name} differs from "
+                                 f"AdvancedEngine")
+
+
+def phase_small_kmer(dev, errs):
+    import torch
+
+    from movi_tpu_torch.build.prepare_ref import revcomp
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_search as ts
+    from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.io.fastx import left_aligned_slots, make_batches
+    from movi_tpu_torch.testing import ACGT, index_from_text, kmer_reads
+
+    fw = np.random.default_rng(9).choice(ACGT, size=2500).astype(np.uint8)
+    text = np.concatenate([fw, revcomp(fw)])
+    ix = index_from_text(text)
+    reads = kmer_reads(text, seed=3)
+    batch = next(make_batches(reads, lanes=len(reads), bucket_widths=False))
+    amap = ts.search_alphamap(ix)
+    al8 = torch.from_numpy(left_aligned_slots(batch, amap, fill=-1)
+                           .astype(np.int8)).to(dev)
+    lengths = torch.from_numpy(batch.lengths).to(dev)
+    oracle = AdvancedEngine(ix, ftab_k=0)
+    k = 15
+    ticks = []
+    for fk in (0, 4, 6):
+        si = ts.build_fused_search_index(ix, fk).to(dev)
+        alc, _ = prep_pair(al8, fk, "small", errs)
+        state = tk.make_kmer_state(batch.lanes, batch.width, lengths, k)
+        (_, work_k), _, _ = kmer_member_pair(
+            si, alc, state, k, tk.tick_cap(k, batch.width),
+            f"small fk={fk}", errs, split=53)
+        ticks.append(int(work_k[0].max()))
+        check_kmer_oracle(f"small membership fk={fk}", reads,
+                          list(zip(batch.names, tk.FusedKmerEngine(
+                              si, k, dev).query_batch(batch))), oracle, k,
+                          False)
+    si0 = ts.build_fused_search_index(ix).to(dev)
+    s2 = ts2.build_fused_search2_index(ix, dev)
+    for kc in (8, 15, 31):
+        slots, lane, start = kmer_batch_inputs(batch, amap, kc, dev)
+        for paired, idx in ((False, si0), (True, s2)):
+            kmer_count_pair(paired, idx, slots, lane, start, kc,
+                            f"small k={kc}", errs)
+        for eng in (tk.FusedKmerCountEngine(si0, kc, dev),
+                    ts2.Fused2KmerCountEngine(s2, kc, dev)):
+            check_kmer_oracle(f"small counts k={kc}", reads,
+                              list(zip(batch.names, eng.query_batch(batch))),
+                              oracle, kc, True)
+    # the forward-only index: ftab-6 anchors keep fw-only validity
+    rng = np.random.default_rng(31)
+    fwo = rng.choice(ACGT, size=2500)
+    fix = index_from_text(fwo)
+    freads = [(f"f{i}", fwo[s:s + 60].tobytes())
+              for i, s in enumerate(rng.integers(0, len(fwo) - 60, size=12))]
+    got = tk.FusedKmerEngine(ts.build_fused_search_index(fix, 6), 11,
+                             dev).query_batch(next(make_batches(
+                                 freads, lanes=12)))
+    if not all(got):
+        raise AssertionError("forward-only ftab membership found nothing")
+    check_kmer_oracle("small forward-only", freads,
+                      list(zip([n for n, _ in freads], got)),
+                      AdvancedEngine(fix), 11, False)
+    say("small k-mer", f"r={ix.r}: kernels 10a and 9a (fk 0, 4, 6; split "
+                       f"runs equal one pass; longest lane {ticks} ticks), "
+                       f"9b and 7b (k 8, 15, 31) equal plain on "
+                       f"{len(reads)} reads (width {batch.width}, with N, "
+                       f"shorter than k); membership and both count engines "
+                       f"equal AdvancedEngine, the forward-only ftab-6 "
+                       f"index too")
+
+
+def kmer_breakdown(index, reads, k, kw, dev, k_ms, n_windows, card):
+    """Where a warm query_kmers's time goes: host batching, prep (slots or
+    windows to the card, and kernel 10a for membership), the scan kernel,
+    D2H (and the per-read sums for counts), result lists; the device's
+    busy and idle shares."""
+    import torch
+
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_search2 as ts2
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.query_kmers(reads, k=k, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = index.kmer_engine(k, device=dev, **kw)
+    stage = dict.fromkeys(("batching", "prep", "kernel", "D2H", "lists"), 0.0)
+    t0 = time.perf_counter()
+    bs = list(_as_batches(reads, QUERY_LANES))
+    stage["batching"] = time.perf_counter() - t0
+    counts = kw.get("counts", False)
+    for b in bs:
+        marks = [time.perf_counter()]
+        if counts:
+            if isinstance(eng, tk.FusedKmerCountEngine):
+                idx, scan = eng.si, tk.kmer_count_scan
+            else:
+                idx, scan = eng.s2, ts2.fused2_kmer_count_scan
+            slots, lane, start = kmer_batch_inputs(b, idx.alphamap_query, k,
+                                                   dev)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            hit, cnt = scan(idx, slots, lane, start, k)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            sums = torch.zeros((2, b.lanes), dtype=torch.int64, device=dev)
+            sums[0].index_add_(0, lane, hit.to(torch.int64))
+            sums[1].index_add_(0, lane, cnt.to(torch.int64))
+            f, t = sums.tolist()
+            marks.append(time.perf_counter())
+            list(zip(f, t))
+        else:
+            alc, state = eng.prepare(b)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            st, _ = tk.kmer_scan(eng.si, alc, state, k,
+                                 tk.tick_cap(k, b.width), eng.use_ftab)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            out = st["out"].cpu().numpy()
+            marks.append(time.perf_counter())
+            tk.kmer_spans(out)
+        marks.append(time.perf_counter())
+        for key, t_a, t_b in zip(("prep", "kernel", "D2H", "lists"), marks,
+                                 marks[1:]):
+            stage[key] += t_b - t_a
+    busy = k_ms / 1e3 / wall
+    what = ("counts " + ("paired" if kw.get("paired") else "one-step")
+            if counts else "membership")
+    say("k-mer", f"warm query_kmers {what}: wall {wall:.6f} s = "
+                 f"{n_windows / wall:.6e} k-mers/s; kernels {k_ms:.6f} ms, "
+                 f"device busy share (kernels / wall) {busy:.6f}, idle share "
+                 f"{1 - busy:.6f}; host stages: "
+                 + ", ".join(f"{key} {v:.6f} s" for key, v in stage.items())
+                 + f"  ({card})")
+
+
+def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
+               long_sample=2):
+    """k-mer membership and exact counts on phase 4's index (ftab-10
+    anchor rows), counted apart."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.io.fastx import left_aligned_slots
+    from movi_tpu_torch.testing import screening_reads
+
+    index, ix, k = ctx["index"], ctx["index"].ix, KMER_K
+    short = screening_reads(ctx["text"], lanes, READ_LEN, seed=KMER_SEED)
+    longs = [rd for rd in ctx["reads"] if rd[0].startswith("l")]
+    reads = [(f"m{i}", s.tobytes()) for i, s in enumerate(short)] + longs
+    n_windows = sum(max(len(s) - k + 1, 0) for _, s in reads)
+    t0 = time.perf_counter()
+    eng = index.kmer_engine(k, device=dev)  # the ftab-10 table, on the card
+    torch.cuda.synchronize()
+    si = eng.si
+    say("k-mer", f"r={ix.r}, fk={si.ftab_k}: membership table "
+                 f"{si.rec_all.numel() * 4} B (4^{si.ftab_k} anchor rows "
+                 f"{4 ** si.ftab_k * 16} B), built and moved in "
+                 f"{time.perf_counter() - t0:.3f} s (host CPU); "
+                 f"{len(reads)} reads, {n_windows} windows of k={k}")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the k-mer paths, counted: nothing else launches between reset and
+    # read
+    runs_kw = {"member": {}, "count": dict(counts=True, paired=False),
+               "count2": dict(counts=True, paired=True)}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for key, kw in runs_kw.items():
+        t0 = time.perf_counter()
+        res[key] = index.query_kmers(reads, k=k, device=dev, **kw)
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+    counts = {name: kernels.launches[name] for name in KMER_KERNELS}
+    say("k-mer", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"k-mer path")
+    if res["count"] != res["count2"]:
+        raise AssertionError("k-mer counts: one-step and paired disagree")
+    for (name, spans), (_, (found, _)) in zip(res["member"], res["count"]):
+        if sum(c for _, c in spans) != found:
+            raise AssertionError(f"read {name}: membership and counts find "
+                                 f"different k-mers")
+    n_found = sum(f for _, (f, _) in res["count"])
+    say("k-mer", "cold end to end (host clock, " + str(n_windows)
+        + " windows): " + "; ".join(f"{key} {w:.3f} s = "
+                                    f"{n_windows / w:.6e} k-mers/s"
+                                    for key, w in walls.items())
+        + f"; {n_found} windows found; the layouts agree and membership "
+          f"finds the counts' k-mers  ({card})")
+    rng = np.random.default_rng(7)
+    pick = np.sort(np.concatenate([
+        rng.choice(lanes, ORACLE_SAMPLE - long_sample, replace=False),
+        lanes + rng.choice(len(longs), long_sample, replace=False)]))
+    oracle = AdvancedEngine(ix, ftab_k=0)
+    t0 = time.perf_counter()
+    for key in ("member", "count"):
+        check_kmer_oracle(f"full sample {key}", [reads[i] for i in pick],
+                          [res[key][i] for i in pick], oracle, k,
+                          key == "count")
+    say("k-mer", f"{len(pick)} sampled reads equal AdvancedEngine "
+                 f"(membership and counts; {time.perf_counter() - t0:.1f} s "
+                 f"host)")
+    del res
+
+    # every kernel against its plain version over all lanes of the main
+    # path's batches; the plain versions are timed in this pass
+    si0, s2 = index._search, index._paired_search
+    batches = list(_as_batches(reads, QUERY_LANES))
+    runs = {name: [] for name in KMER_KERNELS}
+    plain_ms = dict.fromkeys(KMER_KERNELS, 0.0)
+    longest, n_ticks, n_steps = [], 0, 0
+    for b in batches:
+        al8 = torch.from_numpy(left_aligned_slots(b, si.alphamap_query,
+                                                  fill=-1)
+                               .astype(np.int8)).to(dev)
+        alc, ms = prep_pair(al8, si.ftab_k, "full", errs)
+        plain_ms["prep_alc"] += ms
+        runs["prep_alc"].append((kernels.prep_alc, (al8, si.ftab_k)))
+        add_work(work, "prep_alc", al8.numel() * (1 + 8),
+                 al8.numel() * 3 * si.ftab_k)
+        state = tk.make_kmer_state(b.lanes, b.width,
+                                   torch.from_numpy(b.lengths).to(dev), k)
+        (_, kw_), ms, args = kmer_member_pair(si, alc, state, k,
+                                              tk.tick_cap(k, b.width),
+                                              "full", errs)
+        plain_ms["kmer_member_scan"] += ms
+        runs["kmer_member_scan"].append((kernels.kmer_member_scan, args))
+        ticks, rows = (int(x) for x in kw_.to(torch.int64).sum(dim=1))
+        longest.append(int(kw_[0].max()))
+        n_ticks += ticks
+        # the slots and fk-mer codes and the state read once, the rows each
+        # tick loads, the emissions written once
+        add_work(work, "kmer_member_scan",
+                 alc.numel() * 4 + 16 * rows + 2 * 40 * b.lanes
+                 + 4 * b.lanes * b.width, ticks * 2 * OPS_PER_ROW)
+        slots, lane, start = kmer_batch_inputs(b, si.alphamap_query, k, dev)
+        steps = None
+        for paired, idx in ((False, si0), (True, s2)):
+            _, ms, win, (name, fn, a) = kmer_count_pair(
+                paired, idx, slots, lane, start, k, "full", errs)
+            plain_ms[name] += ms
+            runs[name].append((fn, a))
+            if steps is None:
+                steps = kmer_count_steps(si0, win, k)
+                n_steps += int(steps.sum())
+            n = int(torch.where(steps > 0, (steps - 1) // 2 + 1, 0).sum()
+                    if paired else steps.sum())
+            # the slots read once; per k-mer its (lane, start), the count's
+            # two run starts and (found, count); per step its two rows
+            add_work(work, name, slots.numel() + lane.numel() * (8 + 8 + 5)
+                     + n * 2 * (24 if paired else 16), n * OPS_PER_ROW)
+    say("k-mer", f"kernels 9a, 9b, 7b and 10a equal their plain versions "
+                 f"over all lanes; membership: {n_ticks} ticks, "
+                 f"{n_ticks / n_windows:.6f} per window, the longest lane "
+                 f"per batch {longest} ticks (latency floor); counts: "
+                 f"{n_steps} one-step steps, the longest k-mer {k - 1} steps "
+                 f"one-step, {(k - 2) // 2 + 1} pair steps paired")
+    shapes = [tuple(b.seqs.shape) for b in batches]
+    for name in KMER_KERNELS:
+        rs = runs[name]
+        k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=5)
+        timings[name] = (k_ms, plain_ms[name])
+        per = ", ".join(f"{lb} lanes x {wb}: "
+                        f"{cuda_ms(lambda: fn(*a), reps=5):.6f} ms"
+                        for (lb, wb), (fn, a) in zip(shapes, rs))
+        say("k-mer", f"{name} over the main path's {len(batches)} batches "
+                     f"({n_windows} windows): kernel {k_ms:.6f} ms = "
+                     f"{n_windows / k_ms * 1e3:.6e} k-mers/s, plain "
+                     f"{plain_ms[name]:.6f} ms; kernel per batch [{per}]  "
+                     f"({card})")
+    del runs
+
+    kmer_breakdown(index, reads, k, {}, dev,
+                   timings["prep_alc"][0] + timings["kmer_member_scan"][0],
+                   n_windows, card)
+    kmer_breakdown(index, reads, k, dict(counts=True, paired=False), dev,
+                   timings["kmer_count_scan"][0], n_windows, card)
+    kmer_breakdown(index, reads, k, dict(counts=True, paired=True), dev,
+                   timings["fused2_kmer_count_scan"][0], n_windows, card)
+    say("k-mer", f"peak device memory in this phase "
+                 f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
     return counts
 
 
@@ -1523,8 +1979,16 @@ def phase_cli(platform):
         rpath = os.path.join(d, "reads.fa")
         with open(rpath, "w") as f:
             f.writelines(f">{n}\n{s.decode()}\n" for n, s in reads)
+        fw_idx = os.path.join(d, "idx_fw")
+        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
+                        "--fasta", fasta, "--index", fw_idx, "--fw",
+                        "--skip-null"],
+                       cwd=ROOT, check=True, capture_output=True,
+                       timeout=600)
         mode = "regular-thresholds"
-        # (query flags, the outputs compared: files, or stdout if none)
+        kmers = f"{rpath}.{mode}.kmers.15"
+        # (query flags, the outputs compared: files, or stdout if none[,
+        # the index when it is not the default one])
         runs = [(["--pml", "--classify"], [f"{rpath}.{mode}.pml.report"]),
                 (["--zml", "--classify"], [f"{rpath}.{mode}.zml.report"]),
                 (["--count"], ["{out}.count.matches"]),
@@ -1534,17 +1998,23 @@ def phase_cli(platform):
                 (["--pml", "--multi-classify", "--early-stop", "--report-all",
                   "--no-paired-records", "--stdout"], []),
                 (["--pml", "--sa-entries"],
-                 ["{out}.pml.sa_entries.bpf", "{out}.pml.bpf"])]
+                 ["{out}.pml.sa_entries.bpf", "{out}.pml.bpf"]),
+                (["--kmer", "--k", "15"], [kmers]),
+                (["--kmer-count", "--k", "15", "--no-paired-records"],
+                 [kmers]),
+                (["--kmer-count", "--k", "15", "--paired-records",
+                  "--stdout"], [], fw_idx)]
         n_found = {}
-        for flags, outputs in runs:
+        for flags, outputs, *where in runs:
             texts = {}
             for plat in (platform, "cpu"):
                 out = os.path.join(d, plat)
                 res = subprocess.run(
                     [sys.executable, "-m", "movi_tpu_torch.cli", "query",
-                     "--index", idx, "--read", rpath, *flags, "--platform",
-                     plat, "--out-file", out], cwd=ROOT, check=True,
-                    capture_output=True, text=True, timeout=600)
+                     "--index", where[0] if where else idx, "--read", rpath,
+                     *flags, "--platform", plat, "--out-file", out],
+                    cwd=ROOT, check=True, capture_output=True, text=True,
+                    timeout=600)
                 texts[plat] = b"" if outputs else res.stdout.encode()
                 for output in outputs:
                     path = output.format(out=out)
@@ -1561,13 +2031,37 @@ def phase_cli(platform):
                                     for ln in texts["cpu"].decode()
                                     .splitlines()[1:]
                                     if len(ln.split()) > 1)
+        # the default index holds reverse complements: if it is closed
+        # under them, its paired exact counts are the bidirectional
+        # engine's (not yet ported) and must say so
+        from movi_tpu_torch.engine.fused_mem2 import looks_rc_closed
+        from movi_tpu_torch.index.structure import MoveIndex
+
+        rc_closed = looks_rc_closed(MoveIndex.load(os.path.join(
+            idx, "index.npz")))
+        if rc_closed:
+            res = subprocess.run(
+                [sys.executable, "-m", "movi_tpu_torch.cli", "query",
+                 "--index", idx, "--read", rpath, "--kmer-count",
+                 "--paired-records", "--stdout", "--platform", platform],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if res.returncode != 1 or "not yet ported" not in res.stderr:
+                raise AssertionError(f"rc-closed paired --kmer-count: rc "
+                                     f"{res.returncode}, {res.stderr}")
     say("cli", f"query --pml --classify, --zml --classify, --count, --zml "
                f"--stdout, --pml --multi-classify --report-colors, "
-               f"--multi-classify --early-stop --report-all --stdout and "
-               f"--pml --sa-entries (both .bpf files) on --platform "
-               f"{platform} ({len(reads)} reads; found {n_found}; index by "
-               f"movi_tpu_torch.cli build --color --sa-entries) equal "
-               f"--platform cpu byte for byte")
+               f"--multi-classify --early-stop --report-all --stdout, "
+               f"--pml --sa-entries (both .bpf files), --kmer --k 15, "
+               f"--kmer-count --k 15 --no-paired-records (the .kmers.15 "
+               f"file) and --kmer-count --paired-records on a build --fw "
+               f"index on --platform {platform} ({len(reads)} reads; found "
+               f"{n_found}; index by movi_tpu_torch.cli build --color "
+               f"--sa-entries) equal --platform cpu byte for byte; the "
+               f"default index is "
+               + ("reverse-complement closed, and its paired --kmer-count "
+                  "exits 1 'not yet ported'" if rc_closed else
+                  "not reverse-complement closed (its paired --kmer-count "
+                  "runs kernel 7b)"))
 
 
 def main() -> int:
@@ -1608,9 +2102,11 @@ def main() -> int:
     phase_small(dev, errs)
     phase_small_search(dev, errs)
     phase_small_sa(dev, errs)
+    phase_small_kmer(dev, errs)
     counts, ctx = phase_full(dev, card, errs, timings, work)
     counts.update(phase_search(dev, card, errs, timings, work, ctx))
     counts.update(phase_sa(dev, card, errs, timings, work, ctx))
+    counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
     del ctx
     phase_small_color(dev, errs)
     counts.update(phase_color(dev, card, errs, timings, work))

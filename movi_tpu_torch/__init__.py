@@ -1,12 +1,13 @@
 """movi_tpu_torch: the PyTorch and CUDA port of movi_tpu.
 
-The PML, count and ZML query paths of movi_tpu (one-step and paired
-step and search records, the paired-record composes, engine selection,
-the API and the `query --pml/--count/--zml` CLI) on PyTorch, with each
-device function as a hand-written CUDA kernel for Hopper (`csrc/`).  The JAX package `movi_tpu` is the reference: every
-output here is bit-identical to it and to its scalar oracle.  The host
-layers of `movi_tpu` that import no JAX (index build, I/O, classify, the
-scalar oracle) are shared, not copied.
+The index build and the PML, count, ZML, SA-entries, k-mer and Movi Color
+query paths of movi_tpu (one-step and paired records, the paired-record
+composes, engine selection, the API and the `build`/`query` CLI) on
+PyTorch, with each device function as a hand-written CUDA kernel for
+Hopper (`csrc/`).  The JAX package `movi_tpu` is the reference: every
+output here is bit-identical to it and to its scalar oracles.  The port
+keeps its own copies of the host layers it needs (index build, I/O,
+classify, the scalar oracles) and imports nothing of movi_tpu or JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""High-level API, the PML, count, ZML and Movi Color surface of
+"""High-level API, the PML, count, ZML, k-mer and Movi Color surface of
 movi_tpu/api.py.
 
     from movi_tpu_torch import Index
@@ -8,12 +8,17 @@ movi_tpu/api.py.
     res = index.query_pml(reads)                        # [(name, pmls)]
     res = index.query_count(reads)           # [(name, (pos_on_r, count))]
     res = index.query_zml(reads)                        # [(name, zmls)]
+    res = index.query_kmers(reads, k=31)     # [(name, [(start, found)])]
+    res = index.query_kmers(reads, k=31, counts=True)
+                                             # [(name, (found, total))]
     res = index.multi_classify(reads, color_table)      # [(name, cell)]
 
 Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
 device passed in (default CUDA; without a card that raises unless the
-caller names the CPU).  The other query methods of the JAX API (MEMs,
-k-mers, SA entries) are not yet ported and are absent.
+caller names the CPU).  MEMs are not yet ported and absent; k-mer queries
+on an unbounded index, and exact k-mer counts on a reverse-complement
+closed index in the paired layout (the bidirectional engine), raise
+NotPortedError.  SA entries are FusedSAEngine's (engine/fused_sa.py).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from .build.suffix import build_bwt_runs
 from .index.structure import MoveIndex, build_move_index
 from .io.fastx import batches_from_file, make_batches
 
+from .cli import NotPortedError
 from .convert import load_engine_caches
 from .device import DeviceLike, resolve_device
 from .engine.fused import (FusedPMLEngine, build_fused_index, is_bounded,
@@ -34,9 +40,12 @@ from .engine.fused2 import (Fused2ColorEngine, Fused2PMLEngine,
                             build_fused2_color_index, build_fused2_index,
                             save_fused2_index)
 from .engine.fused_color import FusedColorEngine, build_fused_color_index
+from .engine.fused_kmer import FusedKmerCountEngine, FusedKmerEngine
+from .engine.fused_mem2 import looks_rc_closed
 from .engine.fused_search import (FusedCountEngine, FusedZMLEngine,
                                   build_fused_search_index)
-from .engine.fused_search2 import (Fused2CountEngine, Fused2ZMLEngine,
+from .engine.fused_search2 import (Fused2CountEngine, Fused2KmerCountEngine,
+                                   Fused2ZMLEngine,
                                    build_fused_search2_index,
                                    save_fused_search2_index)
 from .engine.select import pick_backend
@@ -63,6 +72,7 @@ class Index:
         self._paired = None   # Fused2Index
         self._search = None   # FusedSearchIndex
         self._paired_search = None  # FusedSearch2Index
+        self._kmer_si = None  # (fk, FusedSearchIndex with fk anchor rows)
         self._color = None    # (ColorTable, FusedColorIndex)
         self._paired_color = None   # (ColorTable, Fused2ColorIndex)
         self._bounded = None
@@ -151,28 +161,75 @@ class Index:
         bound_ff=1 (thresholds are not used)."""
         if kind not in ("count", "zml"):
             raise ValueError(f"unknown search query {kind!r}")
-        if not self._is_bounded():
-            raise NotImplementedError(
-                f"{kind} on an index not built with bound_ff=1 (the compact "
-                f"engine) is not yet ported")
         dev = resolve_device(device)
+        backend = self._search_backend(kind, paired, dev)
+        if backend == "paired":
+            cls = Fused2CountEngine if kind == "count" else Fused2ZMLEngine
+        else:
+            cls = FusedCountEngine if kind == "count" else FusedZMLEngine
+        return cls(self._search_tables(backend, dev), dev)
+
+    def _search_backend(self, what: str, paired: Optional[bool], dev):
+        """The search layout (paired or one-step) for `what`; raises where
+        the port has no engine (unbounded index, compact fallback)."""
+        if not self._is_bounded():
+            raise NotPortedError(
+                f"{what} on an index not built with bound_ff=1 (the compact "
+                f"or scalar engine) is not yet ported")
         backend = pick_backend(self.ix.r, self.ix.sigma, "search",
                                force_paired=paired, device=dev)
         if backend == "compact":
-            raise NotImplementedError(
+            raise NotPortedError(
                 f"index (r={self.ix.r}) exceeds the device's record-table "
                 f"budget; the compact engine is not yet ported")
+        return backend
+
+    def _search_tables(self, backend: str, dev):
+        """The paired or one-step search records on dev, built once."""
         if backend == "paired":
             if self._paired_search is None:
                 self._paired_search = build_fused_search2_index(self.ix, dev)
             self._paired_search = self._paired_search.to(dev)
-            cls = Fused2CountEngine if kind == "count" else Fused2ZMLEngine
-            return cls(self._paired_search, dev)
+            return self._paired_search
         if self._search is None:
             self._search = build_fused_search_index(self.ix)
         self._search = self._search.to(dev)
-        cls = FusedCountEngine if kind == "count" else FusedZMLEngine
-        return cls(self._search, dev)
+        return self._search
+
+    def kmer_engine(self, k: int = 31, counts: bool = False,
+                    paired: Optional[bool] = None,
+                    device: DeviceLike = None, ftab_k: int = 10):
+        """The k-mer engine on `device`.  Membership (counts=False) runs
+        the one-step search records with fk = min(ftab_k, k - k//3) ftab
+        anchor rows on an ACGT index (none when fk <= 1).  Exact counts
+        (counts=True) take the paired search records when paired=True or
+        when they fit (paired=None), else the one-step records; on a
+        reverse-complement closed index the paired route is the
+        bidirectional engine, which is not yet ported."""
+        dev = resolve_device(device)
+        if not counts:
+            self._search_backend("k-mer membership", False, dev)
+            fk = 0
+            if bytes(self.ix.alphabet) == b"ACGT":
+                fk = min(ftab_k, k - k // 3)
+                if fk <= 1:
+                    fk = 0
+            if self._kmer_si is None or self._kmer_si[0] != fk:
+                self._kmer_si = None  # free the old table first
+                self._kmer_si = (fk, build_fused_search_index(self.ix, fk))
+            self._kmer_si = (fk, self._kmer_si[1].to(dev))
+            return FusedKmerEngine(self._kmer_si[1], k, dev)
+        backend = self._search_backend("exact k-mer counts", paired, dev)
+        if backend == "paired" and looks_rc_closed(self.ix):
+            raise NotPortedError(
+                "exact k-mer counts on a reverse-complement closed index in "
+                "the paired layout take the bidirectional engine "
+                "(FusedKmer2CountEngine, ROADMAP item 12), which is not yet "
+                "ported; pass paired=False (--no-paired-records) for the "
+                "one-step count engine")
+        cls = (Fused2KmerCountEngine if backend == "paired"
+               else FusedKmerCountEngine)
+        return cls(self._search_tables(backend, dev), k, dev)
 
     def color_engine(self, color_table, paired: Optional[bool] = None,
                      device: DeviceLike = None, **color_kw):
@@ -236,6 +293,15 @@ class Index:
         """[(name, zmls)] with zmls in processing (right-to-left) order."""
         return self._run(self.search_engine("zml", paired, device), reads,
                          lanes)
+
+    def query_kmers(self, reads: Reads, k: int = 31, counts: bool = False,
+                    lanes: int = 8192, paired: Optional[bool] = None,
+                    device: DeviceLike = None, ftab_k: int = 10):
+        """Membership: [(name, [(kmer_start_pos, found_count)])] in
+        descending position order (query_all_kmers); counts=True: [(name,
+        (found_kmers, total_occurrences))] (count_kmers_bidirectional)."""
+        return self._run(self.kmer_engine(k, counts, paired, device, ftab_k),
+                         reads, lanes)
 
     def query_multiclass(self, reads: Reads, color_table, lanes: int = 8192,
                          paired: Optional[bool] = None,

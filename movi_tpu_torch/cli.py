@@ -1,30 +1,34 @@
 """movi_tpu_torch command-line interface: `build`, and `query --pml`,
-`--zml`, `--count`, `--pml --sa-entries` and `--pml --multi-classify` on
-the port.
+`--zml`, `--count`, `--kmer`, `--kmer-count`, `--pml --sa-entries` and
+`--pml --multi-classify` on the port.
 
     python -m movi_tpu_torch.cli build --fasta REF.fa --index IDX \\
         [--color] [--sa-entries [--sa-sample-rate 100]] [--skip-null]
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
         (--pml | --zml | --count) [--classify | --filter [--invert]] \\
         [--stdout] [--no-output] [--platform cpu]
+    python -m movi_tpu_torch.cli query --index IDX --read READS \\
+        (--kmer [--ftab-k FK] | --kmer-count) [--k 31] [--stdout] \\
+        [--no-output] [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
         --sa-entries [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
         --multi-classify [--early-stop] [--report-colors] [--report-all] \\
         [--lca-tree nodes.dmp] [--stdout] [--platform cpu]
 
-Mirrors `build` and the PML, SA-entries, ZML, count and Movi Color
+Mirrors `build` and the PML, SA-entries, ZML, count, k-mer and Movi Color
 branches of movi_tpu/cli.py (index and color-table loading, the
-classifier, the stdout/BPF/.matches/report/.multiclass.csv/.colors
+classifier, the stdout/BPF/.matches/report/.kmers/.multiclass.csv/.colors
 writers, LCA post-processing) with the port's own copies of its host
 modules; the record caches and the layout choice are `api.Index`'s.  The
 files `build` writes (index.npz, colors.npz, the null databases) load in
-either package.  Other query types (MEMs, k-mers), the other build
-outputs (index.movi, index.mmap, record caches, ftab), and indexes the
-fused engines cannot run (PML, SA entries or color without thresholds,
-or not built with bound_ff=1; SA entries without a sampled SA) are not
-yet ported: asking for them is an error, never a fallback to another
-engine.
+either package.  MEMs, the other build outputs (index.movi, index.mmap,
+record caches, ftab), the scalar k-mer path (--multi-ftab), exact k-mer
+counts on a reverse-complement closed index in the paired layout (the
+bidirectional engine), and indexes the fused engines cannot run (PML, SA
+entries or color without thresholds, or not built with bound_ff=1; SA
+entries without a sampled SA) are not yet ported: asking for them is an
+error, never a fallback to another engine.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import numpy as np
 
 from .commons import error, info, success, timing
 
-_NOT_PORTED = ("mem", "kmer", "kmer_count")
+_NOT_PORTED = ("mem",)
 _QUERIES = ("pml", "zml", "count")
+_KMER_QUERIES = ("kmer", "kmer_count")
 # build flags of movi_tpu/cli.py whose outputs the port does not write
 _BUILD_NOT_PORTED = ("movi_format", "mmap", "fused_cache", "paired_cache",
                      "ftab_k", "bwt_file", "resume", "verify", "keep",
@@ -254,10 +259,17 @@ def cmd_query(args):
     if asked:
         raise NotPortedError(
             f"--{asked[0].replace('_', '-')} is not yet ported to "
-            f"movi_tpu_torch (only --pml, --zml and --count)")
+            f"movi_tpu_torch (only --pml, --zml, --count, --kmer and "
+            f"--kmer-count)")
     qt = next((q for q in _QUERIES if getattr(args, q)), None)
+    if qt is None and any(getattr(args, q) for q in _KMER_QUERIES):
+        qt = "kmers"
     if qt is None:
-        raise SystemExit("specify one of --pml/--zml/--count")
+        raise SystemExit("specify one of --pml/--zml/--count/--kmer/"
+                         "--kmer-count")
+    if qt == "kmers" and args.multi_ftab:
+        raise NotPortedError("--multi-ftab takes the scalar k-mer path "
+                             "(AdvancedEngine), which is not yet ported")
     device = resolve_device("cuda" if args.platform == "gpu" else "cpu")
 
     ix = _load_index(args.index)
@@ -274,6 +286,9 @@ def cmd_query(args):
         sa_entries(args, ix, reads, device)
         return
     index = Index.load(args.index, ix=ix)
+    if qt == "kmers":
+        kmers(args, ix, index, reads, device)
+        return
     if args.multi_classify:
         multi_classify(args, ix, index, reads, device)
         return
@@ -382,6 +397,34 @@ def sa_entries(args, ix, reads, device):
                 print(ln)
 
 
+def kmers(args, ix, index, reads, device):
+    """The --kmer and --kmer-count branches: per read `name<TAB>found/
+    (L-k+1)<TAB>spans` (membership: `start:count ` per stretch) or
+    `...<TAB>total` (exact counts), to {read}.{mode}.kmers.{k} or
+    --stdout."""
+    k = args.k
+    results = index.query_kmers(reads, k=k, counts=args.kmer_count,
+                                lanes=args.lanes, paired=_paired_force(args),
+                                device=device, ftab_k=args.ftab_k or 10)
+    lines = []
+    for (name, res), (_, seq) in zip(results, reads):
+        if args.kmer_count:
+            found, tail = res[0], res[1]
+        else:
+            found = sum(c for _, c in res)
+            tail = " ".join(f"{p}:{c}" for p, c in res) + (" " if res else "")
+        lines.append(f"{name}\t{found}/{len(seq) - k + 1}\t{tail}")
+    if args.stdout:
+        for ln in lines:
+            print(ln)
+    elif not args.no_output:
+        out = f"{args.read}.{ix.mode}.kmers.{k}"
+        with open(out, "w") as f:
+            for ln in lines:
+                f.write(ln + "\n")
+        info(f"wrote {out}")
+
+
 def multi_classify(args, ix, index, reads, device):
     """The --multi-classify branch: the CSV of per-read calls (or stdout),
     the .colors file with --report-colors, LCA post-processing."""
@@ -422,7 +465,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         prog="movi-tpu-torch",
         description="PyTorch/CUDA port of movi_tpu (index build; PML, SA "
-                    "entries, ZML, count and Movi Color queries)")
+                    "entries, ZML, count, k-mer and Movi Color queries)")
     sub = p.add_subparsers(dest="command", required=True)
 
     b = sub.add_parser("build")
@@ -453,8 +496,15 @@ def main(argv=None):
     q = sub.add_parser("query")
     q.add_argument("--index", "-i", required=True)
     q.add_argument("--read", "-r", required=True)
-    for flag in _QUERIES:
-        q.add_argument("--" + flag, action="store_true")
+    for flag in _QUERIES + _KMER_QUERIES:
+        q.add_argument("--" + flag.replace("_", "-"), action="store_true")
+    q.add_argument("--k", type=int, default=31,
+                   help="k-mer length (--kmer, --kmer-count)")
+    q.add_argument("--ftab-k", type=int, default=0,
+                   help="ftab anchor width for --kmer (0: 10, capped at "
+                        "k - k/3)")
+    q.add_argument("--multi-ftab", action="store_true",
+                   help=argparse.SUPPRESS)
     # accepted so that asking for them says they are not yet ported
     for flag in _NOT_PORTED:
         q.add_argument("--" + flag.replace("_", "-"), action="store_true",

@@ -4,8 +4,8 @@ The port keeps its own copies of the JAX package's host classes
 (`index.structure.MoveIndex`, `color.ColorTable`), field for field the
 same.  These helpers turn the JAX package's objects, read as numpy arrays,
 into the port's: the host index and color table, and the record objects
-of PML, count/ZML, Movi Color and SA entries; and they read the `*.npz`
-caches that movi_tpu writes (`build --fused-cache`, `build
+of PML, count/ZML and k-mers, Movi Color and SA entries; and they read
+the `*.npz` caches that movi_tpu writes (`build --fused-cache`, `build
 --paired-cache`, `Index.save`): the one-step and paired PML records and
 the paired search records.  Nothing here imports JAX or the JAX package:
 a JAX array is only read through `np.asarray`.
@@ -91,14 +91,14 @@ def fused2_color_index_from_jax(ci2) -> Fused2ColorIndex:
 
 
 def fused_search_index_from_jax(si) -> FusedSearchIndex:
-    """A movi_tpu FusedSearchIndex (without ftab rows) -> the port's."""
-    if int(si.ftab_k) > 1:
-        raise NotImplementedError("ftab anchor rows are not yet ported")
+    """A movi_tpu FusedSearchIndex -> the port's, its ftab anchor rows (if
+    any) included."""
     return FusedSearchIndex(r=int(si.r), sigma=int(si.sigma),
                             rec_all=_tensor(si.rec_all),
                             init_rec=_tensor(si.init_rec),
                             all_p=_tensor(si.all_p),
-                            alphamap_query=np.asarray(si.alphamap_query))
+                            alphamap_query=np.asarray(si.alphamap_query),
+                            ftab_k=int(si.ftab_k))
 
 
 def fused_search2_index_from_jax(s2) -> FusedSearch2Index:

@@ -15,6 +15,9 @@ last run <= i (up) whose get_char() is a:
   w2: cum1 (bits 0-15, 0xFFFF when the destination is the last run)
       | its LF offset << 16
   w3: its length n
+With ftab_k > 1, 4^ftab_k anchor rows follow at row 2*sigma*r: the
+backward-search interval (rs, os, re, oe) of each fk-mer code, (1, 0, 0,
+0) when it is absent (the k-mer membership machine's anchors).
 
 Scan state, int32 [6, lanes]: rows (rs, os, re, oe) are the interval;
 rows 4-5 are (matched, done) for count and (have, ml) for ZML.
@@ -44,11 +47,12 @@ BEYOND = -2          # char code past a read's end (count's -2 sentinel)
 class FusedSearchIndex:
     r: int
     sigma: int
-    rec_all: torch.Tensor       # int32 [2*sigma*r, 4]
+    rec_all: torch.Tensor       # int32 [2*sigma*r (+ 4^ftab_k), 4]
     # init_rec[a+1] = (first_run, first_offset, last_run, last_offset)
     init_rec: torch.Tensor      # int32 [sigma+1, 4]
     all_p: torch.Tensor         # int32 [r+1] (final interval counts)
     alphamap_query: np.ndarray  # host-side: byte -> char (-1 = illegal)
+    ftab_k: int = 0             # anchor rows appended to rec_all if > 1
 
     def to(self, device) -> "FusedSearchIndex":
         return replace(self, rec_all=self.rec_all.to(device),
@@ -77,11 +81,8 @@ def init_records(ix: MoveIndex) -> np.ndarray:
 def build_fused_search_index(ix: MoveIndex,
                              ftab_k: int = 0) -> FusedSearchIndex:
     """The search records on the host (CPU tensors).  Requires an index
-    built with bound_ff=1."""
-    if ftab_k > 1:
-        raise NotImplementedError(
-            "ftab anchor rows (ftab_k > 1) come with the k-mer engines, "
-            "which are not yet ported")
+    built with bound_ff=1.  With ftab_k > 1 the 4^ftab_k anchor rows
+    (fw-only validity, absent fk-mers canonical-empty) are appended."""
     r, sigma = ix.r, ix.sigma
     n64 = ix.n_arr.astype(np.int64)
     lf_abs = ix.all_p[ix.id_arr] + ix.offset_arr.astype(np.int64)
@@ -106,13 +107,20 @@ def build_fused_search_index(ix: MoveIndex,
             rec[a, :, 3] = n64[d]
         return rec.reshape(sigma * r, 4).astype(np.int32)
 
+    parts = [records(nds), records(nus)]
+    if ftab_k > 1:
+        from .fused_mem2 import build_ftab_rows
+
+        fr = build_ftab_rows(ix, ftab_k, rc_merge=False)
+        parts.append(np.where((fr[:, 7] == 1)[:, None], fr[:, 0:4],
+                              np.array([[1, 0, 0, 0]], np.int32))
+                     .astype(np.int32))
     return FusedSearchIndex(
         r=r, sigma=sigma,
-        rec_all=torch.from_numpy(np.concatenate([records(nds),
-                                                 records(nus)])),
+        rec_all=torch.from_numpy(np.concatenate(parts)),
         init_rec=torch.from_numpy(init_records(ix)),
         all_p=torch.from_numpy(ix.all_p.astype(np.int32)),
-        alphamap_query=search_alphamap(ix))
+        alphamap_query=search_alphamap(ix), ftab_k=ftab_k)
 
 
 def _lf_from_rec(rec: torch.Tensor, offset: torch.Tensor):

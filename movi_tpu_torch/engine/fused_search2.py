@@ -39,6 +39,7 @@ from .fused import trim
 from .fused_search import (BEYOND, count_init, count_results, init_interval,
                            init_records, interval_count, search_alphamap,
                            search_chars)
+from .fused_kmer import count_kmers, count_result, kmer_windows
 
 GUARD = 0xFFF            # C-field value meaning "no fast forward"
 SENT_HI = 0x1FFFFFF      # +inf run sentinel (start side, no match)
@@ -400,6 +401,57 @@ def fused2_zml_scan(rec_all, init_rec, restart_rec, r: int, sigma: int,
                                  pairs_t, state)
 
 
+def _pair_rows(ext: torch.Tensor):
+    """[E, nk] extension char rows -> ([P, nk], [P, nk]) row pairs,
+    padding an odd tail with the beyond-read sentinel."""
+    if ext.shape[0] % 2:
+        ext = torch.cat([ext, torch.full((1, ext.shape[1]), BEYOND,
+                                         dtype=ext.dtype, device=ext.device)])
+    return ext[0::2], ext[1::2]
+
+
+def fused2_kmer_count_scan_plain(rec_all, init_rec, all_p, r: int,
+                                 sigma: int, alphas: torch.Tensor, k: int):
+    """Plain PyTorch exact counts on the paired records, one lane per
+    k-mer: alphas int32 [k, nk] in k-mer order.  Init from the last char,
+    then the k-1 extensions as ceil((k-1)/2) composed pair steps.
+    Returns (found bool [nk], count int32 [nk])."""
+    a = alphas.to(torch.int32)
+    legal = (a >= 0).all(dim=0)
+    rs, os_, re, oe = init_interval(init_rec, a[k - 1])
+    dead = ~legal
+    a1s, a2s = _pair_rows(a[:-1].flip(0))
+    for a1, a2 in zip(a1s, a2s):
+        l2 = a2 >= 0
+        mid, fin, e1, e2 = fused2_bs_step(
+            rec_all, r, sigma, rs, os_, re, oe,
+            a1.clamp(min=0) * sigma + a2.clamp(min=0), a1 >= 0, l2)
+        alive = ~dead
+        ok1 = alive & ~e1
+        ok2 = ok1 & ~e2
+        dead = dead | (alive & (e1 | (l2 & ~e1 & e2)))
+        rs, os_, re, oe = (torch.where(ok2, f, torch.where(ok1, m, c))
+                           for c, m, f in zip((rs, os_, re, oe), mid, fin))
+    return count_result(all_p, rs, os_, re, oe, ~dead & legal)
+
+
+def fused2_kmer_count_scan(s2: FusedSearch2Index, slots: torch.Tensor,
+                           lane: torch.Tensor, start: torch.Tensor, k: int):
+    """Exact counts of the k-mers at (lane, start) of the read-order
+    slots int8 [lanes, W] on the paired records: the CUDA kernel on a
+    CUDA tensor, the plain version over the [k, nk] windows on a CPU
+    tensor.  Returns (found, count)."""
+    if slots.device.type == "cuda":
+        return kernels.fused2_kmer_count_scan(
+            s2.rec_all, s2.init_rec, s2.all_p, s2.r, s2.sigma, slots, lane,
+            start, k)
+    if slots.device.type != "cpu":
+        raise ValueError(f"no scan for device {slots.device}")
+    return fused2_kmer_count_scan_plain(
+        s2.rec_all, s2.init_rec, s2.all_p, s2.r, s2.sigma,
+        kmer_windows(slots, lane, start, k), k)
+
+
 class _Search2Engine:
     def __init__(self, s2: FusedSearch2Index, device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -452,3 +504,20 @@ class Fused2ZMLEngine(_Search2Engine):
 
     def query_batch(self, batch: ReadBatch) -> List[List[int]]:
         return trim(self.query_batch_device(batch), batch)
+
+
+class Fused2KmerCountEngine(_Search2Engine):
+    """Exact k-mer counts on the paired search records (one composed
+    record per two extensions and direction).  Results identical to
+    FusedKmerCountEngine and AdvancedEngine.count_kmers_bidirectional."""
+
+    def __init__(self, s2: FusedSearch2Index, k: int,
+                 device: DeviceLike = None):
+        super().__init__(s2, device)
+        self.k = k
+
+    def query_batch(self, batch: ReadBatch) -> List[Tuple[int, int]]:
+        """Per read: (found_kmers, total_counts)."""
+        return count_kmers(
+            batch, self.s2.alphamap_query, self.k, self.device,
+            lambda s, l, p: fused2_kmer_count_scan(self.s2, s, l, p, self.k))

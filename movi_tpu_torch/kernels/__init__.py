@@ -37,7 +37,9 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused_zml_scan": 0, "compose_search2_records": 0,
             "fused2_count_scan": 0, "fused2_zml_scan": 0,
             "fused_color_scan": 0, "compose_paired_color_records": 0,
-            "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_walk": 0}
+            "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_walk": 0,
+            "kmer_member_scan": 0, "kmer_count_scan": 0,
+            "fused2_kmer_count_scan": 0, "prep_alc": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,6 +52,7 @@ _LL = ctypes.c_longlong
 # stream); aux is all_p (count) or restart_rec (paired ZML), a0 the paired
 # count's first chars, each NULL where the scan takes none
 _SEARCH = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_KMER_COUNT = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 _SIGNATURES = {
     "movi_fused_pml_scan": [_P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P],
@@ -76,6 +79,15 @@ _SIGNATURES = {
     # (records, slots, all_p, sampled, rate, max_steps, idx, off, n, out,
     # stream)
     "movi_sa_walk": [_P, _I, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P],
+    # (rec_all, init_rec, alc, W, alc_w, lanes, r, sigma, fk, k, ticks,
+    # use_ftab, state in, state out, out, work, stream)
+    "movi_kmer_member_scan": [_P, _P, _P, *[_I] * 7, _LL, _I, *[_P] * 5],
+    # the two k-mer counts: (rec_all, init_rec, all_p, slots, W, lane,
+    # start, nk, r, sigma, k, found, cnt, stream)
+    "movi_kmer_count_scan": _KMER_COUNT,
+    "movi_fused2_kmer_count_scan": _KMER_COUNT,
+    # (slots, lanes, W, fk, out, stream)
+    "movi_prep_alc": [_P, _I, _I, _I, _P, _P],
 }
 
 
@@ -549,4 +561,133 @@ def sa_walk(records: torch.Tensor, slots: int, all_p: torch.Tensor,
         idx.numel(), out.data_ptr(), _stream(dev))
     _raise_on(code, "sa_walk")
     launches["sa_walk"] += 1
+    return out
+
+
+# the membership machine's registers, in the rows of its [10, lanes] state
+KMER_STATE_KEYS = ("phase", "pos", "cur", "pc", "pok", "pinit", "rs", "os",
+                   "re", "oe")
+MAX_FTAB_K = 15  # a fk-mer code is 2*fk bits of an int32
+
+
+def kmer_member_scan(rec_all, init_rec, r: int, sigma: int, ftab_k: int,
+                     alc: torch.Tensor, state, k: int, ticks: int,
+                     use_ftab: bool):
+    """Kernel 9a: the k-mer membership machine over alc int32 [lanes, W]
+    (read-order slots) or, with use_ftab, [lanes, 2W] (slots and fk-mer
+    codes), on the one-step search records int32 [2*sigma*r (+ 4^ftab_k),
+    4].  state: the int32 [lanes] registers of KMER_STATE_KEYS and out
+    int32 [lanes, W].  Each lane runs until it is done or has run `ticks`
+    ticks.  Returns (state, work int32 [2, lanes]: the ticks each lane ran
+    and the 16 B record rows it loaded)."""
+    dev = alc.device
+    if dev.type != "cuda":
+        raise ValueError("kmer_member_scan launches on CUDA tensors only")
+    rows = 2 * sigma * r + (4 ** ftab_k if ftab_k > 1 else 0)
+    _check(rec_all, "rec_all", torch.int32, dev, (rows, 4))
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    if alc.dim() != 2:
+        raise ValueError("alc must be [lanes, W] or [lanes, 2W]")
+    _check(alc, "alc", torch.int32, dev)
+    lanes, alc_w = alc.shape
+    if use_ftab and (alc_w % 2 or not 1 < ftab_k <= MAX_FTAB_K):
+        raise ValueError("ftab anchors need alc [lanes, 2W] and an index "
+                         "with 1 < ftab_k <= 15 rows")
+    W = alc_w // 2 if use_ftab else alc_w
+    if W < 1 or ticks < 0:
+        raise ValueError("a membership scan needs W >= 1 and ticks >= 0")
+    st_in = torch.stack([state[key] for key in KMER_STATE_KEYS])
+    _check(st_in, "state", torch.int32, dev, (len(KMER_STATE_KEYS), lanes))
+    _check(state["out"], "out", torch.int32, dev, (lanes, W))
+    out = state["out"].clone()
+    st_out = torch.empty_like(st_in)
+    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_kmer_member_scan(
+        rec_all.data_ptr(), init_rec.data_ptr(), alc.data_ptr(), W, alc_w,
+        lanes, r, sigma, ftab_k, k, int(ticks), int(use_ftab),
+        st_in.data_ptr(), st_out.data_ptr(), out.data_ptr(),
+        work.data_ptr(), _stream(dev))
+    _raise_on(code, "kmer_member_scan")
+    launches["kmer_member_scan"] += 1
+    new_state = dict(zip(KMER_STATE_KEYS, st_out.unbind(0)))
+    new_state["out"] = out
+    return new_state, work
+
+
+def _kmer_count(entry: str, counter: str, rec_all, rec_shape, init_rec,
+                all_p, r: int, sigma: int, slots, lane, start, k: int):
+    """Shared launch of the two exact k-mer counts: check, allocate,
+    launch.  Returns (found bool [nk], count int32 [nk])."""
+    dev = slots.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check(rec_all, "rec_all", torch.int32, dev, rec_shape)
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    _check(all_p, "all_p", torch.int32, dev, (r + 1,))
+    if slots.dim() != 2 or lane.dim() != 1:
+        raise ValueError("slots must be [lanes, W] and lane, start [nk]")
+    _check(slots, "slots", torch.int8, dev)
+    _check(lane, "lane", torch.int32, dev)
+    _check(start, "start", torch.int32, dev, tuple(lane.shape))
+    W = slots.shape[1]
+    if not 1 <= k <= W:
+        raise ValueError(f"k = {k} must be in [1, W = {W}]")
+    nk = lane.shape[0]
+    found = torch.empty(nk, dtype=torch.bool, device=dev)
+    cnt = torch.empty(nk, dtype=torch.int32, device=dev)
+    lib = _load()
+    code = getattr(lib, entry)(
+        rec_all.data_ptr(), init_rec.data_ptr(), all_p.data_ptr(),
+        slots.data_ptr(), W, lane.data_ptr(), start.data_ptr(), nk, r, sigma,
+        k, found.data_ptr(), cnt.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    return found, cnt
+
+
+def kmer_count_scan(rec_all, init_rec, all_p, r: int, sigma: int, slots,
+                    lane, start, k: int):
+    """Kernel 9b: exact counts of the k-mers at (lane, start) int32 [nk]
+    of the read-order slots int8 [lanes, W] (each start <= W - k), on the
+    one-step search records (ftab rows, if any, unused)."""
+    rows = rec_all.shape[0] if rec_all.dim() == 2 else -1
+    if rows < 2 * sigma * r:
+        raise ValueError("rec_all must hold the 2*sigma*r search records")
+    return _kmer_count("movi_kmer_count_scan", "kmer_count_scan", rec_all,
+                       (rows, 4), init_rec, all_p, r, sigma, slots, lane,
+                       start, k)
+
+
+def fused2_kmer_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
+                           slots, lane, start, k: int):
+    """Kernel 7b: the same counts on the paired search records int32
+    [2*r*sigma^2, 6], two extensions per step."""
+    _pair_sigma(sigma)
+    return _kmer_count("movi_fused2_kmer_count_scan",
+                       "fused2_kmer_count_scan", rec_all,
+                       (2 * r * sigma * sigma, 6), init_rec, all_p, r, sigma,
+                       slots, lane, start, k)
+
+
+def prep_alc(al8: torch.Tensor, fk: int) -> torch.Tensor:
+    """Kernel 10a: int8 read-order slots [lanes, W] -> int32 [lanes, W],
+    or with fk > 0 [lanes, 2W] with each position's fk-mer code appended
+    (-1 where a char is illegal or p < fk-1)."""
+    dev = al8.device
+    if dev.type != "cuda":
+        raise ValueError("prep_alc launches on CUDA tensors only")
+    if al8.dim() != 2:
+        raise ValueError("slots must be [lanes, W]")
+    _check(al8, "slots", torch.int8, dev)
+    if not 0 <= fk <= MAX_FTAB_K:
+        raise ValueError(f"fk = {fk} must be in [0, {MAX_FTAB_K}]")
+    lanes, W = al8.shape
+    out = torch.empty((lanes, 2 * W if fk else W), dtype=torch.int32,
+                      device=dev)
+    lib = _load()
+    code = lib.movi_prep_alc(al8.data_ptr(), lanes, W, fk, out.data_ptr(),
+                             _stream(dev))
+    _raise_on(code, "prep_alc")
+    launches["prep_alc"] += 1
     return out

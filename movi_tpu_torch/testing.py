@@ -88,6 +88,45 @@ def sim_reads(text: np.ndarray, lanes: int, read_len: int, seed: int,
     return np.where(flip, rng.choice(ACGT, size=reads.shape), reads)
 
 
+def screening_reads(text: np.ndarray, lanes: int, read_len: int,
+                    seed: int) -> np.ndarray:
+    """uint8 [lanes, read_len]: half reads from the text with 1%
+    substitutions, half random, shuffled (bench.py make_mixed_reads, the
+    contamination-screening mix of the k-mer engines)."""
+    rng = np.random.default_rng(seed)
+    found = sim_reads(text, lanes // 2, read_len, seed=seed + 1)
+    rand = rng.choice(ACGT, size=(lanes - lanes // 2, read_len))
+    return np.concatenate([found, rand])[rng.permutation(lanes)]
+
+
+def kmer_reads(text: np.ndarray, seed: int = 3, count: int = 45,
+               long_reads: int = 4) -> List[Tuple[str, bytes]]:
+    """Reads for the k-mer engines, the mix of tests/test_fused_kmer.py:
+    random (probe-heavy), half from the text then random, and from the
+    text with 3% substitutions, every fifth with an N; reads of 1 and 3
+    bases and one of 15 N's; and `long_reads` of 530-700 bases (random or
+    from the text)."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(count + long_reads):
+        L = int(rng.integers(12, 90) if i < count
+                else rng.integers(530, 700))
+        if i % 3 == 0:
+            seq = rng.choice(ACGT, size=L)
+        else:
+            s = int(rng.integers(0, len(text) - L))
+            seq = text[s:s + L].copy()
+            if i % 3 == 1:
+                seq[L // 2:] = rng.choice(ACGT, size=L - L // 2)
+            else:
+                seq = np.where(rng.random(L) < 0.03,
+                               rng.choice(ACGT, size=L), seq)
+        if i % 5 == 0:
+            seq[int(rng.integers(0, L))] = ord("N")
+        reads.append((f"k{i}", np.asarray(seq, np.uint8).tobytes()))
+    return reads + [("tiny", b"ACG"), ("one", b"T"), ("allN", b"N" * 15)]
+
+
 def index_from_text(text: np.ndarray, sa_rate: int = 0) -> MoveIndex:
     """Regular thresholds with NT splitting; with sa_rate, also the
     sampled SA at that rate (build --sa-entries)."""

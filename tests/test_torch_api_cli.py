@@ -216,13 +216,129 @@ def test_cli_zml_classify_report_identical(built, layout):
     assert len(want.splitlines()) == 1 + 40
 
 
-@pytest.mark.parametrize("flag", ["--mem", "--kmer"])
-def test_cli_other_queries_not_yet_ported(built, flag):
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--mem"], id="--mem"),
+    # the scalar k-mer path; --kmer itself is ported
+    pytest.param(["--kmer", "--multi-ftab", "--ftab-k", "4"], id="--kmer")])
+def test_cli_other_queries_not_yet_ported(built, flags):
     idx, reads = built
     r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",
-                                    reads, flag, "--platform", "cpu"])
+                                    reads, *flags, "--platform", "cpu"])
     assert r.returncode != 0
     assert "not yet ported" in r.stderr
+
+
+def _rc_text():
+    """One document and its reverse complement (a reverse-complement
+    closed index), 2,500 random bases, seed 9."""
+    from movi_tpu.build.prepare_ref import revcomp
+
+    fw = random_text(2500, 9)
+    return np.concatenate([fw, revcomp(fw)])
+
+
+@pytest.mark.parametrize("counts,paired", [(False, None), (True, False),
+                                           (True, True)])
+def test_api_query_kmers_equals_jax(counts, paired):
+    """Index.query_kmers (membership with ftab-10 anchors; exact counts
+    one-step and paired) equals the JAX API on a forward-only index."""
+    text, ix = small_index()
+    reads = mixed_reads(text, seed=12, count=30) + [("tiny", b"AC")]
+    for k in (9, 31):
+        want = japi.Index(ix).query_kmers(reads, k=k, counts=counts,
+                                          lanes=16, paired=paired)
+        got = tapi.Index(ix).query_kmers(reads, k=k, counts=counts, lanes=16,
+                                         paired=paired, device="cpu")
+        assert got == want, k
+
+
+def test_api_rc_closed_paired_counts_not_ported():
+    """On a reverse-complement closed index the paired exact-count route
+    is the bidirectional engine (not yet ported): it raises, naming
+    --no-paired-records; the one-step route and membership run and equal
+    the JAX API."""
+    from movi_tpu_torch.cli import NotPortedError
+    from movi_tpu_torch.testing import index_from_text
+
+    text = _rc_text()
+    ix = index_from_text(text)
+    index = tapi.Index(ix)
+    reads = mixed_reads(text, seed=2, count=12)
+    for paired in (True, None):
+        with pytest.raises(NotPortedError, match="no-paired-records"):
+            index.query_kmers(reads, k=15, counts=True, paired=paired,
+                              device="cpu")
+    jix = japi.Index(ix)
+    assert (index.query_kmers(reads, k=15, counts=True, paired=False,
+                              device="cpu")
+            == jix.query_kmers(reads, k=15, counts=True, paired=False))
+    assert (index.query_kmers(reads, k=15, device="cpu")
+            == jix.query_kmers(reads, k=15))
+
+
+@pytest.fixture(scope="module")
+def built_fw(tmp_path_factory, built):
+    """`movi_tpu_torch.cli build --fw` of the `built` fixture's reference
+    (not reverse-complement closed, so --paired-records runs kernel 7b's
+    path)."""
+    idx, reads = built
+    d = tmp_path_factory.mktemp("torch_cli_fw")
+    fasta = os.path.join(os.path.dirname(idx), "ref.fa")
+    fw = str(d / "idx")
+    r = _cli("movi_tpu_torch.cli", ["build", "--fasta", fasta, "--index", fw,
+                                    "--fw", "--skip-null"])
+    assert r.returncode == 0, r.stderr
+    return fw, reads
+
+
+@pytest.mark.parametrize("flags,layout", [
+    (["--kmer", "--k", "15"], []),
+    (["--kmer", "--k", "9", "--ftab-k", "4"], ["--lanes", "16"]),
+    (["--kmer-count", "--k", "15"], ["--no-paired-records"]),
+    (["--kmer-count", "--k", "12"], ["--paired-records"])])
+def test_cli_kmer_stdout_byte_identical(built_fw, flags, layout):
+    """query --kmer / --kmer-count --stdout on a `build --fw` index equal
+    the JAX CLI's byte for byte (the JAX CLI picks its own layout)."""
+    want, got = _query_both(built_fw, flags + ["--stdout"], layout)
+    assert got == want
+    lines = want.splitlines()
+    assert len(lines) == 40 and lines[0].count("\t") == 2
+
+
+def test_cli_kmer_files_identical(built):
+    """Without --stdout both branches write <reads>.<mode>.kmers.<k>, equal
+    to the JAX CLI's, on the default (reverse-complement) index."""
+    _, reads = built
+    out = f"{reads}.regular-thresholds.kmers.21"
+    for flags in (["--kmer"], ["--kmer-count", "--no-paired-records"]):
+        want, got = _query_both(built, flags + ["--k", "21"], [], output=out)
+        assert got == want
+        assert len(want.splitlines()) == 40
+
+
+def test_cli_kmer_count_rc_closed_paired_not_ported(tmp_path):
+    """An index of one document and its reverse complement is
+    reverse-complement closed: --kmer-count --paired-records (item 12's
+    bidirectional route) exits 1 and says so; --no-paired-records runs
+    and equals the JAX CLI."""
+    fasta = tmp_path / "ref.fa"
+    fasta.write_text(f">d\n{_rc_text()[:2500].tobytes().decode()}\n")
+    idx = str(tmp_path / "idx")
+    r = _cli("movi_tpu_torch.cli", ["build", "--fasta", str(fasta),
+                                    "--index", idx, "--skip-null"])
+    assert r.returncode == 0, r.stderr
+    rpath = tmp_path / "reads.fa"
+    rpath.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in
+                             mixed_reads(_rc_text(), seed=4, count=10)))
+    base = ["query", "--index", idx, "--read", str(rpath), "--kmer-count",
+            "--k", "15", "--stdout", "--platform", "cpu"]
+    r = _cli("movi_tpu_torch.cli", base + ["--paired-records"])
+    assert r.returncode == 1
+    assert "not yet ported" in r.stderr and "item 12" in r.stderr
+    want, got = _query_both((idx, str(rpath)),
+                            ["--kmer-count", "--k", "15", "--stdout",
+                             "--no-paired-records"], [])
+    assert got == want and len(want.splitlines()) == 10
 
 
 @pytest.mark.parametrize("paired,early_stop", [(None, False), (True, True),

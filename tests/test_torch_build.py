@@ -83,6 +83,73 @@ def test_copied_color_table_equals_jax():
           jcolor.compress_color_table(jct, 2), "compressed")
 
 
+def _rc_index():
+    from movi_tpu.build.prepare_ref import revcomp
+
+    fw = random_text(1500, 63)
+    text = np.concatenate([fw, revcomp(fw)])
+    runs = tsuffix.build_bwt_runs(text)
+    return text, tstructure.build_move_index(runs, "regular-thresholds",
+                                             bound_ff=1)
+
+
+@pytest.mark.parametrize("ftab_k", [0, 4])
+def test_copied_advanced_engine_equals_jax(ftab_k):
+    """cpu_ref/advanced.py: the ftab, k-mer membership, exact counts and
+    MEMs of the port's AdvancedEngine equal the original's."""
+    from movi_tpu.cpu_ref.advanced import AdvancedEngine as JAdv
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine as TAdv
+
+    text, ix = _rc_index()
+    t, j = TAdv(ix, ftab_k=ftab_k), JAdv(ix, ftab_k=ftab_k)
+    _same(t.ftab, j.ftab, "ftab")
+    for name, seq in mixed_reads(text, seed=14, count=12):
+        for k in (7, 15):
+            assert t.query_all_kmers(seq, k) == j.query_all_kmers(seq, k)
+            assert (t.count_kmers_bidirectional(seq, k)
+                    == j.count_kmers_bidirectional(seq, k)), name
+        assert t.query_mems(seq, 0) == j.query_mems(seq, 0), name
+        assert t.query_mems(seq, 9) == j.query_mems(seq, 9), name
+    _same(vars(t.kmer_stats), vars(j.kmer_stats), "kmer_stats")
+
+
+def test_copied_native_search_equals_jax():
+    """cpu_ref/native_search.py: the skip tables, the slot map and the
+    prepared native arguments equal the original's, and both see the
+    same native library."""
+    from movi_tpu.cpu_ref import native_search as jns
+    from movi_tpu_torch.cpu_ref import native_search as tns
+
+    text, ix = _rc_index()
+    _same(tns.build_skip_tables(ix), jns.build_skip_tables(ix), "skip")
+    reads = np.stack([text[i:i + 40] for i in range(0, 400, 40)])
+    reads[3, 5] = ord("N")
+    _same(tns.reads_to_slots(ix, reads), jns.reads_to_slots(ix, reads),
+          "slots")
+    tc, jc = tns.NativeSearchCtx(ix, True), jns.NativeSearchCtx(ix, True)
+    _same(vars(tc), vars(jc), "ctx")
+    assert tns.native_search_available() == jns.native_search_available()
+    slots = tns.reads_to_slots(ix, reads)
+    assert (tns.native_kmer_count(tc, slots, 11)
+            == jns.native_kmer_count(jc, slots, 11))
+
+
+def test_copied_native_pml_equals_jax():
+    """cpu_ref/native_pml.py: the same library and the same checksum
+    (None for both when the library is not built)."""
+    from movi_tpu.cpu_ref import native_pml as jnp_
+    from movi_tpu_torch.cpu_ref import native_pml as tnp_
+
+    text, ix = _rc_index()
+    assert tnp_.native_pml_available() == jnp_.native_pml_available()
+    slots = np.stack([text[i:i + 50] for i in range(0, 500, 50)])
+    amap = np.full(256, ix.sigma, dtype=np.uint8)
+    amap[ix.alphabet] = np.arange(ix.sigma)
+    reads = amap[slots[:, ::-1]]
+    assert (tnp_.native_pml_checksum(ix, reads)
+            == jnp_.native_pml_checksum(ix, reads))
+
+
 def test_move_index_from_jax_round_trips(tmp_path):
     """A movi_tpu MoveIndex becomes the port's with the same arrays; the
     port's index.npz loads in movi_tpu as the original, and back."""

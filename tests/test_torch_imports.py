@@ -14,6 +14,8 @@ from movi_tpu_torch import device, kernels
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
 from movi_tpu_torch.engine import fused_color as tfc
+from movi_tpu_torch.engine import fused_kmer as tk
+from movi_tpu_torch.engine import fused_mem2 as tm2
 from movi_tpu_torch.engine import fused_sa as tsa
 from movi_tpu_torch.engine import fused_search as ts
 from movi_tpu_torch.engine import fused_search2 as ts2
@@ -150,6 +152,17 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
         tf.initial_state(sfi, 4, "cpu"))
     tsa.sa_walk(sfi.records, slots, sx.all_p, sx.sampled, sx.rate, sx.n,
                 pre_idx.reshape(-1), pre_off.reshape(-1))
+    ksi = ts.build_fused_search_index(ix, ftab_k=4)
+    al8 = torch.randint(-1, 4, (4, 9), dtype=torch.int8)
+    lengths = torch.tensor([9, 8, 3, 0], dtype=torch.int32)
+    for fk in (0, 4):
+        alc = tm2.prep_alc(al8, fk)
+        tk.kmer_scan(ksi, alc, tk.make_kmer_state(4, 9, lengths, 7), 7, 50,
+                     fk > 0)
+    lane = torch.tensor([0, 1, 1, 3], dtype=torch.int32)
+    start = torch.tensor([0, 2, 0, 3], dtype=torch.int32)
+    tk.kmer_count_scan(si, al8, lane, start, 5)
+    ts2.fused2_kmer_count_scan(s2, al8, lane, start, 5)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
@@ -160,7 +173,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "fused_color_scan",
                                      "compose_paired_color_records",
                                      "fused2_color_scan",
-                                     "fused_sa_pre_scan", "sa_walk"}
+                                     "fused_sa_pre_scan", "sa_walk",
+                                     "kmer_member_scan", "kmer_count_scan",
+                                     "fused2_kmer_count_scan", "prep_alc"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -211,6 +226,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     i64 = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError):
         kernels.sa_walk(rec, 5, i64, i64, 100, 10, st[0], st[1])
+    slots8 = torch.zeros((4, 9), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        kernels.prep_alc(slots8, 4)
+    kst = {key: torch.zeros(4, dtype=torch.int32)
+           for key in kernels.KMER_STATE_KEYS}
+    kst["out"] = torch.zeros((4, 9), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.kmer_member_scan(srec, init, 3, 4, 0,
+                                 torch.zeros((4, 9), dtype=torch.int32), kst,
+                                 7, 10, False)
+    idx32 = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.kmer_count_scan(srec, init, all_p, 3, 4, slots8, idx32,
+                                idx32, 5)
+    with pytest.raises(ValueError):
+        kernels.fused2_kmer_count_scan(prec, init, all_p, 3, 4, slots8,
+                                       idx32, idx32, 5)
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -37,8 +37,19 @@ def test_search_records_byte_identical(setup):
 
 
 def test_ftab_rows_not_yet_ported(setup):
-    with pytest.raises(NotImplementedError):
-        ts.build_fused_search_index(setup["ix"], ftab_k=4)
+    """The ftab anchor rows, once left for the k-mer slice, are now built:
+    4^fk rows appended after the search records, byte-identical to the
+    JAX builder's, and the count scans ignore them."""
+    ix = setup["ix"]
+    jsi = js.build_fused_search_index(ix, ftab_k=4)
+    tsi = ts.build_fused_search_index(ix, ftab_k=4)
+    assert tsi.ftab_k == 4
+    assert tsi.rec_all.shape == (2 * ix.sigma * ix.r + 4 ** 4, 4)
+    assert np.array_equal(np.asarray(jsi.rec_all), tsi.rec_all.numpy())
+    reads = mixed_reads(setup["text"], seed=9, count=20)
+    batch = next(make_batches(reads, lanes=len(reads)))
+    assert (ts.FusedCountEngine(tsi, "cpu").query_batch(batch)
+            == ts.FusedCountEngine(setup["tsi"], "cpu").query_batch(batch))
 
 
 def test_convert_gives_equal_engines(setup):
