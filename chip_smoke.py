@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (eleven sources,
-seventeen launch counters), checks each one against its plain PyTorch
-version on the card, drives the PML, count, ZML, SA-entries, k-mer and
-Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
-`FusedSAEngine.query`, `query_kmers` and
+Builds the CUDA kernels from movi_tpu_torch/csrc (thirteen sources,
+twenty-one launch counters), checks each one against its plain PyTorch
+version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
+and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
+`FusedSAEngine.query`, `query_kmers`, `query_mems` and
 `query_multiclass`/`multi_classify`, both record layouts each, and
 `python -m movi_tpu_torch.cli build` and `query`) at a real index size,
 checks the answers against the scalar oracles, and prints timings with
@@ -68,6 +68,31 @@ the card's name and power limit.  Phases:
               AdvancedEngine, kernels 9a, 9b, 7b and 10a equal their plain
               versions over all lanes, timings, the longest lane's ticks
               and steps, and a warm breakdown of each query
+     small MEM  the rc index of tests/test_fused_mem2.py (4,000 bases,
+              seed 7), reads with N, '#', shorter than L and past 512
+              bases: kernel 10b (fk 0, 6, 8; L 2, 8, 12) and 10c equal
+              their plain versions (every register, the ends and counts,
+              each lane's ticks and rows, a run split in two equal to one
+              pass), on the first-run-longer-than-one index and on
+              junction-spanning reads of a multi-document index too;
+              kernels 11a and 11b (k 5, 11, 31; p 1 too) on the index of
+              tests/test_fused_kmer2.py; the MEM and bidirectional count
+              engines equal AdvancedEngine
+     MEM      bench.py's reverse-complement closed index (3,000,000
+              bases from default_rng(1) and their reverse complement,
+              built by the port): the MEM v2 table with ftab-10 rows,
+              16,384 x 150 bp reads (1% substitutions, seed 78) and 64 x
+              10 kb (seed 43) through Index.query_mems at L = 20 and L =
+              0, then 16,384 screening reads (seed 77) and the 10 kb
+              reads through query_kmers(counts=True) at k = 31, paired
+              (the bidirectional engine) and one-step, counted apart:
+              the count engines agree, 32 sampled reads equal
+              AdvancedEngine (its run walks in numpy, held to the plain
+              oracle in the small phase), kernels 10b/10c equal their
+              plain versions
+              over the 150 bp batches and 8 long lanes cut to 1,500
+              bases, 11a/11b over every group, timings, bounds from the
+              rows really loaded, latency floors and warm breakdowns
   6. small color  the three-document index of tests/test_fused_color.py:
               kernels A (3-word and two-load forms), B and C equal their
               plain versions with early stop off and on (ml, color ids,
@@ -95,10 +120,12 @@ the card's name and power limit.  Phases:
               --multi-classify (the CSV and .colors file, and
               --early-stop --report-all on stdout), --pml --sa-entries
               (both .bpf files), --kmer and --kmer-count
-              --no-paired-records (the .kmers.15 file), and --kmer-count
-              --paired-records on a `build --fw` index equal --platform cpu
-              byte for byte; where the default index is reverse-complement
-              closed, its paired --kmer-count exits 1 "not yet ported"
+              --no-paired-records (the .kmers.15 file), --kmer-count
+              --paired-records on a `build --fw` index (kernel 7b) and on
+              a one-document index (reverse-complement closed: kernels
+              11a and 11b), --mem --min-mem-length 12 and --mem (the .mems
+              file), and --mem --min-mem-length 12 --ftab-k 6 --stdout
+              equal --platform cpu byte for byte
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the kernels' JSON record: for each launch counter its
@@ -165,6 +192,14 @@ CUDA_SOURCES = {
                                "movi_tpu/engine/fused_search2.py:478"),
     "prep_alc": ("movi_tpu_torch/csrc/fused_kmer.cu",
                  "movi_tpu/engine/fused_mem2.py:343"),
+    "mem2_scan": ("movi_tpu_torch/csrc/fused_mem2.cu",
+                  "movi_tpu/engine/fused_mem2.py:377"),
+    "all_mem2_scan": ("movi_tpu_torch/csrc/fused_mem2.cu",
+                      "movi_tpu/engine/fused_mem2.py:700"),
+    "kmer2_right_scan": ("movi_tpu_torch/csrc/fused_kmer2.cu",
+                         "movi_tpu/engine/fused_kmer2.py:55"),
+    "kmer2_left_scan": ("movi_tpu_torch/csrc/fused_kmer2.cu",
+                        "movi_tpu/engine/fused_kmer2.py:86"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
@@ -191,6 +226,14 @@ KMER_KERNELS = ("kmer_member_scan", "kmer_count_scan",
 KMER_K = 31               # query --k's default
 KMER_LANES = 16384        # the screening reads of the k-mer phase
 KMER_SEED = 77
+MEM_KERNELS = ("mem2_scan", "all_mem2_scan", "kmer2_right_scan",
+               "kmer2_left_scan")
+MEM_RC_HALF = 3_000_000   # bench.py HBM_RC_HALF: half of the rc text
+MEM_L = 20                # bench.py MEM_L
+MEM_LANES = 16384         # bench.py MEM_LANES
+MEM_SEED = 78             # bench.py's MEM reads
+LONG_CUT = 1500           # long lanes held to the plain machines, cut
+TICK_US = 0.9             # a dependent step's latency (PERF.md §2)
 
 
 def say(phase, msg):
@@ -1501,6 +1544,573 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
     return counts
 
 
+def require_machine_equal(what, got, want, errs, key):
+    """A MEM machine's (state, work) from the kernel and the plain
+    version: every register, the ends and counts, and each lane's ticks
+    and rows."""
+    (st_k, work_k), (st_p, work_p) = got, want
+    for name in st_p:
+        require_equal(f"{what} {name}", st_k[name], st_p[name], errs, key)
+    require_equal(f"{what} ticks and rows", work_k, work_p, errs, key)
+
+
+def mem_kernel_run(m2, alc, state, ticks, L=0, use_ftab=False):
+    """(fn, args) of kernel 10b (L >= 2, BML) or 10c (L = 0, all-MEMs) on
+    these inputs."""
+    from movi_tpu_torch import kernels
+
+    tabs = (m2.rec_all, m2.init_rec6, m2.r, m2.sigma, m2.n, m2.ftab_k)
+    if L:
+        return kernels.mem2_scan, (*tabs, alc, state, L, ticks, use_ftab)
+    return kernels.all_mem2_scan, (*tabs, m2.p1, alc, state, ticks)
+
+
+def mem_machine_pair(m2, alc, state, ticks, what, errs, L=0, use_ftab=False,
+                     split=None):
+    """Kernel 10b or 10c and its plain version on the same inputs; with
+    `split`, the kernel also runs `split` ticks and then the rest from
+    that state, which must equal one pass.  Returns the kernel's (state,
+    work), the plain version's milliseconds and the kernel's (fn,
+    args)."""
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+
+    fn, args = mem_kernel_run(m2, alc, state, ticks, L, use_ftab)
+    got = fn(*args)
+    if L:
+        want, plain_ms = timed_ms(lambda: tm2.mem2_scan_plain(
+            m2, alc, state, L, ticks, use_ftab))
+    else:
+        want, plain_ms = timed_ms(lambda: tm2.all_mem2_scan_plain(
+            m2, alc, state, ticks))
+    require_machine_equal(what, got, want, errs, fn.__name__)
+    if split is not None:
+        half = fn(*mem_kernel_run(m2, alc, state, split, L, use_ftab)[1])
+        rest = fn(*mem_kernel_run(m2, alc, half[0], ticks, L, use_ftab)[1])
+        require_machine_equal(f"{what} split", (rest[0], half[1] + rest[1]),
+                              got, errs, fn.__name__)
+    return got, plain_ms, (fn, args)
+
+
+def kmer2_left_steps(m2, s2, alive, fs, fe, slots, own, anchor, k, p):
+    """The paired steps kernel 11b takes for each live (depth, group)
+    partial (up to its death; the pad second char of an odd depth's last
+    pair takes its step), and the live partials' count."""
+    import torch
+
+    from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.engine.fused_mem2 import mem2_resolve
+
+    G = own.shape[0]
+    dev = own.device
+    d = torch.arange(p, device=dev)[:, None].expand(p, G)
+    live = alive.flip(0)[:p] & (d <= anchor[None, :].to(torch.int64))
+    dl, gl = torch.nonzero(live, as_tuple=True)
+    row = (k - 2 - dl) * G + gl
+    rs, os_ = mem2_resolve(m2, fs.reshape(-1)[row])
+    re, oe = mem2_resolve(m2, fe.reshape(-1)[row])
+    W = slots.shape[1]
+    base = own[gl].to(torch.int64) * W
+    anc = anchor[gl].to(torch.int64)
+    dead = torch.zeros_like(dl, dtype=torch.bool)
+    steps = torch.zeros_like(dl)
+    for j in range(0, p - 1, 2):
+        act = ~dead & (j < dl)
+        a1 = slots.reshape(-1)[base + (anc - 1 - j).clamp(min=0)].to(
+            torch.int32)
+        a2 = torch.where(j + 1 < dl,
+                         slots.reshape(-1)[base + (anc - 2 - j).clamp(min=0)]
+                         .to(torch.int32), -2)
+        legal1 = a1 >= 0
+        steps += (act & legal1).to(steps.dtype)
+        mid, fin, e1, e2 = ts2.fused2_bs_step(
+            s2.rec_all, s2.r, s2.sigma, rs, os_, re, oe,
+            a1.clamp(min=0) * s2.sigma + a2.clamp(min=0), legal1, a2 >= 0)
+        die = act & (~legal1 | e1 | (a2 == -1) | ((a2 >= 0) & e2))
+        keep = act & ~die
+        rs, os_, re, oe = (torch.where(keep & (a2 >= 0), f,
+                                       torch.where(keep, mv, cv))
+                           for cv, mv, f in zip((rs, os_, re, oe), mid, fin))
+        dead |= die
+    return steps, int(live.sum())
+
+
+def kmer2_pair(m2, s2, slots, own, anchor, k, p, what, errs):
+    """Kernels 11a and 11b and their plain versions on the same groups:
+    alive, fw_abs_s and fw_abs_e [k-1, G], then found and count [p, G].
+    Returns the kernels' outputs, the plain versions' milliseconds and
+    the kernels' (fn, args)."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_kmer2 as tk2
+
+    r_args = (m2.rec_all, m2.init_rec6, m2.r, m2.sigma, m2.n, m2.ftab_k,
+              slots, own, anchor, k)
+    right = kernels.kmer2_right_scan(*r_args)
+    want, r_ms = timed_ms(lambda: tk2.kmer2_right_scan_plain(
+        m2, tk.kmer_windows(slots, own, anchor, k), k))
+    for name, a, b in zip(("alive", "fw_abs_s", "fw_abs_e"), right, want):
+        require_equal(f"{what} k={k} 11a {name}", a, b, errs,
+                      "kmer2_right_scan")
+    l_args = (m2.rec_all, m2.r, m2.sigma, m2.n, m2.ftab_k, s2.rec_all,
+              s2.all_p, slots, own, anchor, *right, k, p)
+    left = kernels.kmer2_left_scan(*l_args)
+    want, l_ms = timed_ms(lambda: tk2.kmer2_left_scan_plain(
+        m2, s2, *right, slots, own, anchor, k, p))
+    for name, a, b in zip(("found", "count"), left, want):
+        require_equal(f"{what} k={k} 11b {name}", a, b, errs,
+                      "kmer2_left_scan")
+    return right, left, (r_ms, l_ms), (
+        (kernels.kmer2_right_scan, r_args), (kernels.kmer2_left_scan, l_args))
+
+
+def check_mem_oracle(what, reads, got, oracle, L):
+    for (name, seq), (gname, res) in zip(reads, got):
+        want = (oracle.query_mems(seq, L) if L >= 2
+                else oracle.query_all_mems(seq))
+        if gname != name or res != want:
+            raise AssertionError(f"{what}: read {name} differs from "
+                                 f"AdvancedEngine")
+
+
+def fast_oracle(ix):
+    """AdvancedEngine whose extend_bidirectional does its two run walks in
+    numpy: the skip is the same masked sum of run lengths over the pre-step
+    interval, and the rc interval moves by the same row counts through
+    all_p (not through the device's skip tables).  The Python walks cost
+    seconds per step on a 5 M-run index; the small MEM phase holds this
+    oracle to AdvancedEngine read for read."""
+    from movi_tpu_torch.constants import complement_char
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine, _is_empty
+
+    n_arr = ix.n_arr.astype(np.int64)
+    all_p = ix.all_p.astype(np.int64)
+    # each run's complement char; the '$' run always counts
+    key = np.array([complement_char(int(ch)) for ch in ix.alphabet],
+                   dtype=np.int64)[ix.c_arr]
+    key[ix.end_bwt_idx] = -1
+
+    def walk(run, off, rows):
+        a = all_p[run] + off + rows
+        run2 = int(np.searchsorted(all_p, a, side="right")) - 1
+        return run2, int(a - all_p[run2])
+
+    class FastOracle(AdvancedEngine):
+        def extend_bidirectional(self, c, fw, rc):
+            c_comp = complement_char(c)
+            new_fw = self.backward_search_step(c, *fw)
+            if _is_empty(new_fw):
+                return False, fw, rc
+            rs, os_, re, oe = fw
+            if rs == re:
+                skip = oe - os_ + 1 if key[rs] < c_comp else 0
+            elif rs > re:
+                skip = 0
+            else:
+                w = n_arr[rs:re + 1].copy()
+                w[0] -= os_
+                w[-1] = oe + 1
+                skip = int(w[key[rs:re + 1] < c_comp].sum())
+            rrs, ros = walk(rc[0], rc[1], skip)
+            rre, roe = walk(rrs, ros, self.interval_count(*new_fw) - 1)
+            return True, new_fw, (rrs, ros, rre, roe)
+
+    return FastOracle(ix, ftab_k=0)
+
+
+def mem_batch_state(eng, batch, L):
+    """(alc, start state, tick cap) of a MEM engine's batch on its
+    device."""
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+
+    if L >= 2:
+        alc = eng.slots(batch, eng.m2.ftab_k if eng.use_ftab else 0)
+        return alc, tm2.make_mem2_state(batch.lanes, batch.width,
+                                        eng.lengths(batch), L), \
+            tm2.bml_tick_cap(batch.width)
+    alc = eng.slots(batch)
+    return alc, tm2.make_all_mem2_state(eng.m2, alc, eng.lengths(batch)), \
+        tm2.all_mem2_tick_cap(batch.width)
+
+
+def phase_small_mem2(dev, errs):
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+    from movi_tpu_torch.engine import fused_search2 as ts2
+    from movi_tpu_torch.engine.fused_kmer2 import FusedKmer2CountEngine
+    from movi_tpu_torch.io.fastx import make_batches
+    from movi_tpu_torch.testing import (junction_index, junction_reads,
+                                        kmer_reads, mem_reads, rc_index,
+                                        with_revcomp)
+
+    # BML and all-MEMs on the index of tests/test_fused_mem2.py
+    fw, ix = rc_index(4000, 7)
+    oracle = AdvancedEngine(ix, ftab_k=0)
+    rng = np.random.default_rng(11)
+    reads = (mem_reads(rng, fw, 40, with_n=True)
+             + mem_reads(rng, fw, 4, err=0.03, prefix="L",
+                         lengths=(530, 700))
+             + [("short", b"ACG"), ("one", b"A"), ("allN", b"N" * 12),
+                ("hash", fw[:30].tobytes() + b"#" + fw[40:60].tobytes())])
+    batch = next(make_batches(reads, lanes=len(reads), bucket_widths=False))
+    fast = fast_oracle(ix)
+    for name, seq in reads:
+        if (fast.query_mems(seq, 12) != oracle.query_mems(seq, 12)
+                or fast.query_all_mems(seq) != oracle.query_all_mems(seq)
+                or fast.count_kmers_bidirectional(seq, 11)
+                != oracle.count_kmers_bidirectional(seq, 11)):
+            raise AssertionError(f"the numpy-walk oracle differs from "
+                                 f"AdvancedEngine on read {name}")
+    ticks = {}
+    for fk, L in ((0, 12), (6, 12), (8, 8), (0, 2), (0, 0)):
+        m2 = tm2.build_fused_mem2_index(ix, fk).to(dev)
+        eng = (tm2.FusedMem2Engine(m2, L, dev) if L
+               else tm2.FusedAllMem2Engine(m2, dev))
+        alc, state, cap = mem_batch_state(eng, batch, L)
+        (_, work_k), _, _ = mem_machine_pair(
+            m2, alc, state, cap, f"small fk={fk} L={L}", errs, L=L,
+            use_ftab=bool(L) and eng.use_ftab, split=53)
+        ticks[fk, L] = int(work_k[0].max())
+        check_mem_oracle(f"small fk={fk} L={L}", reads,
+                         list(zip(batch.names, eng.query_batch(batch))),
+                         oracle, L)
+    # the first-run-longer-than-one index (the empty-fw count clamp)
+    fw50, ix50 = rc_index(50, 13)
+    reads50 = [("n", b"N"), ("nn", b"NN"), ("mix", b"N" + fw50[:9].tobytes()),
+               ("tail", fw50[5:20].tobytes() + b"N")]
+    b50 = next(make_batches(reads50, lanes=4, bucket_widths=False))
+    m50 = tm2.build_fused_mem2_index(ix50).to(dev)
+    o50 = AdvancedEngine(ix50)
+    for L in (0, 3):
+        eng = (tm2.FusedMem2Engine(m50, L, dev) if L
+               else tm2.FusedAllMem2Engine(m50, dev))
+        alc, state, cap = mem_batch_state(eng, b50, L)
+        mem_machine_pair(m50, alc, state, cap, f"small first-run L={L}",
+                         errs, L=L)
+        check_mem_oracle(f"small first-run L={L}", reads50,
+                         list(zip(b50.names, eng.query_batch(b50))), o50, L)
+    # ROADMAP §3.1: junction-spanning reads on a multi-document reference
+    text, junctions, jix = junction_index()
+    jreads = junction_reads(text, junctions, 15)
+    jb = next(make_batches(jreads, lanes=15, bucket_widths=False))
+    jm2 = tm2.build_fused_mem2_index(jix, 6).to(dev)
+    joracle = AdvancedEngine(jix, ftab_k=0)
+    for L in (8, 12):
+        eng = tm2.FusedMem2Engine(jm2, L, dev)
+        alc, state, cap = mem_batch_state(eng, jb, L)
+        mem_machine_pair(jm2, alc, state, cap, f"small junction L={L}", errs,
+                         L=L, use_ftab=True)
+        check_mem_oracle(f"small junction L={L}", jreads,
+                         list(zip(jb.names, eng.query_batch(jb))), joracle, L)
+
+    # bidirectional k-mer counts on the index of tests/test_fused_kmer2.py
+    fw21, kix = rc_index(3000, 21)
+    ktext = with_revcomp(fw21)
+    kreads = kmer_reads(ktext, seed=3)
+    kb = next(make_batches(kreads, lanes=len(kreads), bucket_widths=False))
+    km2 = tm2.build_fused_mem2_index(kix).to(dev)
+    ks2 = ts2.build_fused_search2_index(kix, dev)
+    koracle = AdvancedEngine(kix)
+    for k, p in ((5, 2), (11, 5), (11, 1), (31, 15)):
+        eng = FusedKmer2CountEngine(km2, ks2, k, p=p, device=dev)
+        kmer2_pair(km2, ks2, *eng.prepare(kb), k, p, "small", errs)
+        got = eng.query_batch(kb)
+        want = [koracle.count_kmers_bidirectional(s, k) for _, s in kreads]
+        if got != want or got != ts2.Fused2KmerCountEngine(
+                ks2, k, dev).query_batch(kb):
+            raise AssertionError(f"small bidirectional counts k={k} p={p} "
+                                 f"differ from AdvancedEngine or the paired "
+                                 f"engine")
+    say("small MEM", f"r={ix.r}: kernels 10b (fk 0, 6, 8; L 2, 8, 12) and "
+                     f"10c equal plain on {len(reads)} reads (width "
+                     f"{batch.width}, with N, '#', shorter than L), split "
+                     f"runs equal one pass, longest lane {ticks} ticks; the "
+                     f"first-run-longer-than-one and junction indexes too; "
+                     f"kernels 11a and 11b (k 5, 11, 31) equal plain on "
+                     f"{len(kreads)} reads; the MEM and bidirectional count "
+                     f"engines equal AdvancedEngine (junction reads at fk=6 "
+                     f"included), and so does AdvancedEngine with numpy run "
+                     f"walks (the full phase's oracle)")
+
+
+def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what):
+    """Where a warm query's time goes (MEMs, or bidirectional counts with
+    kw["k"]): host batching, prep (slots to the card, kernel 10a and the
+    start state; or the groups), kernels, D2H, result lists; the device's
+    busy and idle shares."""
+    import torch
+
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+    from movi_tpu_torch.engine import fused_kmer2 as tk2
+
+    counts = "k" in kw
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if counts:
+        index.query_kmers(reads, k=kw["k"], counts=True, paired=True,
+                          device=dev)
+        eng = index.kmer_engine(kw["k"], True, True, dev)
+    else:
+        index.query_mems(reads, kw["L"], device=dev)
+        eng = index.mem_engine(kw["L"], dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stage = dict.fromkeys(("batching", "prep", "kernels", "D2H", "lists"),
+                          0.0)
+    t0 = time.perf_counter()
+    bs = list(_as_batches(reads, QUERY_LANES))
+    stage["batching"] = time.perf_counter() - t0
+    for b in bs:
+        marks = [time.perf_counter()]
+        if counts:
+            prep = eng.prepare(b)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            right = tk2.kmer2_right_scan(eng.m2, *prep, eng.k)
+            found, cnt = tk2.kmer2_left_scan(eng.m2, eng.s2, *right, *prep,
+                                             eng.k, eng.p)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            sums = torch.zeros((2, b.lanes), dtype=torch.int64, device=dev)
+            lane = prep[1].repeat(eng.p)
+            sums[0].index_add_(0, lane, found.reshape(-1).to(torch.int64))
+            sums[1].index_add_(0, lane, cnt.reshape(-1).to(torch.int64))
+            f, t = sums.tolist()
+            marks.append(time.perf_counter())
+            list(zip(f, t))
+        else:
+            alc, state, cap = mem_batch_state(eng, b, kw["L"])
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if kw["L"] >= 2:
+                st, _ = tm2.mem2_scan(eng.m2, alc, state, kw["L"], cap,
+                                      eng.use_ftab)
+            else:
+                st, _ = tm2.all_mem2_scan(eng.m2, alc, state, cap)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            ends, cnts = st["ends"].cpu().numpy(), st["counts"].cpu().numpy()
+            marks.append(time.perf_counter())
+            tm2.mem_lists(ends, cnts)
+        marks.append(time.perf_counter())
+        for key, t_a, t_b in zip(("prep", "kernels", "D2H", "lists"), marks,
+                                 marks[1:]):
+            stage[key] += t_b - t_a
+    busy = k_ms / 1e3 / wall
+    say("MEM", f"warm {what}: wall {wall:.6f} s = {n_bases / wall:.6e} "
+               f"bases/s; kernels {k_ms:.6f} ms, device busy share (kernels "
+               f"/ wall) {busy:.6f}, idle share {1 - busy:.6f}; host stages: "
+               + ", ".join(f"{key} {v:.6f} s" for key, v in stage.items())
+               + f"  ({card})")
+
+
+def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
+              lanes=MEM_LANES, long_reads=LONG_READS, long_len=LONG_LEN,
+              long_sample=1, cut_lanes=8, cut_len=LONG_CUT):
+    """MEMs (BML at L = 20 with ftab-10 anchors, all-MEMs) and the
+    bidirectional exact k-mer counts on bench.py's reverse-complement
+    closed index, counted apart."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+    from movi_tpu_torch.engine.fused_kmer2 import FusedKmer2CountEngine
+    from movi_tpu_torch.testing import (index_from_text, random_text,
+                                        screening_reads, sim_reads,
+                                        with_revcomp)
+
+    t0 = time.perf_counter()
+    half = random_text(half_len, 1)
+    ix = index_from_text(with_revcomp(half))
+    t_ix = time.perf_counter() - t0
+    index = Index(ix)
+    t0 = time.perf_counter()
+    eng = index.mem_engine(MEM_L, dev)  # the ftab-10 table, on the card
+    torch.cuda.synchronize()
+    m2 = eng.m2
+    say("MEM", f"rc text {2 * half_len} bases, r={ix.r}, n={m2.n}: MEM v2 "
+               f"table {m2.rec_all.numel() * 4} B (4^{m2.ftab_k} anchor "
+               f"rows {4 ** m2.ftab_k * 32} B); host index build "
+               f"{t_ix:.3f} s, table built and moved in "
+               f"{time.perf_counter() - t0:.3f} s (host CPU)")
+    short = sim_reads(half, lanes, READ_LEN, seed=MEM_SEED)
+    longs = sim_reads(half, long_reads, long_len, seed=43)
+    reads = ([(f"m{i}", s.tobytes()) for i, s in enumerate(short)]
+             + [(f"l{i}", s.tobytes()) for i, s in enumerate(longs)])
+    kshort = screening_reads(half, lanes, READ_LEN, seed=KMER_SEED)
+    kreads = ([(f"k{i}", s.tobytes()) for i, s in enumerate(kshort)]
+              + reads[lanes:])
+    n_bases = lanes * READ_LEN + long_reads * long_len
+    n_windows = sum(max(len(s) - KMER_K + 1, 0) for _, s in kreads)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the MEM and bidirectional count paths, counted: nothing else
+    # launches between reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for key, fn in (
+            ("bml", lambda: index.query_mems(reads, MEM_L, device=dev)),
+            ("all", lambda: index.query_mems(reads, 0, device=dev)),
+            ("count2", lambda: index.query_kmers(
+                kreads, k=KMER_K, counts=True, paired=True, device=dev))):
+        t0 = time.perf_counter()
+        res[key] = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+    counts = {name: kernels.launches[name] for name in MEM_KERNELS}
+    say("MEM", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"MEM path")
+    keng = index.kmer_engine(KMER_K, True, True, dev)
+    if not isinstance(keng, FusedKmer2CountEngine):
+        raise AssertionError("the rc index's paired counts did not take the "
+                             "bidirectional engine")
+    t0 = time.perf_counter()
+    res["count"] = index.query_kmers(kreads, k=KMER_K, counts=True,
+                                     paired=False, device=dev)
+    torch.cuda.synchronize()
+    walls["count one-step"] = time.perf_counter() - t0
+    if res["count"] != res["count2"]:
+        raise AssertionError("bidirectional and one-step counts disagree")
+    n_mems = {key: sum(len(m) for _, m in res[key]) for key in ("bml", "all")}
+    say("MEM", "cold end to end (host clock): " + "; ".join(
+        f"{key} {w:.3f} s" for key, w in walls.items())
+        + f"; MEMs ({n_bases} bases): BML L={MEM_L} {n_mems['bml']}, "
+          f"all-MEMs {n_mems['all']}; counts ({n_windows} windows of "
+          f"k={KMER_K}): {sum(f for _, (f, _) in res['count'])} found, the "
+          f"bidirectional and one-step engines agree  ({card})")
+    rng = np.random.default_rng(7)
+    pick = np.sort(np.concatenate([
+        rng.choice(lanes, ORACLE_SAMPLE // 8 - long_sample, replace=False),
+        lanes + rng.choice(long_reads, long_sample, replace=False)]))
+    oracle = fast_oracle(ix)
+    t0 = time.perf_counter()
+    for key, L in (("bml", MEM_L), ("all", 0)):
+        check_mem_oracle(f"full sample {key}", [reads[i] for i in pick],
+                         [res[key][i] for i in pick], oracle, L)
+    check_kmer_oracle("full sample bidirectional counts",
+                      [kreads[i] for i in pick],
+                      [res["count2"][i] for i in pick], oracle, KMER_K, True)
+    say("MEM", f"{len(pick)} sampled reads equal AdvancedEngine with numpy "
+               f"run walks (BML, all-MEMs, counts; "
+               f"{time.perf_counter() - t0:.1f} s host)")
+    del res
+
+    # every kernel against its plain version: all lanes of the 150 bp
+    # batches, and the first `cut_lanes` long reads cut to `cut_len` bases
+    # (the plain machines take milliseconds per lockstep tick on the card)
+    batches = list(_as_batches(reads, QUERY_LANES))
+    kbatches = list(_as_batches(kreads, QUERY_LANES))
+    cut = next(_as_batches([(n, s[:cut_len]) for n, s in
+                            reads[lanes:lanes + cut_lanes]], QUERY_LANES))
+    runs = {name: [] for name in MEM_KERNELS}
+    plain_ms = dict.fromkeys(MEM_KERNELS, 0.0)
+    longest = {name: [] for name in MEM_KERNELS}
+    rows_of = {}
+    for L in (MEM_L, 0):
+        e = index.mem_engine(L, dev)
+        name = "mem2_scan" if L else "all_mem2_scan"
+        for b in batches + [cut]:
+            alc, state, cap = mem_batch_state(e, b, L)
+            use_ftab = bool(L) and e.use_ftab
+            if b is cut or b.width <= READ_LEN:
+                (_, w), ms, run = mem_machine_pair(
+                    e.m2, alc, state, cap, f"full {name}", errs, L=L,
+                    use_ftab=use_ftab)
+                plain_ms[name] += ms
+                if b is cut:
+                    continue
+            else:
+                run = mem_kernel_run(e.m2, alc, state, cap, L, use_ftab)
+                w = run[0](*run[1])[1]
+            runs[name].append(run)
+            ticks, rows = (int(x) for x in w.to(torch.int64).sum(dim=1))
+            longest[name].append(int(w[0].max()))
+            rows_of[name] = rows_of.get(name, 0) + rows
+            # slots (and codes) and the state read once, the rows each
+            # tick loads, ends and counts written once
+            add_work(work, name, alc.numel() * 4 + 32 * rows
+                     + 2 * 64 * b.lanes + 8 * b.lanes * b.width,
+                     ticks * 2 * OPS_PER_ROW)
+    s2 = index._paired_search
+    p = KMER_K // 2
+    steps_r = steps_l = 0
+    for b in kbatches:
+        slots, own, anchor = keng.prepare(b)
+        right, left, (r_ms, l_ms), (r_run, l_run) = kmer2_pair(
+            m2, s2, slots, own, anchor, KMER_K, p, "full", errs)
+        plain_ms["kmer2_right_scan"] += r_ms
+        plain_ms["kmer2_left_scan"] += l_ms
+        runs["kmer2_right_scan"].append(r_run)
+        runs["kmer2_left_scan"].append(l_run)
+        G = own.shape[0]
+        # 11a: a step loads two rows where the chain was alive and the
+        # char legal
+        win = tk.kmer_windows(slots, own, anchor, KMER_K) >= 0
+        before = torch.cat([win[:1], right[0][:-1]])
+        n_r = int((before & win[1:]).sum())
+        steps_r += n_r
+        add_work(work, "kmer2_right_scan",
+                 slots.numel() + 8 * G + 64 * n_r + 9 * (KMER_K - 1) * G,
+                 n_r * OPS_PER_ROW)
+        # 11b: per live partial its two pos2rba rows (32 B sectors), its
+        # abs ends, then its pair steps; per (depth, group) the alive flag
+        # and (found, count)
+        n_l, live = kmer2_left_steps(m2, s2, *right, slots, own, anchor,
+                                     KMER_K, p)
+        n_l = int(n_l.sum())
+        steps_l += n_l
+        add_work(work, "kmer2_left_scan",
+                 slots.numel() + 8 * G + live * (64 + 8) + 48 * n_l
+                 + p * G * (1 + 5), (n_l + live) * OPS_PER_ROW)
+    longest["kmer2_right_scan"] = [KMER_K - 1]
+    longest["kmer2_left_scan"] = [1 + (p - 1 + 1) // 2]
+    say("MEM", f"kernels 10b, 10c, 11a and 11b equal their plain versions "
+               f"(10b/10c over all lanes of the 150 bp batches and "
+               f"{cut_lanes} long lanes cut to {cut_len} bases; 11a/11b over "
+               f"every group); the longest lane per batch (latency floor, "
+               f"x {TICK_US} us): 10b {longest['mem2_scan']} ticks, 10c "
+               f"{longest['all_mem2_scan']} ticks; 11a {KMER_K - 1} steps, "
+               f"11b 1 resolve + {p // 2} pair steps; rows: 10b "
+               f"{rows_of['mem2_scan']}, 10c {rows_of['all_mem2_scan']}; "
+               f"steps: 11a {steps_r}, 11b {steps_l}")
+    shapes = {"mem": [tuple(b.seqs.shape) for b in batches],
+              "kmer": [tuple(b.seqs.shape) for b in kbatches]}
+    for name in MEM_KERNELS:
+        rs = runs[name]
+        k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
+        timings[name] = (k_ms, plain_ms[name])
+        timings[name + ".floor"] = max(longest[name]) * TICK_US / 1e3
+        sh = shapes["kmer" if "kmer2" in name else "mem"]
+        per = ", ".join(f"{lb} lanes x {wb}: "
+                        f"{cuda_ms(lambda: fn(*a), reps=3):.6f} ms"
+                        for (lb, wb), (fn, a) in zip(sh, rs))
+        say("MEM", f"{name} over the main path's {len(rs)} batches: kernel "
+                   f"{k_ms:.6f} ms, plain {plain_ms[name]:.6f} ms (over the "
+                   f"inputs compared above), latency floor "
+                   f"{timings[name + '.floor']:.6f} ms; kernel per batch "
+                   f"[{per}]  ({card})")
+    del runs
+
+    mem_breakdown(index, reads, {"L": MEM_L}, dev, timings["mem2_scan"][0],
+                  n_bases, card, f"query_mems BML L={MEM_L}")
+    mem_breakdown(index, reads, {"L": 0}, dev, timings["all_mem2_scan"][0],
+                  n_bases, card, "query_mems all-MEMs")
+    mem_breakdown(index, kreads, {"k": KMER_K}, dev,
+                  timings["kmer2_right_scan"][0]
+                  + timings["kmer2_left_scan"][0],
+                  sum(len(s) for _, s in kreads), card,
+                  f"query_kmers bidirectional counts k={KMER_K}")
+    say("MEM", f"peak device memory in this phase "
+               f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
+    return counts
+
+
 def require_color_equal(what, got, want, errs, key):
     """A color scan's (state, ml, cid) from the kernel and the plain
     version must agree exactly, the early-stop state included."""
@@ -1985,8 +2595,19 @@ def phase_cli(platform):
                         "--skip-null"],
                        cwd=ROOT, check=True, capture_output=True,
                        timeout=600)
+        # one document and its reverse complement: reverse-complement
+        # closed (the two-document index is not, at its junctions)
+        one = os.path.join(d, "one.fa")
+        with open(one, "w") as f:
+            f.write(f">doc0\n{refs[0].tobytes().decode()}\n")
+        rc_idx = os.path.join(d, "idx_rc")
+        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
+                        "--fasta", one, "--index", rc_idx, "--skip-null"],
+                       cwd=ROOT, check=True, capture_output=True,
+                       timeout=600)
         mode = "regular-thresholds"
         kmers = f"{rpath}.{mode}.kmers.15"
+        mems = f"{rpath}.{mode}.mems"
         # (query flags, the outputs compared: files, or stdout if none[,
         # the index when it is not the default one])
         runs = [(["--pml", "--classify"], [f"{rpath}.{mode}.pml.report"]),
@@ -2003,7 +2624,13 @@ def phase_cli(platform):
                 (["--kmer-count", "--k", "15", "--no-paired-records"],
                  [kmers]),
                 (["--kmer-count", "--k", "15", "--paired-records",
-                  "--stdout"], [], fw_idx)]
+                  "--stdout"], [], fw_idx),
+                (["--kmer-count", "--k", "15", "--paired-records",
+                  "--stdout"], [], rc_idx),
+                (["--mem", "--min-mem-length", "12"], [mems]),
+                (["--mem"], [mems]),
+                (["--mem", "--min-mem-length", "12", "--ftab-k", "6",
+                  "--stdout"], [])]
         n_found = {}
         for flags, outputs, *where in runs:
             texts = {}
@@ -2031,37 +2658,27 @@ def phase_cli(platform):
                                     for ln in texts["cpu"].decode()
                                     .splitlines()[1:]
                                     if len(ln.split()) > 1)
-        # the default index holds reverse complements: if it is closed
-        # under them, its paired exact counts are the bidirectional
-        # engine's (not yet ported) and must say so
+        # the one-document index is closed under reverse complements, so
+        # its paired exact counts took the bidirectional engine
         from movi_tpu_torch.engine.fused_mem2 import looks_rc_closed
         from movi_tpu_torch.index.structure import MoveIndex
 
-        rc_closed = looks_rc_closed(MoveIndex.load(os.path.join(
-            idx, "index.npz")))
-        if rc_closed:
-            res = subprocess.run(
-                [sys.executable, "-m", "movi_tpu_torch.cli", "query",
-                 "--index", idx, "--read", rpath, "--kmer-count",
-                 "--paired-records", "--stdout", "--platform", platform],
-                cwd=ROOT, capture_output=True, text=True, timeout=600)
-            if res.returncode != 1 or "not yet ported" not in res.stderr:
-                raise AssertionError(f"rc-closed paired --kmer-count: rc "
-                                     f"{res.returncode}, {res.stderr}")
+        if not looks_rc_closed(MoveIndex.load(os.path.join(rc_idx,
+                                                           "index.npz"))):
+            raise AssertionError("the one-document CLI index is not "
+                                 "reverse-complement closed")
     say("cli", f"query --pml --classify, --zml --classify, --count, --zml "
                f"--stdout, --pml --multi-classify --report-colors, "
                f"--multi-classify --early-stop --report-all --stdout, "
                f"--pml --sa-entries (both .bpf files), --kmer --k 15, "
                f"--kmer-count --k 15 --no-paired-records (the .kmers.15 "
-               f"file) and --kmer-count --paired-records on a build --fw "
-               f"index on --platform {platform} ({len(reads)} reads; found "
-               f"{n_found}; index by movi_tpu_torch.cli build --color "
-               f"--sa-entries) equal --platform cpu byte for byte; the "
-               f"default index is "
-               + ("reverse-complement closed, and its paired --kmer-count "
-                  "exits 1 'not yet ported'" if rc_closed else
-                  "not reverse-complement closed (its paired --kmer-count "
-                  "runs kernel 7b)"))
+               f"file), --kmer-count --paired-records on a build --fw "
+               f"index (kernel 7b) and on a one-document reverse-complement "
+               f"closed index (kernels 11a and 11b), --mem --min-mem-length "
+               f"12 and --mem (the .mems file), --mem --min-mem-length 12 "
+               f"--ftab-k 6 --stdout on --platform {platform} ({len(reads)} "
+               f"reads; found {n_found}; index by movi_tpu_torch.cli build "
+               f"--color --sa-entries) equal --platform cpu byte for byte")
 
 
 def main() -> int:
@@ -2099,19 +2716,32 @@ def main() -> int:
     say("build", "make -C native: rc 0; native SA-IS yes")
 
     errs, timings, work = {}, {}, {}
+    t_start = time.perf_counter()
+
+    def lap(name):
+        say("time", f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_small(dev, errs)
     phase_small_search(dev, errs)
     phase_small_sa(dev, errs)
     phase_small_kmer(dev, errs)
+    lap("small phases")
     counts, ctx = phase_full(dev, card, errs, timings, work)
     counts.update(phase_search(dev, card, errs, timings, work, ctx))
     counts.update(phase_sa(dev, card, errs, timings, work, ctx))
     counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
     del ctx
+    lap("phases 4-5, SA, k-mer")
+    phase_small_mem2(dev, errs)
+    lap("small MEM")
+    counts.update(phase_mem(dev, card, errs, timings, work))
+    lap("MEM")
     phase_small_color(dev, errs)
     counts.update(phase_color(dev, card, errs, timings, work))
     phase_color_two_load(dev, card, errs, timings)
+    lap("color phases")
     phase_cli("gpu")
+    lap("cli")
 
     rows = []
     for name, (src, rep) in CUDA_SOURCES.items():

@@ -11,14 +11,17 @@ movi_tpu/api.py.
     res = index.query_kmers(reads, k=31)     # [(name, [(start, found)])]
     res = index.query_kmers(reads, k=31, counts=True)
                                              # [(name, (found, total))]
+    res = index.query_mems(reads, min_mem_length=20)
+                                             # [(name, [(pos, end, count)])]
     res = index.multi_classify(reads, color_table)      # [(name, cell)]
 
 Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
 device passed in (default CUDA; without a card that raises unless the
-caller names the CPU).  MEMs are not yet ported and absent; k-mer queries
-on an unbounded index, and exact k-mer counts on a reverse-complement
-closed index in the paired layout (the bidirectional engine), raise
-NotPortedError.  SA entries are FusedSAEngine's (engine/fused_sa.py).
+caller names the CPU).  Routes the port has no engine for raise
+NotPortedError naming their ROADMAP item: k-mer queries and MEMs on an
+unbounded index, MEMs on a non-ACGT index, with ftab_k > 1 (the scalar
+AdvancedEngine route) or past MEM2_MAX_N positions (the v1 machines).  SA
+entries are FusedSAEngine's (engine/fused_sa.py).
 """
 
 from __future__ import annotations
@@ -41,7 +44,10 @@ from .engine.fused2 import (Fused2ColorEngine, Fused2PMLEngine,
                             save_fused2_index)
 from .engine.fused_color import FusedColorEngine, build_fused_color_index
 from .engine.fused_kmer import FusedKmerCountEngine, FusedKmerEngine
-from .engine.fused_mem2 import looks_rc_closed
+from .engine.fused_kmer2 import FusedKmer2CountEngine
+from .engine.fused_mem2 import (FusedAllMem2Engine, FusedMem2Engine,
+                                build_fused_mem2_index, looks_rc_closed,
+                                mem2_supported)
 from .engine.fused_search import (FusedCountEngine, FusedZMLEngine,
                                   build_fused_search_index)
 from .engine.fused_search2 import (Fused2CountEngine, Fused2KmerCountEngine,
@@ -73,9 +79,11 @@ class Index:
         self._search = None   # FusedSearchIndex
         self._paired_search = None  # FusedSearch2Index
         self._kmer_si = None  # (fk, FusedSearchIndex with fk anchor rows)
+        self._mem2 = None     # FusedMem2Index (its ftab_k anchor rows)
         self._color = None    # (ColorTable, FusedColorIndex)
         self._paired_color = None   # (ColorTable, Fused2ColorIndex)
         self._bounded = None
+        self._rc_closed = None
 
     @classmethod
     def build(cls, fasta: Union[str, Sequence[str]],
@@ -124,6 +132,13 @@ class Index:
         if self._bounded is None:
             self._bounded = is_bounded(self.ix)
         return self._bounded
+
+    def _is_rc_closed(self) -> bool:
+        """looks_rc_closed, computed once per index (about a second of
+        host numpy at five million runs)."""
+        if self._rc_closed is None:
+            self._rc_closed = looks_rc_closed(self.ix)
+        return self._rc_closed
 
     def _pml_ported(self) -> bool:
         return self.ix.thr is not None and self._is_bounded()
@@ -204,8 +219,8 @@ class Index:
         anchor rows on an ACGT index (none when fk <= 1).  Exact counts
         (counts=True) take the paired search records when paired=True or
         when they fit (paired=None), else the one-step records; on a
-        reverse-complement closed index the paired route is the
-        bidirectional engine, which is not yet ported."""
+        reverse-complement closed index whose MEM v2 table fits
+        (mem2_supported) the paired route is the bidirectional engine."""
         dev = resolve_device(device)
         if not counts:
             self._search_backend("k-mer membership", False, dev)
@@ -220,16 +235,48 @@ class Index:
             self._kmer_si = (fk, self._kmer_si[1].to(dev))
             return FusedKmerEngine(self._kmer_si[1], k, dev)
         backend = self._search_backend("exact k-mer counts", paired, dev)
-        if backend == "paired" and looks_rc_closed(self.ix):
+        tables = self._search_tables(backend, dev)
+        if backend != "paired":
+            return FusedKmerCountEngine(tables, k, dev)
+        # the bidirectional engine needs reverse-complement closure; past
+        # the MEM v2 cap the paired engine gives the same answers (the JAX
+        # package skips this check, ROADMAP §3.2)
+        if self._is_rc_closed() and mem2_supported(self.ix):
+            # any anchor width will do: the counts read no anchor rows
+            m2 = self._mem2_table(
+                0 if self._mem2 is None else self._mem2.ftab_k, dev)
+            return FusedKmer2CountEngine(m2, tables, k, device=dev)
+        return Fused2KmerCountEngine(tables, k, dev)
+
+    def _mem2_table(self, ftab_k: int, dev):
+        """The MEM v2 table with ftab_k anchor rows on dev, built once
+        (the old one is freed first when the width changes)."""
+        if self._mem2 is None or self._mem2.ftab_k != ftab_k:
+            self._mem2 = None
+            self._mem2 = build_fused_mem2_index(self.ix, ftab_k)
+        self._mem2 = self._mem2.to(dev)
+        return self._mem2
+
+    def mem_engine(self, min_mem_length: int = 0, device: DeviceLike = None,
+                   table_ftab_k: int = 10):
+        """The MEM engine on `device`: BML for min_mem_length >= 2 (with
+        the table's ftab anchors when 1 < table_ftab_k <= L), all-MEMs
+        otherwise, on the MEM v2 table with table_ftab_k anchor rows."""
+        if not self._is_bounded() or bytes(self.ix.alphabet) != b"ACGT":
             raise NotPortedError(
-                "exact k-mer counts on a reverse-complement closed index in "
-                "the paired layout take the bidirectional engine "
-                "(FusedKmer2CountEngine, ROADMAP item 12), which is not yet "
-                "ported; pass paired=False (--no-paired-records) for the "
-                "one-step count engine")
-        cls = (Fused2KmerCountEngine if backend == "paired"
-               else FusedKmerCountEngine)
-        return cls(self._search_tables(backend, dev), k, dev)
+                "MEMs on an index not built with bound_ff=1 or not over "
+                "ACGT take the scalar AdvancedEngine (ROADMAP item 13a), "
+                "which is not yet ported")
+        if not mem2_supported(self.ix):
+            raise NotPortedError(
+                f"MEMs past MEM2_MAX_N positions (n={int(self.ix.all_p[-1])})"
+                f" take the v1 MEM machines (ROADMAP item 15), which are not "
+                f"yet ported")
+        dev = resolve_device(device)
+        m2 = self._mem2_table(table_ftab_k, dev)
+        if min_mem_length >= 2:
+            return FusedMem2Engine(m2, min_mem_length, dev)
+        return FusedAllMem2Engine(m2, dev)
 
     def color_engine(self, color_table, paired: Optional[bool] = None,
                      device: DeviceLike = None, **color_kw):
@@ -302,6 +349,20 @@ class Index:
         (found_kmers, total_occurrences))] (count_kmers_bidirectional)."""
         return self._run(self.kmer_engine(k, counts, paired, device, ftab_k),
                          reads, lanes)
+
+    def query_mems(self, reads: Reads, min_mem_length: int = 0,
+                   ftab_k: int = 0, lanes: int = 8192,
+                   device: DeviceLike = None):
+        """[(name, [(pos, end, count)])]: query_mems(seq, L) for
+        min_mem_length >= 2 (BML, on the table with ftab-10 anchors),
+        query_all_mems otherwise.  ftab_k > 1 asks for the scalar engine
+        with its own ftab, which is not yet ported."""
+        if ftab_k > 1:
+            raise NotPortedError(
+                "query_mems with ftab_k > 1 takes the scalar AdvancedEngine "
+                "(ROADMAP item 13a), which is not yet ported")
+        return self._run(self.mem_engine(min_mem_length, device), reads,
+                         lanes)
 
     def query_multiclass(self, reads: Reads, color_table, lanes: int = 8192,
                          paired: Optional[bool] = None,

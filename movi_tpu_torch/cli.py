@@ -1,6 +1,6 @@
 """movi_tpu_torch command-line interface: `build`, and `query --pml`,
-`--zml`, `--count`, `--kmer`, `--kmer-count`, `--pml --sa-entries` and
-`--pml --multi-classify` on the port.
+`--zml`, `--count`, `--kmer`, `--kmer-count`, `--mem`, `--pml
+--sa-entries` and `--pml --multi-classify` on the port.
 
     python -m movi_tpu_torch.cli build --fasta REF.fa --index IDX \\
         [--color] [--sa-entries [--sa-sample-rate 100]] [--skip-null]
@@ -10,25 +10,26 @@
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
         (--kmer [--ftab-k FK] | --kmer-count) [--k 31] [--stdout] \\
         [--no-output] [--platform cpu]
+    python -m movi_tpu_torch.cli query --index IDX --read READS --mem \\
+        [--min-mem-length L [--ftab-k FK]] [--stdout] [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
         --sa-entries [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
         --multi-classify [--early-stop] [--report-colors] [--report-all] \\
         [--lca-tree nodes.dmp] [--stdout] [--platform cpu]
 
-Mirrors `build` and the PML, SA-entries, ZML, count, k-mer and Movi Color
-branches of movi_tpu/cli.py (index and color-table loading, the
-classifier, the stdout/BPF/.matches/report/.kmers/.multiclass.csv/.colors
-writers, LCA post-processing) with the port's own copies of its host
-modules; the record caches and the layout choice are `api.Index`'s.  The
-files `build` writes (index.npz, colors.npz, the null databases) load in
-either package.  MEMs, the other build outputs (index.movi, index.mmap,
-record caches, ftab), the scalar k-mer path (--multi-ftab), exact k-mer
-counts on a reverse-complement closed index in the paired layout (the
-bidirectional engine), and indexes the fused engines cannot run (PML, SA
-entries or color without thresholds, or not built with bound_ff=1; SA
-entries without a sampled SA) are not yet ported: asking for them is an
-error, never a fallback to another engine.
+Mirrors `build` and the PML, SA-entries, ZML, count, k-mer, MEM and Movi
+Color branches of movi_tpu/cli.py (index and color-table loading, the
+classifier, the stdout/BPF/.matches/report/.kmers/.mems/.multiclass.csv/
+.colors writers, LCA post-processing) with the port's own copies of its
+host modules; the record caches and the layout choice are `api.Index`'s.
+The files `build` writes (index.npz, colors.npz, the null databases) load
+in either package.  The other build outputs (index.movi, index.mmap,
+record caches, ftab), the scalar k-mer path (--multi-ftab), and indexes
+the fused engines cannot run (PML, SA entries or color without
+thresholds, or not built with bound_ff=1; SA entries without a sampled
+SA; MEMs on a non-ACGT index or past MEM2_MAX_N positions) are not yet
+ported: asking for them is an error, never a fallback to another engine.
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import numpy as np
 
 from .commons import error, info, success, timing
 
-_NOT_PORTED = ("mem",)
 _QUERIES = ("pml", "zml", "count")
 _KMER_QUERIES = ("kmer", "kmer_count")
 # build flags of movi_tpu/cli.py whose outputs the port does not write
@@ -255,17 +255,13 @@ def cmd_query(args):
     from .api import Index
     from .device import resolve_device
 
-    asked = [q for q in _NOT_PORTED if getattr(args, q)]
-    if asked:
-        raise NotPortedError(
-            f"--{asked[0].replace('_', '-')} is not yet ported to "
-            f"movi_tpu_torch (only --pml, --zml, --count, --kmer and "
-            f"--kmer-count)")
     qt = next((q for q in _QUERIES if getattr(args, q)), None)
+    if qt is None and args.mem:
+        qt = "mems"
     if qt is None and any(getattr(args, q) for q in _KMER_QUERIES):
         qt = "kmers"
     if qt is None:
-        raise SystemExit("specify one of --pml/--zml/--count/--kmer/"
+        raise SystemExit("specify one of --pml/--zml/--count/--mem/--kmer/"
                          "--kmer-count")
     if qt == "kmers" and args.multi_ftab:
         raise NotPortedError("--multi-ftab takes the scalar k-mer path "
@@ -288,6 +284,9 @@ def cmd_query(args):
     index = Index.load(args.index, ix=ix)
     if qt == "kmers":
         kmers(args, ix, index, reads, device)
+        return
+    if qt == "mems":
+        mems(args, ix, index, reads, device)
         return
     if args.multi_classify:
         multi_classify(args, ix, index, reads, device)
@@ -425,6 +424,29 @@ def kmers(args, ix, index, reads, device):
         info(f"wrote {out}")
 
 
+def mems(args, ix, index, reads, device):
+    """The --mem branch: `name<TAB>pos<TAB>end<TAB>count` per MEM (BML with
+    --min-mem-length >= 2, on the table with fk = min(--ftab-k or 10, L)
+    anchor rows; all-MEMs otherwise), to {read}.{mode}.mems or
+    --stdout."""
+    from .io.outputs import mem_lines
+
+    L = args.min_mem_length
+    fk = min(args.ftab_k or 10, L) if L >= 2 else 0
+    eng = index.mem_engine(L, device, table_ftab_k=fk)
+    lines = [ln for name, res in index._run(eng, reads, args.lanes)
+             for ln in mem_lines(name, res)]
+    if args.stdout:
+        for ln in lines:
+            print(ln)
+    elif not args.no_output:
+        out = f"{args.read}.{ix.mode}.mems"
+        with open(out, "w") as f:
+            for ln in lines:
+                f.write(ln + "\n")
+        info(f"wrote {out}")
+
+
 def multi_classify(args, ix, index, reads, device):
     """The --multi-classify branch: the CSV of per-read calls (or stdout),
     the .colors file with --report-colors, LCA post-processing."""
@@ -465,7 +487,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         prog="movi-tpu-torch",
         description="PyTorch/CUDA port of movi_tpu (index build; PML, SA "
-                    "entries, ZML, count, k-mer and Movi Color queries)")
+                    "entries, ZML, count, k-mer, MEM and Movi Color "
+                    "queries)")
     sub = p.add_subparsers(dest="command", required=True)
 
     b = sub.add_parser("build")
@@ -502,13 +525,13 @@ def main(argv=None):
                    help="k-mer length (--kmer, --kmer-count)")
     q.add_argument("--ftab-k", type=int, default=0,
                    help="ftab anchor width for --kmer (0: 10, capped at "
-                        "k - k/3)")
+                        "k - k/3) and --mem (0: 10, capped at L)")
     q.add_argument("--multi-ftab", action="store_true",
                    help=argparse.SUPPRESS)
-    # accepted so that asking for them says they are not yet ported
-    for flag in _NOT_PORTED:
-        q.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                       help=argparse.SUPPRESS)
+    q.add_argument("--mem", action="store_true",
+                   help="maximal exact matches: BML with --min-mem-length "
+                        ">= 2, all MEMs otherwise")
+    q.add_argument("--min-mem-length", type=int, default=0)
     q.add_argument("--classify", action="store_true")
     q.add_argument("--sa-entries", action="store_true",
                    help="per-base SA entries (with --pml; the index needs "

@@ -39,7 +39,9 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused_color_scan": 0, "compose_paired_color_records": 0,
             "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_walk": 0,
             "kmer_member_scan": 0, "kmer_count_scan": 0,
-            "fused2_kmer_count_scan": 0, "prep_alc": 0}
+            "fused2_kmer_count_scan": 0, "prep_alc": 0, "mem2_scan": 0,
+            "all_mem2_scan": 0, "kmer2_right_scan": 0,
+            "kmer2_left_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -88,6 +90,20 @@ _SIGNATURES = {
     "movi_fused2_kmer_count_scan": _KMER_COUNT,
     # (slots, lanes, W, fk, out, stream)
     "movi_prep_alc": [_P, _I, _I, _I, _P, _P],
+    # (rec_all, init6, alc, W, alc_w, lanes, r, sigma, n, fk, L, ticks,
+    # use_ftab, state in, state out, ends, counts, work, stream)
+    "movi_mem2_scan": [_P, _P, _P, *[_I] * 8, _LL, _I, *[_P] * 6],
+    # (rec_all, init6, alc, W, lanes, r, sigma, n, p1, ticks, state in,
+    # state out, ends, counts, work, stream)
+    "movi_all_mem2_scan": [_P, _P, _P, *[_I] * 6, _LL, *[_P] * 6],
+    # (rec_all, init6, slots, W, own, anchor, G, r, sigma, k, alive, fs,
+    # fe, stream)
+    "movi_kmer2_right_scan": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                              *[_P] * 4],
+    # (m2 rec_all, r, sigma, n, s2 rec_all, s2 all_p, slots, W, own,
+    # anchor, G, k, p, alive, fs, fe, found, count, stream)
+    "movi_kmer2_left_scan": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                             _I, _I, *[_P] * 6],
 }
 
 
@@ -691,3 +707,161 @@ def prep_alc(al8: torch.Tensor, fk: int) -> torch.Tensor:
     _raise_on(code, "prep_alc")
     launches["prep_alc"] += 1
     return out
+
+
+# the MEM machines' registers, in the rows of their [16, lanes] states
+MEM2_STATE_KEYS = ("phase", "pos", "jc", "end", "frs", "fos", "fre", "foe",
+                   "fas", "fae", "rrs", "ros", "rre", "roe", "ras", "rae")
+AM2_STATE_KEYS = ("phase", "s", "ml", "e") + MEM2_STATE_KEYS[4:]
+
+
+def _check_mem2_table(rec_all, init6, r: int, sigma: int, n: int,
+                      ftab_k: int, dev):
+    """The MEM v2 table int32 [2*sigma*r + n (+ 4^ftab_k), 8] and init6
+    int32 [sigma+1, 6] on dev."""
+    if not 0 <= ftab_k <= MAX_FTAB_K:
+        raise ValueError(f"ftab_k = {ftab_k} must be in [0, {MAX_FTAB_K}]")
+    rows = 2 * sigma * r + n + (4 ** ftab_k if ftab_k > 1 else 0)
+    _check(rec_all, "rec_all", torch.int32, dev, (rows, 8))
+    if init6 is not None:
+        _check(init6, "init_rec6", torch.int32, dev, (sigma + 1, 6))
+
+
+def _machine(entry: str, counter: str, keys, rec_all, init6, r: int,
+             sigma: int, n: int, ftab_k: int, alc, state, W: int, lead,
+             ticks: int, tail):
+    """Shared launch of the two MEM machines: check, allocate, launch.
+    `lead` are the entry's integer arguments between the widths and the
+    tick budget, `tail` those between it and the state."""
+    dev = alc.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check_mem2_table(rec_all, init6, r, sigma, n, ftab_k, dev)
+    _check(alc, "alc", torch.int32, dev)
+    lanes = alc.shape[0]
+    if W < 1 or ticks < 0:
+        raise ValueError("a MEM scan needs W >= 1 and ticks >= 0")
+    st_in = torch.stack([state[key] for key in keys])
+    _check(st_in, "state", torch.int32, dev, (len(keys), lanes))
+    for key in ("ends", "counts"):
+        _check(state[key], key, torch.int32, dev, (lanes, W))
+    ends, counts = state["ends"].clone(), state["counts"].clone()
+    st_out = torch.empty_like(st_in)
+    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = getattr(lib, entry)(
+        rec_all.data_ptr(), init6.data_ptr(), alc.data_ptr(), *lead,
+        int(ticks), *tail, st_in.data_ptr(), st_out.data_ptr(),
+        ends.data_ptr(), counts.data_ptr(), work.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    new_state = dict(zip(keys, st_out.unbind(0)))
+    new_state["ends"], new_state["counts"] = ends, counts
+    return new_state, work
+
+
+def mem2_scan(rec_all, init6, r: int, sigma: int, n: int, ftab_k: int,
+              alc: torch.Tensor, state, L: int, ticks: int, use_ftab: bool):
+    """Kernel 10b: the BML machine over alc int32 [lanes, W] (read-order
+    slots) or, with use_ftab, [lanes, 2W] (slots and fk-mer codes), on the
+    MEM v2 table.  state: the int32 [lanes] registers of MEM2_STATE_KEYS,
+    ends and counts int32 [lanes, W].  Each lane runs until it is done or
+    has run `ticks` ticks.  Returns (state, work int32 [2, lanes]: the
+    ticks each lane ran and the 32 B rows it loaded)."""
+    if alc.dim() != 2:
+        raise ValueError("alc must be [lanes, W] or [lanes, 2W]")
+    alc_w = alc.shape[1]
+    if use_ftab and (alc_w % 2 or ftab_k <= 1):
+        raise ValueError("ftab anchors need alc [lanes, 2W] and a table "
+                         "with ftab_k > 1 rows")
+    if L < 2:
+        raise ValueError(f"BML needs L >= 2, got {L}")
+    W = alc_w // 2 if use_ftab else alc_w
+    return _machine("movi_mem2_scan", "mem2_scan", MEM2_STATE_KEYS, rec_all,
+                    init6, r, sigma, n, ftab_k, alc, state, W,
+                    (W, alc_w, alc.shape[0], r, sigma, n, ftab_k, L), ticks,
+                    (int(use_ftab),))
+
+
+def all_mem2_scan(rec_all, init6, r: int, sigma: int, n: int, ftab_k: int,
+                  p1: int, alc: torch.Tensor, state, ticks: int):
+    """Kernel 10c: the all-MEMs machine over alc int32 [lanes, W], from
+    the registers of AM2_STATE_KEYS (p1: the canonical empty interval's
+    abs start).  Returns (state, work) as kernel 10b."""
+    if alc.dim() != 2:
+        raise ValueError("alc must be [lanes, W]")
+    W = alc.shape[1]
+    return _machine("movi_all_mem2_scan", "all_mem2_scan", AM2_STATE_KEYS,
+                    rec_all, init6, r, sigma, n, ftab_k, alc, state, W,
+                    (W, alc.shape[0], r, sigma, n, p1), ticks, ())
+
+
+def _check_groups(slots, own, anchor, k: int, dev):
+    if slots.dim() != 2 or own.dim() != 1:
+        raise ValueError("slots must be [lanes, W] and own, anchor [G]")
+    _check(slots, "slots", torch.int8, dev)
+    _check(own, "own", torch.int32, dev)
+    _check(anchor, "anchor", torch.int32, dev, tuple(own.shape))
+    if not 2 <= k <= slots.shape[1]:
+        raise ValueError(f"k = {k} must be in [2, W = {slots.shape[1]}]")
+
+
+def kmer2_right_scan(rec_all, init6, r: int, sigma: int, n: int,
+                     ftab_k: int, slots, own, anchor, k: int):
+    """Kernel 11a: per group, init at slots[own, anchor] and k-1
+    extend_right steps with the chars after it, on the MEM v2 table (each
+    anchor <= W - k).  Returns (alive bool, fw_abs_s, fw_abs_e int32),
+    each [k-1, G]."""
+    dev = slots.device
+    if dev.type != "cuda":
+        raise ValueError("kmer2_right_scan launches on CUDA tensors only")
+    _check_mem2_table(rec_all, init6, r, sigma, n, ftab_k, dev)
+    _check_groups(slots, own, anchor, k, dev)
+    G = own.shape[0]
+    alive = torch.empty((k - 1, G), dtype=torch.bool, device=dev)
+    fs, fe = (torch.empty((k - 1, G), dtype=torch.int32, device=dev)
+              for _ in range(2))
+    lib = _load()
+    code = lib.movi_kmer2_right_scan(
+        rec_all.data_ptr(), init6.data_ptr(), slots.data_ptr(),
+        slots.shape[1], own.data_ptr(), anchor.data_ptr(), G, r, sigma, k,
+        alive.data_ptr(), fs.data_ptr(), fe.data_ptr(), _stream(dev))
+    _raise_on(code, "kmer2_right_scan")
+    launches["kmer2_right_scan"] += 1
+    return alive, fs, fe
+
+
+def kmer2_left_scan(rec_all, r: int, sigma: int, n: int, ftab_k: int,
+                    s2_rec, s2_all_p, slots, own, anchor, alive, fs, fe,
+                    k: int, p: int):
+    """Kernel 11b: for every (depth d < p, group) whose partial is alive
+    after step k-2-d and d <= anchor, resolve its abs interval (fs, fe
+    [k-1, G]) through the MEM v2 table's pos2rba rows and take ceil(d/2)
+    paired left steps on the paired search records int32
+    [2*r*sigma^2, 6].  Returns (found bool, count int32), each [p, G]."""
+    dev = slots.device
+    if dev.type != "cuda":
+        raise ValueError("kmer2_left_scan launches on CUDA tensors only")
+    _check_mem2_table(rec_all, None, r, sigma, n, ftab_k, dev)
+    _pair_sigma(sigma)
+    _check(s2_rec, "s2 rec_all", torch.int32, dev, (2 * r * sigma * sigma, 6))
+    _check(s2_all_p, "s2 all_p", torch.int32, dev, (r + 1,))
+    _check_groups(slots, own, anchor, k, dev)
+    G = own.shape[0]
+    if not 1 <= p <= k - 1:
+        raise ValueError(f"p = {p} must be in [1, k-1 = {k - 1}]")
+    _check(alive, "alive", torch.bool, dev, (k - 1, G))
+    _check(fs, "fs", torch.int32, dev, (k - 1, G))
+    _check(fe, "fe", torch.int32, dev, (k - 1, G))
+    found = torch.empty((p, G), dtype=torch.bool, device=dev)
+    cnt = torch.empty((p, G), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_kmer2_left_scan(
+        rec_all.data_ptr(), r, sigma, n, s2_rec.data_ptr(),
+        s2_all_p.data_ptr(), slots.data_ptr(), slots.shape[1],
+        own.data_ptr(), anchor.data_ptr(), G, k, p, alive.data_ptr(),
+        fs.data_ptr(), fe.data_ptr(), found.data_ptr(), cnt.data_ptr(),
+        _stream(dev))
+    _raise_on(code, "kmer2_left_scan")
+    launches["kmer2_left_scan"] += 1
+    return found, cnt

@@ -127,6 +127,72 @@ def kmer_reads(text: np.ndarray, seed: int = 3, count: int = 45,
     return reads + [("tiny", b"ACG"), ("one", b"T"), ("allN", b"N" * 15)]
 
 
+def mem_reads(rng: np.random.Generator, text: np.ndarray, n: int,
+              err: float = 0.05, with_n: bool = False, prefix: str = "r",
+              lengths: Tuple[int, int] = (25, 90)
+              ) -> List[Tuple[str, bytes]]:
+    """Reads for the MEM engines, the recipe of tests/test_fused_mem2.py:
+    `n` stretches of the text with substitutions at rate err, lengths
+    drawn from [lengths[0], lengths[1]), with two N's each if with_n."""
+    reads = []
+    for i in range(n):
+        L = int(rng.integers(*lengths))
+        s = int(rng.integers(0, len(text) - L))
+        seq = text[s:s + L].copy()
+        e = rng.random(L) < err
+        seq = np.where(e, rng.choice(ACGT, size=L), seq)
+        if with_n:
+            seq[rng.integers(0, L, size=2)] = ord("N")
+        reads.append((f"{prefix}{i}", seq.astype(np.uint8).tobytes()))
+    return reads
+
+
+def with_revcomp(fw: np.ndarray) -> np.ndarray:
+    """The text followed by its reverse complement."""
+    from .build.prepare_ref import revcomp
+
+    return np.concatenate([fw, revcomp(fw)])
+
+
+def rc_index(n: int, seed: int):
+    """n random ACGT bases (default_rng(seed)) and their reverse
+    complement, indexed: a reverse-complement closed index.  Returns
+    (fw, ix)."""
+    fw = random_text(n, seed)
+    return fw, index_from_text(with_revcomp(fw))
+
+
+def junction_index(docs: int = 3, doc_len: int = 800, seed: int = 82):
+    """A multi-document reference without separators, each document
+    followed by its reverse complement (the index of
+    tests/test_fused_mem2.py's multi-document case): (text, the start of
+    every document and complement after the first, ix)."""
+    from .build.prepare_ref import revcomp
+
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(docs):
+        d = rng.choice(ACGT, size=doc_len).astype(np.uint8)
+        parts += [d, revcomp(d)]
+    text = np.concatenate(parts)
+    junctions = np.cumsum([len(p) for p in parts])[:-1]
+    return text, junctions, index_from_text(text)
+
+
+def junction_reads(text: np.ndarray, junctions: Sequence[int], n: int,
+                   seed: int = 5) -> List[Tuple[str, bytes]]:
+    """`n` exact reads of 30-80 bases from the text, each spanning one of
+    the junctions with at least 8 bases on either side."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        L = int(rng.integers(30, 80))
+        j = int(junctions[int(rng.integers(0, len(junctions)))])
+        s = int(rng.integers(j - L + 8, j - 8))
+        reads.append((f"j{i}", text[s:s + L].tobytes()))
+    return reads
+
+
 def index_from_text(text: np.ndarray, sa_rate: int = 0) -> MoveIndex:
     """Regular thresholds with NT splitting; with sa_rate, also the
     sampled SA at that rate (build --sa-entries)."""

@@ -216,12 +216,34 @@ def test_cli_zml_classify_report_identical(built, layout):
     assert len(want.splitlines()) == 1 + 40
 
 
-@pytest.mark.parametrize("flags", [
-    pytest.param(["--mem"], id="--mem"),
-    # the scalar k-mer path; --kmer itself is ported
-    pytest.param(["--kmer", "--multi-ftab", "--ftab-k", "4"], id="--kmer")])
-def test_cli_other_queries_not_yet_ported(built, flags):
+@pytest.fixture(scope="module")
+def built_unbounded(tmp_path_factory, built):
+    """`movi_tpu_torch.cli build --type regular` of the `built` fixture's
+    reference: no thresholds and no NT splitting, so not bound_ff=1."""
+    from movi_tpu_torch.engine.fused import is_bounded
+    from movi_tpu_torch.index.structure import MoveIndex
+
     idx, reads = built
+    d = tmp_path_factory.mktemp("torch_cli_unbounded")
+    fasta = os.path.join(os.path.dirname(idx), "ref.fa")
+    out = str(d / "idx")
+    r = _cli("movi_tpu_torch.cli", ["build", "--fasta", fasta, "--index", out,
+                                    "--type", "regular", "--skip-null"])
+    assert r.returncode == 0, r.stderr
+    assert not is_bounded(MoveIndex.load(os.path.join(out, "index.npz")))
+    return out, reads
+
+
+@pytest.mark.parametrize("flags,where", [
+    # MEMs on an index not built with bound_ff=1 take the scalar
+    # AdvancedEngine (ROADMAP item 13a); --mem itself is ported
+    pytest.param(["--mem", "--min-mem-length", "12"], "built_unbounded",
+                 id="--mem"),
+    # the scalar k-mer path; --kmer itself is ported
+    pytest.param(["--kmer", "--multi-ftab", "--ftab-k", "4"], "built",
+                 id="--kmer")])
+def test_cli_other_queries_not_yet_ported(request, flags, where):
+    idx, reads = request.getfixturevalue(where)
     r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",
                                     reads, *flags, "--platform", "cpu"])
     assert r.returncode != 0
@@ -254,21 +276,23 @@ def test_api_query_kmers_equals_jax(counts, paired):
 
 def test_api_rc_closed_paired_counts_not_ported():
     """On a reverse-complement closed index the paired exact-count route
-    is the bidirectional engine (not yet ported): it raises, naming
-    --no-paired-records; the one-step route and membership run and equal
-    the JAX API."""
-    from movi_tpu_torch.cli import NotPortedError
+    (paired=True, and paired=None where the paired table fits) is the
+    bidirectional engine, and equals the JAX API; the one-step route and
+    membership equal it too."""
+    from movi_tpu_torch.engine.fused_kmer2 import FusedKmer2CountEngine
     from movi_tpu_torch.testing import index_from_text
 
     text = _rc_text()
     ix = index_from_text(text)
     index = tapi.Index(ix)
     reads = mixed_reads(text, seed=2, count=12)
-    for paired in (True, None):
-        with pytest.raises(NotPortedError, match="no-paired-records"):
-            index.query_kmers(reads, k=15, counts=True, paired=paired,
-                              device="cpu")
     jix = japi.Index(ix)
+    for paired in (True, None):
+        assert isinstance(index.kmer_engine(15, True, paired, "cpu"),
+                          FusedKmer2CountEngine)
+        assert (index.query_kmers(reads, k=15, counts=True, paired=paired,
+                                  device="cpu")
+                == jix.query_kmers(reads, k=15, counts=True, paired=paired))
     assert (index.query_kmers(reads, k=15, counts=True, paired=False,
                               device="cpu")
             == jix.query_kmers(reads, k=15, counts=True, paired=False))
@@ -318,9 +342,9 @@ def test_cli_kmer_files_identical(built):
 
 def test_cli_kmer_count_rc_closed_paired_not_ported(tmp_path):
     """An index of one document and its reverse complement is
-    reverse-complement closed: --kmer-count --paired-records (item 12's
-    bidirectional route) exits 1 and says so; --no-paired-records runs
-    and equals the JAX CLI."""
+    reverse-complement closed: --kmer-count --paired-records (the
+    bidirectional route) and --no-paired-records both equal the JAX CLI
+    byte for byte."""
     fasta = tmp_path / "ref.fa"
     fasta.write_text(f">d\n{_rc_text()[:2500].tobytes().decode()}\n")
     idx = str(tmp_path / "idx")
@@ -330,15 +354,11 @@ def test_cli_kmer_count_rc_closed_paired_not_ported(tmp_path):
     rpath = tmp_path / "reads.fa"
     rpath.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in
                              mixed_reads(_rc_text(), seed=4, count=10)))
-    base = ["query", "--index", idx, "--read", str(rpath), "--kmer-count",
-            "--k", "15", "--stdout", "--platform", "cpu"]
-    r = _cli("movi_tpu_torch.cli", base + ["--paired-records"])
-    assert r.returncode == 1
-    assert "not yet ported" in r.stderr and "item 12" in r.stderr
-    want, got = _query_both((idx, str(rpath)),
-                            ["--kmer-count", "--k", "15", "--stdout",
-                             "--no-paired-records"], [])
-    assert got == want and len(want.splitlines()) == 10
+    for layout in ("--paired-records", "--no-paired-records"):
+        want, got = _query_both((idx, str(rpath)),
+                                ["--kmer-count", "--k", "15", "--stdout",
+                                 layout], [])
+        assert got == want and len(want.splitlines()) == 10
 
 
 @pytest.mark.parametrize("paired,early_stop", [(None, False), (True, True),

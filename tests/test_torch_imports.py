@@ -15,6 +15,7 @@ from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
 from movi_tpu_torch.engine import fused_color as tfc
 from movi_tpu_torch.engine import fused_kmer as tk
+from movi_tpu_torch.engine import fused_kmer2 as tk2
 from movi_tpu_torch.engine import fused_mem2 as tm2
 from movi_tpu_torch.engine import fused_sa as tsa
 from movi_tpu_torch.engine import fused_search as ts
@@ -41,6 +42,7 @@ def test_port_imports_no_jax():
     mods = _modules()
     assert "movi_tpu_torch.cli" in mods and len(mods) >= 10
     assert "movi_tpu_torch.engine.fused_color" in mods
+    assert "movi_tpu_torch.engine.fused_kmer2" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -163,6 +165,17 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     start = torch.tensor([0, 2, 0, 3], dtype=torch.int32)
     tk.kmer_count_scan(si, al8, lane, start, 5)
     ts2.fused2_kmer_count_scan(s2, al8, lane, start, 5)
+    m2 = tm2.build_fused_mem2_index(ix, 4)
+    for fk, L in ((0, 5), (4, 5)):
+        alc = tm2.prep_alc(al8, fk)
+        tm2.mem2_scan(m2, alc, tm2.make_mem2_state(4, 9, lengths, L), L, 50,
+                      fk > 0)
+    alc = tm2.prep_alc(al8, 0)
+    tm2.all_mem2_scan(m2, alc, tm2.make_all_mem2_state(m2, alc, lengths), 50)
+    own = torch.tensor([0, 0, 1], dtype=torch.int32)
+    anchor = torch.tensor([0, 3, 1], dtype=torch.int32)
+    right = tk2.kmer2_right_scan(m2, al8, own, anchor, 5)
+    tk2.kmer2_left_scan(m2, s2, *right, al8, own, anchor, 5, 2)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
@@ -175,7 +188,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "fused2_color_scan",
                                      "fused_sa_pre_scan", "sa_walk",
                                      "kmer_member_scan", "kmer_count_scan",
-                                     "fused2_kmer_count_scan", "prep_alc"}
+                                     "fused2_kmer_count_scan", "prep_alc",
+                                     "mem2_scan", "all_mem2_scan",
+                                     "kmer2_right_scan", "kmer2_left_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -243,6 +258,35 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.fused2_kmer_count_scan(prec, init, all_p, 3, 4, slots8,
                                        idx32, idx32, 5)
+
+
+def test_mem2_wrappers_refuse_cpu_tensors():
+    """The four MEM v2 wrappers launch on CUDA tensors only."""
+    r, sigma, n = 3, 4, 10
+    rec = torch.zeros((2 * sigma * r + n, 8), dtype=torch.int32)
+    init6 = torch.zeros((sigma + 1, 6), dtype=torch.int32)
+    alc = torch.zeros((4, 9), dtype=torch.int32)
+    lengths = torch.full((4,), 9, dtype=torch.int32)
+    st = tm2.make_mem2_state(4, 9, lengths, 5)
+    with pytest.raises(ValueError):
+        kernels.mem2_scan(rec, init6, r, sigma, n, 0, alc, st, 5, 10, False)
+    ast = {key: torch.zeros(4, dtype=torch.int32)
+           for key in kernels.AM2_STATE_KEYS}
+    ast["ends"] = ast["counts"] = torch.zeros((4, 9), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.all_mem2_scan(rec, init6, r, sigma, n, 0, 1, alc, ast, 10)
+    slots8 = torch.zeros((4, 9), dtype=torch.int8)
+    g = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.kmer2_right_scan(rec, init6, r, sigma, n, 0, slots8, g, g, 5)
+    alive = torch.zeros((4, 2), dtype=torch.bool)
+    fs = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.kmer2_left_scan(rec, r, sigma, n, 0,
+                                torch.zeros((2 * r * 16, 6),
+                                            dtype=torch.int32),
+                                torch.zeros(r + 1, dtype=torch.int32),
+                                slots8, g, g, alive, fs, fs, 5, 2)
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
