@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (thirteen sources,
-twenty-one launch counters), checks each one against its plain PyTorch
+Builds the CUDA kernels from movi_tpu_torch/csrc (fifteen sources,
+twenty-four launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
 `FusedSAEngine.query`, `query_kmers`, `query_mems` and
-`query_multiclass`/`multi_classify`, both record layouts each, and
-`python -m movi_tpu_torch.cli build` and `query`) at a real index size,
+`query_multiclass`/`multi_classify`, both record layouts each; the
+compact engines of `Index.compact_engine`; and `movi_tpu_torch.cli build`
+and `query`) at a real index size,
 checks the answers against the scalar oracles, and prints timings with
 the card's name and power limit.  Phases:
 
@@ -20,6 +21,15 @@ the card's name and power limit.  Phases:
               equal to one pass, the compose tables); every layout of PML,
               count and ZML equals ScalarEngine; kernel 3 on synthetic
               records whose run ids pass 2^24 (w0's sign bit)
+     small compact  the 5,000-base text of phase 3 indexed with regular
+              thresholds without NT splitting, as `regular`, and the
+              separators index of tests/test_separators.py: kernels 12a
+              (threshold and --rpml rules), 12b and 12c equal their plain
+              versions (ml, counts, state, a scan split in two), the
+              compact engines equal ScalarEngine on reads with N's and of
+              lengths 1-2049; a reposition that finds no run raises from
+              the kernel; the dependent-load latency with the tables in
+              the cache (for the latency floors)
      small SA the 5,000-base index of tests/test_fused_sa.py with its
               sampled SA at rates 100, 37 and 1,000 (long walks), reads
               with N's and of lengths 1-4097: kernels 8a and 8b equal
@@ -45,6 +55,15 @@ the card's name and power limit.  Phases:
               kernels 4-6 equal their plain versions over all lanes and
               the whole table, their timings, and a warm breakdown for
               each (query, layout)
+     compact  phase 4's text indexed without NT splitting (regular
+              thresholds, and regular) and the same reads through the
+              compact engines of Index.compact_engine (PML by threshold
+              and by --rpml's rule, count, ZML; --rpml PML on the regular
+              index), counted apart: threshold PML, count and ZML equal
+              phases 4-5's answers over all reads, 256 sampled reads equal
+              ScalarEngine, kernels 12a-12c equal their plain versions over
+              the 150 bp batches and 8 long lanes cut to 1,500 bases, table
+              bytes, timings, latency floors and warm breakdowns
      SA       the same index with its sampled SA at rate 100 and the same
               reads through FusedSAEngine.query, counted apart: kernels
               8a and 8b equal their plain versions over all lanes, 256
@@ -114,9 +133,12 @@ the card's name and power limit.  Phases:
               then a 24-genome pangenome (24 x 250,000 bases) whose
               compressed color table keeps 2^16 sets: the two-load form
               of kernel A, counted apart
-  8. cli     the port's CLI on the card against an index that its own
-              `build --color --sa-entries` made: the PML and ZML
-              --classify reports, the count .matches file, ZML --stdout,
+  8. cli     the port's CLI (run in this process) on the card against an
+              index that its own `build --color --sa-entries` made: the
+              PML and ZML --classify reports, the count .matches file, ZML
+              --stdout, --pml --rpml --stdout, the PML --classify report
+              and the count file on a `build --type regular` index (the
+              compact engines), --count --no-jax,
               --multi-classify (the CSV and .colors file, and
               --early-stop --report-all on stdout), --pml --sa-entries
               (both .bpf files), --kmer and --kmer-count
@@ -200,6 +222,12 @@ CUDA_SOURCES = {
                          "movi_tpu/engine/fused_kmer2.py:55"),
     "kmer2_left_scan": ("movi_tpu_torch/csrc/fused_kmer2.cu",
                         "movi_tpu/engine/fused_kmer2.py:86"),
+    "compact_pml_scan": ("movi_tpu_torch/csrc/compact_pml.cu",
+                         "movi_tpu/engine/pml.py:107"),
+    "compact_count_scan": ("movi_tpu_torch/csrc/compact_search.cu",
+                           "movi_tpu/engine/search.py:84"),
+    "compact_zml_scan": ("movi_tpu_torch/csrc/compact_search.cu",
+                         "movi_tpu/engine/search.py:161"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
@@ -234,6 +262,10 @@ MEM_LANES = 16384         # bench.py MEM_LANES
 MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
 TICK_US = 0.9             # a dependent step's latency (PERF.md §2)
+COMPACT_KERNELS = ("compact_pml_scan", "compact_count_scan",
+                   "compact_zml_scan")
+COMPACT_KINDS = {"pml": "compact_pml_scan", "rpml": "compact_pml_scan",
+                 "count": "compact_count_scan", "zml": "compact_zml_scan"}
 
 
 def say(phase, msg):
@@ -565,6 +597,270 @@ def phase_small_search(dev, errs):
                  f"reads; count and ZML in both layouts equal ScalarEngine")
 
 
+def halvings(r):
+    """The all_p loads of one fast-forward search over r runs:
+    ceil(log2(r + 1)) halvings (csrc/compact.cuh)."""
+    steps, n = 0, r + 1
+    while n > 1:
+        n -= n >> 1
+        steps += 1
+    return steps
+
+
+def compact_run(kind, di, codes, state=None):
+    """(kernel, args) of one compact scan: kind "pml"/"rpml" (state: the
+    PML state), "count" or "zml" (state: None or the [6, lanes] one)."""
+    from movi_tpu_torch import kernels
+
+    if kind in ("pml", "rpml"):
+        return kernels.compact_pml_scan, (
+            di.n, di.lf_abs, di.all_p, di.c, di.thr_full, di.rep_up,
+            di.rep_down, di.r, di.sigma, codes, state, kind == "rpml")
+    fn = (kernels.compact_count_scan if kind == "count"
+          else kernels.compact_zml_scan)
+    return fn, (di.n, di.lf_abs, di.all_p, di.c_search, di.ch_up_s,
+                di.ch_down_s, di.first_runs, di.first_offsets, di.last_runs,
+                di.last_offsets, di.r, di.sigma, codes, state)
+
+
+def compact_pair(kind, di, codes, state, what, errs, split=None):
+    """A compact kernel against its plain version on the same inputs
+    (every output and the state); with `split`, the kernel also runs in
+    two pieces carried through its state, which must equal one pass.
+    Returns (the kernel's (state, out), the plain version's ms, (kernel,
+    args))."""
+    import torch
+
+    from movi_tpu_torch.engine import pml as tpml
+    from movi_tpu_torch.engine import search as tsearch
+
+    key = COMPACT_KINDS[kind]
+    fn, args = compact_run(kind, di, codes, state)
+    got = fn(*args)
+    if kind in ("pml", "rpml"):
+        want, plain_ms = timed_ms(lambda: tpml.compact_pml_scan_plain(
+            di, codes, state, kind == "rpml"))
+        require_equal(f"{what} ml", got[1], want[1], errs, key)
+        require_state_equal(what, got[0], want[0], errs, key)
+    else:
+        plain = (tsearch.compact_count_scan_plain if kind == "count"
+                 else tsearch.compact_zml_scan_plain)
+        want, plain_ms = timed_ms(lambda: plain(di, codes, state))
+        require_search_equal(what, got, want, errs, key)
+    if split is not None:
+        fn1, a1 = compact_run(kind, di, codes[:split], state)
+        st, out1 = fn1(*a1)
+        fn2, a2 = compact_run(kind, di, codes[split:], st)
+        st, out2 = fn2(*a2)
+        if kind != "count":
+            require_equal(f"{what} split out", torch.cat([out1, out2]),
+                          got[1], errs, key)
+        else:
+            require_equal(f"{what} split count", out2, got[1], errs, key)
+        if kind in ("pml", "rpml"):
+            require_state_equal(f"{what} split", st, got[0], errs, key)
+        else:
+            require_equal(f"{what} split state", st, got[0], errs, key)
+    return got, plain_ms, (fn, args)
+
+
+def compact_codes(kind, eng, batch):
+    """The codes and start state a compact engine gives a batch."""
+    from movi_tpu_torch.engine import pml as tpml
+
+    codes = eng.prepare(batch)
+    if kind in ("pml", "rpml"):
+        return codes, tpml.initial_state(eng.di, codes.shape[1],
+                                         codes.device)
+    return codes, None
+
+
+def compact_steps(kind, codes, out):
+    """Per lane, the steps that loaded rows: every step for PML; for ZML
+    every step after the first (its interval comes from the first/last run
+    tables); for count, the chars matched before its lane was done (state
+    rows 4-5, as count_steps), none past the read."""
+    import torch
+
+    if kind == "count":
+        return count_steps("count", out[0])
+    return torch.full((codes.shape[1],),
+                      codes.shape[0] - (kind == "zml"), dtype=torch.int64,
+                      device=codes.device)
+
+
+def compact_tally(kind, di, codes, state):
+    """The loads of one compact scan that depend on the data, counted by
+    its plain version on the same inputs: PML, the mismatches that
+    repositioned upward and those that tried the other direction; count
+    and ZML, the steps whose start and whose end moved to a nearest run."""
+    import torch
+
+    from movi_tpu_torch.engine import pml as tpml
+    from movi_tpu_torch.engine import search as tsearch
+
+    tally = torch.zeros(2, dtype=torch.int64, device=codes.device)
+    if kind in ("pml", "rpml"):
+        tpml.compact_pml_scan_plain(di, codes, state, kind == "rpml", tally)
+    elif kind == "count":
+        tsearch.compact_count_scan_plain(di, codes, state, tally)
+    else:
+        tsearch.compact_zml_scan_plain(di, codes, state, tally)
+    return [int(v) for v in tally]
+
+
+def compact_work(kind, di, codes, got, tally):
+    """(bytes, ops) of one compact scan from the rows it loads.  PML: per
+    step its char, lf_abs and the S all_p rows of the fast-forward, the
+    row's char where the char is legal and ml; per mismatch the threshold
+    (or the length, --rpml) and the reposition row; the destination's
+    length where it went up and the other reposition row where it tried
+    the other direction (tally); the state in and out.  Count/ZML: per step
+    (two ends) the char rows of c_search, lf_abs and S all_p rows each; the
+    nearest-run row where an end moved, and the end's length (tally); the
+    chars read, the first/last run tables once, the outputs and the state
+    out (a scan from the first char reads none in); count also reads the
+    two all_p rows of its last interval."""
+    import torch
+
+    S = halvings(di.r) + 1
+    lanes = codes.shape[1]
+    n = int(compact_steps(kind, codes, got).sum())
+    if kind in ("pml", "rpml"):
+        up, other = tally
+        ml = got[1]
+        legal = int((codes >= 0).sum())
+        mism = int(((ml == 0) & (codes >= 0)).sum())
+        nbytes = (n * (1 + 4 + 4 * S + 4) + legal + mism * 8
+                  + (up + other) * 4 + 2 * 12 * lanes)
+        return nbytes, n * (OPS_PER_ROW + 2 * S)
+    moves_s, moves_e = tally
+    nbytes = (n * 2 * (4 + 4 + 4 * S) + moves_s * 4 + moves_e * 8
+              + (di.sigma + 1) * 16 + 24 * lanes)
+    if kind == "zml":
+        nbytes += codes.numel() * (1 + 4)
+    else:
+        x, y = got[0][4].to(torch.int64), got[0][5]
+        chars = int(torch.where(y == 1, x + 1, codes.shape[0]).sum())
+        nbytes += chars + lanes * (4 + 8)
+    return nbytes, n * 2 * (OPS_PER_ROW + 2 * S)
+
+
+def check_compact_oracle(what, reads, res, oracle, rr_pml=None):
+    """res: {kind: [(name, answer)]} against ScalarEngine."""
+    for kind, got in res.items():
+        for (name, seq), (gname, ans) in zip(reads, got):
+            if kind in ("pml", "rpml"):
+                want = oracle.query_pml(seq,
+                                        random_repositioning=kind == "rpml")
+            elif kind == "count":
+                want = oracle.query_count(seq)
+            else:
+                want = oracle.query_zml(seq)
+            if gname != name or ans != want:
+                raise AssertionError(f"{what}: {kind} of read {name} "
+                                     f"differs from ScalarEngine")
+
+
+def phase_small_compact(dev, errs):
+    """The compact kernels against their plain versions, the engines
+    against ScalarEngine, on an unsplit thresholds index, a regular index
+    and a separators index; the not-found reposition raises from the
+    kernel; and the latency of a dependent load whose tables sit in the
+    cache (one long lane repeated), for the latency floors."""
+    import dataclasses
+
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index
+    from movi_tpu_torch.build.suffix import build_bwt_runs
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
+    from movi_tpu_torch.index.structure import build_move_index
+    from movi_tpu_torch.io.fastx import make_batches
+    from movi_tpu_torch.testing import (length_reads, mixed_reads,
+                                        random_text, separator_text)
+
+    text = random_text(5000, 47)
+    runs = build_bwt_runs(text)
+    sep_text, doc = separator_text()
+    cases = {"thr-unbounded": (build_move_index(runs, "regular-thresholds"),
+                               text),
+             "regular": (build_move_index(runs, "regular"), text),
+             "separators": (build_move_index(
+                 build_bwt_runs(sep_text), "regular-thresholds",
+                 separators=True, bound_ff=1), doc)}
+    for name, (ix, src) in cases.items():
+        reads = mixed_reads(src) + length_reads(
+            src, lengths=(1, 2, 3, 2047, 2049))
+        if ix.separators:
+            reads.append(("sep", src[:30].tobytes() + b"%"
+                          + src[40:70].tobytes()))
+        batch = next(make_batches(reads, lanes=len(reads),
+                                  bucket_widths=False))
+        index = Index(ix)
+        oracle = ScalarEngine(ix)
+        kinds = (["pml", "rpml"] if ix.thr is not None else ["rpml"]) + \
+            ["count", "zml"]
+        res = {}
+        for kind in kinds:
+            base = "pml" if kind == "rpml" else kind
+            eng = index.compact_engine(base, kind == "rpml", dev)
+            codes, st = compact_codes(kind, eng, batch)
+            compact_pair(kind, eng.di, codes, st, f"small {name} {kind}",
+                         errs, split=codes.shape[0] // 2 | 1)
+            res[kind] = index._run(eng, reads, QUERY_LANES)
+        check_compact_oracle(f"small {name}", reads, res, oracle)
+        rules = ", ".join(k for k in kinds if "pml" in k)
+        say("small compact", f"{name} r={ix.r}: kernels 12a ({rules}), "
+                             f"12b, 12c equal plain (ml, counts, state, a "
+                             f"scan split in two) on {len(reads)} reads; "
+                             f"the engines equal ScalarEngine")
+
+    # a reposition that finds no run in either direction raises the
+    # oracle's message from the kernel
+    ix, _ = cases["thr-unbounded"]
+    di = Index(ix).compact_engine("pml", device=dev).di
+    none = torch.full_like(di.rep_up, di.r)
+    broken = dataclasses.replace(di, rep_up=none, rep_down=none)
+    batch = next(make_batches([("r", random_text(60, 3).tobytes())], 1))
+    for kind in ("pml", "rpml"):
+        codes, st = compact_codes(kind, Index(ix).compact_engine(
+            "pml", kind == "rpml", dev), batch)
+        fn, args = compact_run(kind, broken, codes, st)
+        try:
+            fn(*args)
+        except AssertionError as e:
+            if str(e) != kernels.NOT_FOUND:
+                raise
+        else:
+            raise AssertionError(f"{kind}: no error where no run is found")
+    say("small compact", f"a reposition finding no run raises "
+                         f"{kernels.NOT_FOUND!r} from kernel 12a (both "
+                         f"rules)")
+
+    # the dependent-load latency with the tables in the cache: one 2,049-
+    # base read repeated over 128 lanes walks one chain per warp
+    read = length_reads(text, lengths=(2049,))
+    eng = Index(ix).compact_engine("pml", device=dev)
+    codes, st = compact_codes("pml", eng, next(make_batches(
+        read, 1, bucket_widths=False)))
+    codes = codes.repeat(1, 128).contiguous()
+    st = tuple(s.repeat(128) for s in st)
+    fn, args = compact_run("pml", eng.di, codes, st)
+    ms = cuda_ms(lambda: fn(*args), reps=10)
+    ml = fn(*args)[1]
+    S = halvings(ix.r) + 1
+    mism = int(((ml[:, 0] == 0) & (codes[:, 0] >= 0)).sum())
+    loads = codes.shape[0] * (S + 2) + 3 * mism
+    lat_us = ms * 1e3 / loads
+    say("small compact", f"dependent-load latency, tables in the cache "
+                         f"(r={ix.r}, {codes.shape[0]} steps of {loads} "
+                         f"chained loads, {S} all_p rows a step): "
+                         f"{ms:.6f} ms = {lat_us * 1e3:.3f} ns a load")
+    return lat_us
+
+
 def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
                lanes=FULL_LANES, long_reads=LONG_READS, long_len=LONG_LEN):
     import torch
@@ -751,6 +1047,211 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
                         pick=pick, oracle=oracle, pmls=res_one, text=text)
 
 
+def compact_breakdown(index, kind, reads, dev, k_ms, n_bases, card):
+    """Where a warm compact query's time goes: host batching, prepare
+    (codes to the card), the kernel (host clock), D2H and the per-read
+    lists, with the card's busy and idle shares."""
+    import torch
+
+    from movi_tpu_torch.api import _as_batches
+
+    eng = index.compact_engine("pml" if kind == "rpml" else kind,
+                               kind == "rpml", dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index._run(eng, reads, QUERY_LANES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bs = list(_as_batches(reads, QUERY_LANES))
+    t = dict(batching=time.perf_counter() - t0, prepare=0.0, kernel=0.0,
+             d2h=0.0, lists=0.0)
+    for b in bs:
+        t0 = time.perf_counter()
+        codes, st = compact_codes(kind, eng, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn, args = compact_run(kind, eng.di, codes, st)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = ([o.cpu().numpy() for o in (out[0][4], out[1])]
+                if kind == "count" else out[1].cpu().numpy())
+        t3 = time.perf_counter()
+        if kind == "count":
+            pos = b.lengths.astype(np.int64) - host[0]
+            list(zip(pos.tolist(), host[1].tolist()))
+        else:
+            [host[:int(L), lane].tolist() for lane, L in enumerate(b.lengths)]
+        t4 = time.perf_counter()
+        t["prepare"] += t1 - t0
+        t["kernel"] += t2 - t1
+        t["d2h"] += t3 - t2
+        t["lists"] += t4 - t3
+    busy = k_ms / 1e3 / wall
+    say("compact", f"warm compact {kind}: wall {wall:.6f} s = "
+                   f"{n_bases / wall:.6e} bases/s; kernel {k_ms:.6f} ms, "
+                   f"device busy share (kernel / wall) {busy:.6f}, idle "
+                   f"share {1 - busy:.6f}; host stages: " + ", ".join(
+                       f"{k} {v:.6f} s" for k, v in t.items())
+        + f"  ({card})")
+
+
+def phase_compact(dev, card, errs, timings, work, ctx, lat_us,
+                  cut_lanes=8, cut_len=LONG_CUT):
+    """Compact PML (threshold and --rpml rules), count and ZML on phase
+    4's text indexed without NT splitting (the reference's runs), and
+    --rpml PML on its regular (threshold-free) index, counted apart."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.build.suffix import build_bwt_runs
+    from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
+    from movi_tpu_torch.engine import select
+    from movi_tpu_torch.engine.device_index import PML_TABLES, SEARCH_TABLES
+    from movi_tpu_torch.index.structure import build_move_index
+
+    reads, n_bases, pick = ctx["reads"], ctx["n_bases"], ctx["pick"]
+    t0 = time.perf_counter()
+    runs = build_bwt_runs(ctx["text"])
+    t_runs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = Index(build_move_index(runs, "regular-thresholds"))
+    regular = Index(build_move_index(runs, "regular"))
+    t_ix = time.perf_counter() - t0
+    del runs
+    ix = index.ix
+    t0 = time.perf_counter()
+    engines = {k: index.compact_engine("pml" if k == "rpml" else k,
+                                       k == "rpml", dev)
+               for k in COMPACT_KINDS}
+    reg_eng = regular.compact_engine("pml", True, dev)
+    torch.cuda.synchronize()
+    t_tab = time.perf_counter() - t0
+    di = engines["pml"].di
+    say("compact", f"text {len(ctx['text'])} bases without NT splitting: "
+                   f"r={ix.r} (regular: r={regular.ix.r}); PML tables "
+                   f"{di.hbm_bytes(PML_TABLES)} B (one-step records "
+                   f"{select.one_step_pml_table_bytes(ix.r, ix.sigma)} B), "
+                   f"count/ZML tables "
+                   f"{engines['count'].di.hbm_bytes(SEARCH_TABLES)} B "
+                   f"(one-step records "
+                   f"{select.one_step_search_table_bytes(ix.r, ix.sigma)} "
+                   f"B); host: BWT runs {t_runs:.3f} s, two move indexes "
+                   f"{t_ix:.3f} s, compact tables built and moved "
+                   f"{t_tab:.3f} s")
+
+    # the compact paths, counted: nothing else launches between reset and
+    # read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for kind, eng in list(engines.items()) + [("regular rpml", reg_eng)]:
+        t0 = time.perf_counter()
+        res[kind] = (regular if kind.startswith("regular") else index)._run(
+            eng, reads, QUERY_LANES)
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in COMPACT_KERNELS}
+    say("compact", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"compact path")
+    # threshold PMLs, counts and ZMLs do not depend on the run splitting
+    for kind, key in (("pml", "pmls"), ("count", "count"), ("zml", "zml")):
+        if res[kind] != ctx[key]:
+            raise AssertionError(f"compact {kind} differs from the record "
+                                 f"engines' on the split index")
+    say("compact", "cold end to end (host clock, " + str(n_bases)
+        + " bases): " + "; ".join(f"{k} {w:.3f} s = {n_bases / w:.6e} "
+                                  f"bases/s" for k, w in walls.items())
+        + f"; threshold PML, count and ZML equal phases 4-5's over all "
+          f"reads  ({card})")
+    t0 = time.perf_counter()
+    sample = [reads[i] for i in pick]
+    check_compact_oracle("full sample", sample,
+                         {k: [res[k][i] for i in pick]
+                          for k in COMPACT_KINDS}, ScalarEngine(ix))
+    check_compact_oracle("full sample regular", sample[:64],
+                         {"rpml": [res["regular rpml"][i]
+                                   for i in pick[:64]]},
+                         ScalarEngine(regular.ix))
+    say("compact", f"{len(pick)} sampled reads equal ScalarEngine (PML both "
+                   f"rules, count, ZML; 64 on the regular index) "
+                   f"({time.perf_counter() - t0:.1f} s host)")
+    del res
+
+    # every kernel against its plain version: all lanes of the 150 bp
+    # batches and the first `cut_lanes` long reads cut to `cut_len` bases
+    batches = list(_as_batches(reads, QUERY_LANES))
+    lanes = sum(b.lanes for b in batches if b.width <= READ_LEN)
+    cut = next(_as_batches([(nm, sq[:cut_len]) for nm, sq in
+                            reads[lanes:lanes + cut_lanes]], QUERY_LANES))
+    runs_of = {k: [] for k in COMPACT_KINDS}
+    plain_ms = dict.fromkeys(COMPACT_KINDS, 0.0)
+    steps_of = {k: [] for k in COMPACT_KINDS}  # the longest lane a batch
+    for kind, eng in engines.items():
+        for b in batches + [cut]:
+            codes, st = compact_codes(kind, eng, b)
+            if b is cut or b.width <= READ_LEN:
+                got, ms, run = compact_pair(kind, eng.di, codes, st,
+                                            f"full {kind}", errs)
+                plain_ms[kind] += ms
+                if b is cut:
+                    continue
+            else:
+                run = compact_run(kind, eng.di, codes, st)
+                got = run[0](*run[1])
+            runs_of[kind].append(run)
+            steps_of[kind].append(int(compact_steps(kind, codes, got).max()))
+            if kind != "rpml":
+                add_work(work, COMPACT_KINDS[kind], *compact_work(
+                    kind, eng.di, codes, got,
+                    compact_tally(kind, eng.di, codes, st)))
+    S = halvings(ix.r)
+    longest = {k: max(v) for k, v in steps_of.items()}
+    say("compact", f"kernels 12a (both rules), 12b and 12c equal their "
+                   f"plain versions over all lanes of the 150 bp batches "
+                   f"and {cut_lanes} long lanes cut to {cut_len} bases; "
+                   f"the longest lane's steps: " + ", ".join(
+                       f"{k} {v}" for k, v in longest.items())
+        + f"; {S} halvings of all_p a fast-forward")
+    shapes = [tuple(b.seqs.shape) for b in batches]
+    for kind in COMPACT_KINDS:
+        rs = runs_of[kind]
+        k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
+        per = [cuda_ms(lambda: fn(*a), reps=3) for fn, a in rs]
+        # the chain of one step: the row's char, lf_abs, the halvings and
+        # the final all_p row, at the latency measured with the tables in
+        # the cache (phase small compact)
+        floor_ms = longest[kind] * (S + 3) * lat_us / 1e3
+        timings[f"compact {kind}"] = (k_ms, plain_ms[kind], floor_ms)
+        if kind != "rpml":
+            timings[COMPACT_KINDS[kind]] = (k_ms, plain_ms[kind])
+        say("compact", f"{kind} over the main path's {len(rs)} batches "
+                       f"({n_bases} bases): kernel {k_ms:.6f} ms = "
+                       f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
+                       f"{plain_ms[kind]:.6f} ms (over the inputs compared "
+                       f"above), latency floor {floor_ms:.6f} ms "
+                       f"({longest[kind]} steps x {S + 3} loads x "
+                       f"{lat_us * 1e3:.3f} ns); the 10 kb batch "
+                       f"{per[-1] / steps_of[kind][-1] * 1e3:.6f} us a step "
+                       f"of its longest lane; kernel "
+                       f"per batch [" + ", ".join(
+                           f"{lb} lanes x {wb}: {ms:.6f} ms"
+                           for (lb, wb), ms in zip(shapes, per))
+            + f"]  ({card})")
+    del runs_of
+    for kind in COMPACT_KINDS:
+        compact_breakdown(index, kind, reads, dev,
+                          timings[f"compact {kind}"][0], n_bases, card)
+    say("compact", f"peak device memory {torch.cuda.max_memory_allocated(dev)}"
+                   f" B  ({card})")
+    return counts
+
+
 def phase_search(dev, card, errs, timings, work, ctx):
     """Count and ZML on phase 4's index and reads, counted apart."""
     import torch
@@ -801,6 +1302,7 @@ def phase_search(dev, card, errs, timings, work, ctx):
                         [res["zml", False][i] for i in pick], ctx["oracle"])
     say("search", f"{len(pick)} sampled reads equal ScalarEngine (count "
                   f"and ZML)")
+    ctx["count"], ctx["zml"] = res["count", False], res["zml", False]
 
     # every kernel against its plain version over all lanes of the
     # batches the main path ran, and the compose over the whole table
@@ -2566,7 +3068,17 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
 
 
 def phase_cli(platform):
-    from movi_tpu_torch.testing import mixed_reads, random_text
+    """The port's CLI, run in this process (movi_tpu_torch.cli.main), on
+    `platform` against --platform cpu, byte for byte."""
+    from movi_tpu_torch import cli as tcli
+    from movi_tpu_torch.testing import mixed_reads, random_text, run_cli
+
+    def cli(*argv):
+        rc, out, err = run_cli(tcli.main, argv)
+        if rc != 0:
+            raise AssertionError(f"movi_tpu_torch.cli {' '.join(argv)}: rc "
+                                 f"{rc}\n{err[-2000:]}")
+        return out
 
     with tempfile.TemporaryDirectory() as d:
         refs = [random_text(20000, 11), random_text(15000, 12)]
@@ -2575,11 +3087,8 @@ def phase_cli(platform):
             for i, t in enumerate(refs):
                 f.write(f">doc{i}\n{t.tobytes().decode()}\n")
         idx = os.path.join(d, "idx")
-        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
-                        "--fasta", fasta, "--index", idx, "--color",
-                        "--sa-entries"],
-                       cwd=ROOT, check=True, capture_output=True,
-                       timeout=600)
+        cli("build", "--fasta", fasta, "--index", idx, "--color",
+            "--sa-entries")
         reads = mixed_reads(refs[0], seed=5, count=30)
         rng = np.random.default_rng(4)
         for i in range(30):
@@ -2590,21 +3099,19 @@ def phase_cli(platform):
         with open(rpath, "w") as f:
             f.writelines(f">{n}\n{s.decode()}\n" for n, s in reads)
         fw_idx = os.path.join(d, "idx_fw")
-        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
-                        "--fasta", fasta, "--index", fw_idx, "--fw",
-                        "--skip-null"],
-                       cwd=ROOT, check=True, capture_output=True,
-                       timeout=600)
+        cli("build", "--fasta", fasta, "--index", fw_idx, "--fw",
+            "--skip-null")
         # one document and its reverse complement: reverse-complement
         # closed (the two-document index is not, at its junctions)
         one = os.path.join(d, "one.fa")
         with open(one, "w") as f:
             f.write(f">doc0\n{refs[0].tobytes().decode()}\n")
         rc_idx = os.path.join(d, "idx_rc")
-        subprocess.run([sys.executable, "-m", "movi_tpu_torch.cli", "build",
-                        "--fasta", one, "--index", rc_idx, "--skip-null"],
-                       cwd=ROOT, check=True, capture_output=True,
-                       timeout=600)
+        cli("build", "--fasta", one, "--index", rc_idx, "--skip-null")
+        # no thresholds and no NT splitting: the compact engines
+        reg_idx = os.path.join(d, "idx_reg")
+        cli("build", "--fasta", fasta, "--index", reg_idx, "--type",
+            "regular")
         mode = "regular-thresholds"
         kmers = f"{rpath}.{mode}.kmers.15"
         mems = f"{rpath}.{mode}.mems"
@@ -2614,6 +3121,11 @@ def phase_cli(platform):
                 (["--zml", "--classify"], [f"{rpath}.{mode}.zml.report"]),
                 (["--count"], ["{out}.count.matches"]),
                 (["--zml", "--stdout"], []),
+                (["--pml", "--rpml", "--stdout"], []),
+                (["--pml", "--classify"], [f"{rpath}.regular.pml.report"],
+                 reg_idx),
+                (["--count"], ["{out}.count.matches"], reg_idx),
+                (["--count", "--no-jax"], ["{out}.count.matches"]),
                 (["--pml", "--multi-classify", "--report-colors"],
                  ["{out}", f"{rpath}.{mode}.colors"]),
                 (["--pml", "--multi-classify", "--early-stop", "--report-all",
@@ -2636,19 +3148,17 @@ def phase_cli(platform):
             texts = {}
             for plat in (platform, "cpu"):
                 out = os.path.join(d, plat)
-                res = subprocess.run(
-                    [sys.executable, "-m", "movi_tpu_torch.cli", "query",
-                     "--index", where[0] if where else idx, "--read", rpath,
-                     *flags, "--platform", plat, "--out-file", out],
-                    cwd=ROOT, check=True, capture_output=True, text=True,
-                    timeout=600)
-                texts[plat] = b"" if outputs else res.stdout.encode()
+                stdout = cli("query", "--index", where[0] if where else idx,
+                             "--read", rpath, *flags, "--platform", plat,
+                             "--out-file", out)
+                texts[plat] = b"" if outputs else stdout.encode()
                 for output in outputs:
                     path = output.format(out=out)
                     with open(path, "rb") as f:
                         texts[plat] += f.read()
                     os.unlink(path)
-            what = " ".join(flags)
+            what = " ".join(flags) + (" (regular index)"
+                                      if where == [reg_idx] else "")
             if texts[platform] != texts["cpu"] or not texts["cpu"]:
                 raise AssertionError(f"CLI query {what}: output differs "
                                      f"between --platform {platform} and "
@@ -2668,17 +3178,20 @@ def phase_cli(platform):
             raise AssertionError("the one-document CLI index is not "
                                  "reverse-complement closed")
     say("cli", f"query --pml --classify, --zml --classify, --count, --zml "
-               f"--stdout, --pml --multi-classify --report-colors, "
-               f"--multi-classify --early-stop --report-all --stdout, "
-               f"--pml --sa-entries (both .bpf files), --kmer --k 15, "
-               f"--kmer-count --k 15 --no-paired-records (the .kmers.15 "
-               f"file), --kmer-count --paired-records on a build --fw "
-               f"index (kernel 7b) and on a one-document reverse-complement "
-               f"closed index (kernels 11a and 11b), --mem --min-mem-length "
-               f"12 and --mem (the .mems file), --mem --min-mem-length 12 "
-               f"--ftab-k 6 --stdout on --platform {platform} ({len(reads)} "
-               f"reads; found {n_found}; index by movi_tpu_torch.cli build "
-               f"--color --sa-entries) equal --platform cpu byte for byte")
+               f"--stdout, --pml --rpml --stdout, --pml --classify and "
+               f"--count on a build --type regular index (the compact "
+               f"engines), --count --no-jax, --pml --multi-classify "
+               f"--report-colors, --multi-classify --early-stop "
+               f"--report-all --stdout, --pml --sa-entries (both .bpf "
+               f"files), --kmer --k 15, --kmer-count --k 15 "
+               f"--no-paired-records (the .kmers.15 file), --kmer-count "
+               f"--paired-records on a build --fw index (kernel 7b) and on "
+               f"a one-document reverse-complement closed index (kernels "
+               f"11a and 11b), --mem --min-mem-length 12 and --mem (the "
+               f".mems file), --mem --min-mem-length 12 --ftab-k 6 --stdout "
+               f"on --platform {platform} ({len(reads)} reads; found "
+               f"{n_found}; indexes by movi_tpu_torch.cli build, run in this "
+               f"process) equal --platform cpu byte for byte")
 
 
 def main() -> int:
@@ -2723,15 +3236,19 @@ def main() -> int:
 
     phase_small(dev, errs)
     phase_small_search(dev, errs)
+    lat_us = phase_small_compact(dev, errs)
     phase_small_sa(dev, errs)
     phase_small_kmer(dev, errs)
     lap("small phases")
     counts, ctx = phase_full(dev, card, errs, timings, work)
     counts.update(phase_search(dev, card, errs, timings, work, ctx))
+    lap("phases 4-5")
+    counts.update(phase_compact(dev, card, errs, timings, work, ctx, lat_us))
+    lap("compact")
     counts.update(phase_sa(dev, card, errs, timings, work, ctx))
     counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
     del ctx
-    lap("phases 4-5, SA, k-mer")
+    lap("SA, k-mer")
     phase_small_mem2(dev, errs)
     lap("small MEM")
     counts.update(phase_mem(dev, card, errs, timings, work))

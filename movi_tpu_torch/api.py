@@ -14,13 +14,16 @@ movi_tpu/api.py.
     res = index.query_mems(reads, min_mem_length=20)
                                              # [(name, [(pos, end, count)])]
     res = index.multi_classify(reads, color_table)      # [(name, cell)]
+    found = index.classify(reads, nulldb)               # [(name, found)]
 
 Reads are (name, bytes) pairs or a fasta/fastq path.  Queries run on the
 device passed in (default CUDA; without a card that raises unless the
-caller names the CPU).  Routes the port has no engine for raise
-NotPortedError naming their ROADMAP item: k-mer queries and MEMs on an
-unbounded index, MEMs on a non-ACGT index, with ftab_k > 1 (the scalar
-AdvancedEngine route) or past MEM2_MAX_N positions (the v1 machines).  SA
+caller names the CPU).  Routes follow movi_tpu/api.py: the record engines
+on an index built with bound_ff=1 (PML and color also need thresholds),
+the compact engines past the card's budget for their records, and the
+scalar oracles (`Index.scalar`, color.ColorEngine) otherwise or with
+jax=False, as the JAX package names that choice.  MEMs past MEM2_MAX_N
+positions (the v1 machines, ROADMAP item 15) raise NotPortedError.  SA
 entries are FusedSAEngine's (engine/fused_sa.py).
 """
 
@@ -32,11 +35,13 @@ from typing import Optional, Sequence, Tuple, Union
 from .build.prepare_ref import prepare_ref
 from .build.suffix import build_bwt_runs
 from .index.structure import MoveIndex, build_move_index
-from .io.fastx import batches_from_file, make_batches
+from .io.fastx import batches_from_file, iter_fastx, make_batches
 
 from .cli import NotPortedError
 from .convert import load_engine_caches
 from .device import DeviceLike, resolve_device
+from .engine.device_index import (PML_TABLES, SEARCH_TABLES,
+                                  build_device_index)
 from .engine.fused import (FusedPMLEngine, build_fused_index, is_bounded,
                            save_fused_index)
 from .engine.fused2 import (Fused2ColorEngine, Fused2PMLEngine,
@@ -54,9 +59,17 @@ from .engine.fused_search2 import (Fused2CountEngine, Fused2KmerCountEngine,
                                    Fused2ZMLEngine,
                                    build_fused_search2_index,
                                    save_fused_search2_index)
+from .engine.pml import PMLEngine
+from .engine.search import CountEngine, ZMLEngine
 from .engine.select import pick_backend
 
 Reads = Union[str, Sequence[Tuple[str, bytes]]]
+
+
+def _as_reads(reads: Reads):
+    if isinstance(reads, (str, os.PathLike)):
+        return list(iter_fastx(str(reads)))
+    return list(reads)
 
 
 def _as_batches(reads: Reads, lanes: int):
@@ -71,6 +84,16 @@ def _as_batches(reads: Reads, lanes: int):
                                 bucket_widths=False)
 
 
+def _color_needs_thresholds(ix):
+    """The scalar ColorEngine repositions by threshold: on an index
+    without thresholds movi_tpu's fails with a TypeError (ROADMAP §3.7);
+    the port says why."""
+    if ix.thr is None:
+        raise ValueError("multi-class classification needs an index with "
+                         "thresholds (the scalar ColorEngine repositions "
+                         "by threshold)")
+
+
 class Index:
     def __init__(self, ix: MoveIndex):
         self.ix = ix
@@ -82,6 +105,8 @@ class Index:
         self._mem2 = None     # FusedMem2Index (its ftab_k anchor rows)
         self._color = None    # (ColorTable, FusedColorIndex)
         self._paired_color = None   # (ColorTable, Fused2ColorIndex)
+        self._compact = None  # DeviceIndex (run tables)
+        self._scalar = None   # AdvancedEngine
         self._bounded = None
         self._rc_closed = None
 
@@ -102,7 +127,7 @@ class Index:
         self.ix.save(os.path.join(index_dir, "index.npz"))
         if not engine_caches:
             return
-        if self._fused is None and self._pml_ported():
+        if self._fused is None and self._has_fused_pml():
             self._fused = build_fused_index(self.ix)
         if self._fused is not None:
             save_fused_index(self._fused,
@@ -128,6 +153,15 @@ class Index:
             load_engine_caches(index_dir)
         return self
 
+    @property
+    def scalar(self):
+        """The scalar oracle (AdvancedEngine, a ScalarEngine), built once."""
+        if self._scalar is None:
+            from .cpu_ref.advanced import AdvancedEngine
+
+            self._scalar = AdvancedEngine(self.ix)
+        return self._scalar
+
     def _is_bounded(self) -> bool:
         if self._bounded is None:
             self._bounded = is_bounded(self.ix)
@@ -140,24 +174,48 @@ class Index:
             self._rc_closed = looks_rc_closed(self.ix)
         return self._rc_closed
 
-    def _pml_ported(self) -> bool:
+    def _has_fused_pml(self) -> bool:
+        """The PML records need thresholds and bound_ff=1."""
         return self.ix.thr is not None and self._is_bounded()
+
+    def _on_device(self, query: str) -> bool:
+        """Whether the device engines run `query` ("kmers" or "mems") on
+        this index: both need bound_ff=1, MEMs an ACGT alphabet too.  Else
+        it takes the scalar oracle, as in movi_tpu."""
+        if query not in ("kmers", "mems"):
+            raise ValueError(f"unknown query {query!r}")
+        return self._is_bounded() and (query == "kmers"
+                                       or bytes(self.ix.alphabet) == b"ACGT")
+
+    def use_scalar_ftab(self, ftab_k: int, multi_ftab: bool = False,
+                        ftab=None):
+        """Give the scalar oracle an ftab of width ftab_k > 1: `ftab` where
+        given (one read from an index directory), else one it builds; with
+        multi_ftab, every width from 2 to ftab_k."""
+        if multi_ftab:
+            from .cpu_ref.advanced import AdvancedEngine
+
+            self._scalar = AdvancedEngine(self.ix, ftab_k=ftab_k,
+                                          multi_ftab=True)
+        elif ftab is not None:
+            self.scalar.ftab, self.scalar.ftab_k = ftab, ftab_k
+        else:
+            self.scalar.build_ftab(ftab_k)
 
     def engine(self, paired: Optional[bool] = None,
                device: DeviceLike = None):
         """The PML engine on `device`: paired=True forces the paired
-        records, False the one-step layout, None picks by capacity."""
-        if not self._pml_ported():
-            raise NotImplementedError(
-                "PML on an index without thresholds or not built with "
-                "bound_ff=1 (the compact engine) is not yet ported")
+        records, False the one-step layout, None picks by capacity.  An
+        index the records cannot hold (no thresholds, or not built with
+        bound_ff=1), or past the budget for both layouts, gets the compact
+        engine (threshold repositioning where there are thresholds)."""
         dev = resolve_device(device)
+        if not self._has_fused_pml():
+            return self.compact_engine("pml", self.ix.thr is None, dev)
         backend = pick_backend(self.ix.r, self.ix.sigma, "pml",
                                force_paired=paired, device=dev)
         if backend == "compact":
-            raise NotImplementedError(
-                f"index (r={self.ix.r}) exceeds the device's record-table "
-                f"budget; the compact engine is not yet ported")
+            return self.compact_engine("pml", device=dev)
         if self._fused is None:
             self._fused = build_fused_index(self.ix)
         self._fused = self._fused.to(dev)
@@ -168,36 +226,45 @@ class Index:
             return Fused2PMLEngine(self._paired, dev)
         return FusedPMLEngine(self._fused, dev)
 
+    def compact_engine(self, kind: str, random_repositioning: bool = False,
+                       device: DeviceLike = None):
+        """The compact engine of `kind` ("pml", "count" or "zml") on
+        `device`, on the run tables (built once per index): PML
+        repositions by threshold, or with random_repositioning by query
+        --rpml's rule."""
+        if kind not in ("pml", "count", "zml"):
+            raise ValueError(f"no compact engine for {kind!r}")
+        dev = resolve_device(device)
+        if self._compact is None:
+            self._compact = build_device_index(self.ix)
+        # the tables this kind's scan reads, on dev (kept for the next
+        # engine)
+        self._compact = self._compact.to(
+            dev, PML_TABLES if kind == "pml" else SEARCH_TABLES)
+        if kind == "pml":
+            return PMLEngine(self._compact, random_repositioning, dev)
+        cls = CountEngine if kind == "count" else ZMLEngine
+        return cls(self._compact, dev)
+
     def search_engine(self, kind: str, paired: Optional[bool] = None,
                       device: DeviceLike = None):
         """The count (kind="count") or ZML ("zml") engine on `device`:
         paired=True forces the paired search records, False the one-step
-        layout, None picks by capacity.  Needs an index built with
-        bound_ff=1 (thresholds are not used)."""
+        layout, None picks by capacity.  An index not built with bound_ff=1,
+        or past the budget for both layouts, gets the compact engine."""
         if kind not in ("count", "zml"):
             raise ValueError(f"unknown search query {kind!r}")
         dev = resolve_device(device)
-        backend = self._search_backend(kind, paired, dev)
+        backend = (pick_backend(self.ix.r, self.ix.sigma, "search",
+                                force_paired=paired, device=dev)
+                   if self._is_bounded() else "compact")
+        if backend == "compact":
+            return self.compact_engine(kind, device=dev)
         if backend == "paired":
             cls = Fused2CountEngine if kind == "count" else Fused2ZMLEngine
         else:
             cls = FusedCountEngine if kind == "count" else FusedZMLEngine
         return cls(self._search_tables(backend, dev), dev)
-
-    def _search_backend(self, what: str, paired: Optional[bool], dev):
-        """The search layout (paired or one-step) for `what`; raises where
-        the port has no engine (unbounded index, compact fallback)."""
-        if not self._is_bounded():
-            raise NotPortedError(
-                f"{what} on an index not built with bound_ff=1 (the compact "
-                f"or scalar engine) is not yet ported")
-        backend = pick_backend(self.ix.r, self.ix.sigma, "search",
-                               force_paired=paired, device=dev)
-        if backend == "compact":
-            raise NotPortedError(
-                f"index (r={self.ix.r}) exceeds the device's record-table "
-                f"budget; the compact engine is not yet ported")
-        return backend
 
     def _search_tables(self, backend: str, dev):
         """The paired or one-step search records on dev, built once."""
@@ -211,6 +278,13 @@ class Index:
         self._search = self._search.to(dev)
         return self._search
 
+    def _require_bounded(self, what: str):
+        if not self._is_bounded():
+            raise ValueError(
+                f"{what} on an index not built with bound_ff=1 run on the "
+                f"scalar AdvancedEngine (Index.scalar, the query_* "
+                f"methods)")
+
     def kmer_engine(self, k: int = 31, counts: bool = False,
                     paired: Optional[bool] = None,
                     device: DeviceLike = None, ftab_k: int = 10):
@@ -220,10 +294,12 @@ class Index:
         (counts=True) take the paired search records when paired=True or
         when they fit (paired=None), else the one-step records; on a
         reverse-complement closed index whose MEM v2 table fits
-        (mem2_supported) the paired route is the bidirectional engine."""
+        (mem2_supported) the paired route is the bidirectional engine.
+        Past the budget for both layouts they take the one-step records,
+        as the JAX package does."""
         dev = resolve_device(device)
+        self._require_bounded("k-mer queries")
         if not counts:
-            self._search_backend("k-mer membership", False, dev)
             fk = 0
             if bytes(self.ix.alphabet) == b"ACGT":
                 fk = min(ftab_k, k - k // 3)
@@ -234,7 +310,8 @@ class Index:
                 self._kmer_si = (fk, build_fused_search_index(self.ix, fk))
             self._kmer_si = (fk, self._kmer_si[1].to(dev))
             return FusedKmerEngine(self._kmer_si[1], k, dev)
-        backend = self._search_backend("exact k-mer counts", paired, dev)
+        backend = pick_backend(self.ix.r, self.ix.sigma, "search",
+                               force_paired=paired, device=dev)
         tables = self._search_tables(backend, dev)
         if backend != "paired":
             return FusedKmerCountEngine(tables, k, dev)
@@ -262,17 +339,17 @@ class Index:
         """The MEM engine on `device`: BML for min_mem_length >= 2 (with
         the table's ftab anchors when 1 < table_ftab_k <= L), all-MEMs
         otherwise, on the MEM v2 table with table_ftab_k anchor rows."""
-        if not self._is_bounded() or bytes(self.ix.alphabet) != b"ACGT":
-            raise NotPortedError(
-                "MEMs on an index not built with bound_ff=1 or not over "
-                "ACGT take the scalar AdvancedEngine (ROADMAP item 13a), "
-                "which is not yet ported")
+        dev = resolve_device(device)
+        self._require_bounded("MEMs")
+        if bytes(self.ix.alphabet) != b"ACGT":
+            raise ValueError("MEMs on an index not over ACGT run on the "
+                             "scalar AdvancedEngine (Index.scalar, "
+                             "query_mems)")
         if not mem2_supported(self.ix):
             raise NotPortedError(
                 f"MEMs past MEM2_MAX_N positions (n={int(self.ix.all_p[-1])})"
                 f" take the v1 MEM machines (ROADMAP item 15), which are not "
                 f"yet ported")
-        dev = resolve_device(device)
         m2 = self._mem2_table(table_ftab_k, dev)
         if min_mem_length >= 2:
             return FusedMem2Engine(m2, min_mem_length, dev)
@@ -283,21 +360,19 @@ class Index:
         """The Movi Color engine on `device` for `color_table`: paired=True
         forces the paired 32 B records (when the kept doc sets fit 16-bit
         color ids, else the one-step records), False the one-step layout,
-        None picks by capacity.  color_kw: min_match_len, pvalue_scoring,
-        report_all, min_diff_frac, min_score_frac, early_stop."""
-        if not self._pml_ported():
-            raise NotImplementedError(
-                "multi-class classification on an index without thresholds "
-                "or not built with bound_ff=1 (the scalar ColorEngine) is "
-                "not yet ported")
+        None picks by capacity (past the budget for both layouts, the
+        one-step records, as the JAX package runs them).  color_kw:
+        min_match_len, pvalue_scoring, report_all, min_diff_frac,
+        min_score_frac, early_stop."""
         dev = resolve_device(device)
+        if not self._has_fused_pml():
+            raise ValueError(
+                "multi-class classification on an index without thresholds "
+                "or not built with bound_ff=1 runs on the scalar ColorEngine "
+                "(Index.multi_classify)")
         backend = pick_backend(self.ix.r, self.ix.sigma, "color",
                                force_paired=paired, device=dev,
                                num_sets=len(color_table.unique_doc_sets))
-        if backend == "compact":
-            raise NotImplementedError(
-                f"index (r={self.ix.r}) exceeds the device's record-table "
-                f"budget; the compact engine is not yet ported")
         if self._fused is None:
             self._fused = build_fused_index(self.ix)
         self._fused = self._fused.to(dev)
@@ -324,45 +399,81 @@ class Index:
         return out
 
     def query_pml(self, reads: Reads, lanes: int = 8192,
-                  paired: Optional[bool] = None, device: DeviceLike = None):
-        """[(name, pmls)] with pmls in processing (right-to-left) order."""
-        return self._run(self.engine(paired, device), reads, lanes)
+                  paired: Optional[bool] = None, device: DeviceLike = None,
+                  jax: bool = True):
+        """[(name, pmls)] with pmls in processing (right-to-left) order.
+        The record engines need thresholds and bound_ff=1; other indexes,
+        and jax=False, take the scalar oracle (random repositioning
+        without thresholds), as movi_tpu's Index.query_pml does."""
+        dev = resolve_device(device)
+        if jax and self._has_fused_pml():
+            return self._run(self.engine(paired, dev), reads, lanes)
+        rand = self.ix.thr is None
+        return [(n, self.scalar.query_pml(s, random_repositioning=rand))
+                for n, s in _as_reads(reads)]
+
+    def _search_query(self, kind: str, reads: Reads, lanes: int, paired,
+                      device, jax: bool):
+        dev = resolve_device(device)
+        if jax and self._is_bounded():
+            return self._run(self.search_engine(kind, paired, dev), reads,
+                             lanes)
+        query = (self.scalar.query_count if kind == "count"
+                 else self.scalar.query_zml)
+        return [(n, query(s)) for n, s in _as_reads(reads)]
 
     def query_count(self, reads: Reads, lanes: int = 8192,
                     paired: Optional[bool] = None,
-                    device: DeviceLike = None):
-        """[(name, (pos_on_r, match_count))] as query_backward_search."""
-        return self._run(self.search_engine("count", paired, device), reads,
-                         lanes)
+                    device: DeviceLike = None, jax: bool = True):
+        """[(name, (pos_on_r, match_count))] as query_backward_search; an
+        index not built with bound_ff=1, and jax=False, take the scalar
+        oracle."""
+        return self._search_query("count", reads, lanes, paired, device, jax)
 
     def query_zml(self, reads: Reads, lanes: int = 8192,
-                  paired: Optional[bool] = None, device: DeviceLike = None):
-        """[(name, zmls)] with zmls in processing (right-to-left) order."""
-        return self._run(self.search_engine("zml", paired, device), reads,
-                         lanes)
+                  paired: Optional[bool] = None, device: DeviceLike = None,
+                  jax: bool = True):
+        """[(name, zmls)] with zmls in processing (right-to-left) order; an
+        index not built with bound_ff=1, and jax=False, take the scalar
+        oracle."""
+        return self._search_query("zml", reads, lanes, paired, device, jax)
 
     def query_kmers(self, reads: Reads, k: int = 31, counts: bool = False,
                     lanes: int = 8192, paired: Optional[bool] = None,
-                    device: DeviceLike = None, ftab_k: int = 10):
+                    device: DeviceLike = None, ftab_k: int = 10,
+                    jax: bool = True):
         """Membership: [(name, [(kmer_start_pos, found_count)])] in
         descending position order (query_all_kmers); counts=True: [(name,
-        (found_kmers, total_occurrences))] (count_kmers_bidirectional)."""
-        return self._run(self.kmer_engine(k, counts, paired, device, ftab_k),
-                         reads, lanes)
+        (found_kmers, total_occurrences))] (count_kmers_bidirectional).  An
+        index not built with bound_ff=1, and jax=False, take the scalar
+        oracle (without an ftab)."""
+        dev = resolve_device(device)
+        if jax and self._on_device("kmers"):
+            return self._run(self.kmer_engine(k, counts, paired, dev,
+                                              ftab_k), reads, lanes)
+        if counts:
+            return [(n, self.scalar.count_kmers_bidirectional(s, k))
+                    for n, s in _as_reads(reads)]
+        return [(n, self.scalar.query_all_kmers(s, k))
+                for n, s in _as_reads(reads)]
 
     def query_mems(self, reads: Reads, min_mem_length: int = 0,
                    ftab_k: int = 0, lanes: int = 8192,
-                   device: DeviceLike = None):
+                   device: DeviceLike = None, jax: bool = True):
         """[(name, [(pos, end, count)])]: query_mems(seq, L) for
         min_mem_length >= 2 (BML, on the table with ftab-10 anchors),
-        query_all_mems otherwise.  ftab_k > 1 asks for the scalar engine
-        with its own ftab, which is not yet ported."""
-        if ftab_k > 1:
-            raise NotPortedError(
-                "query_mems with ftab_k > 1 takes the scalar AdvancedEngine "
-                "(ROADMAP item 13a), which is not yet ported")
-        return self._run(self.mem_engine(min_mem_length, device), reads,
-                         lanes)
+        query_all_mems otherwise.  ftab_k > 1, an index not built with
+        bound_ff=1 or not over ACGT, and jax=False take the scalar oracle
+        (with its own ftab of width ftab_k)."""
+        dev = resolve_device(device)
+        if jax and ftab_k <= 1 and self._on_device("mems"):
+            return self._run(self.mem_engine(min_mem_length, dev), reads,
+                             lanes)
+        eng = self.scalar
+        if ftab_k > 1 and eng.ftab_k != ftab_k:
+            eng.build_ftab(ftab_k)
+        return [(n, eng.query_mems(s, min_mem_length))
+                for n, s in _as_reads(reads)]
 
     def query_multiclass(self, reads: Reads, color_table, lanes: int = 8192,
                          paired: Optional[bool] = None,
@@ -376,10 +487,37 @@ class Index:
 
     def multi_classify(self, reads: Reads, color_table, lanes: int = 8192,
                        paired: Optional[bool] = None,
-                       device: DeviceLike = None, **color_kw):
-        """Movi Color multi-class classification: [(name, csv_cell)]."""
-        return [(name, cell) for name, (_, cell, _) in self.query_multiclass(
-            reads, color_table, lanes, paired, device, **color_kw)]
+                       device: DeviceLike = None, jax: bool = True,
+                       **color_kw):
+        """Movi Color multi-class classification: [(name, csv_cell)].  An
+        index without thresholds or not built with bound_ff=1, and
+        jax=False, take the scalar ColorEngine."""
+        dev = resolve_device(device)
+        if jax and self._has_fused_pml():
+            return [(name, cell) for name, (_, cell, _) in
+                    self.query_multiclass(reads, color_table, lanes, paired,
+                                          dev, **color_kw)]
+        from .color import ColorEngine
+
+        _color_needs_thresholds(self.ix)
+        eng = ColorEngine(self.ix, color_table, **color_kw)
+        return [(n, eng.query_pml_multiclass(s)[1])
+                for n, s in _as_reads(reads)]
+
+    def classify(self, reads: Reads, nulldb=None, bin_width: int = 150,
+                 lanes: int = 8192, device: DeviceLike = None):
+        """Binary SPUMONI classification of each read's PMLs against the
+        null database: [(name, found)]."""
+        from .classify import Classifier
+
+        reads = _as_reads(reads)
+        if nulldb is None:
+            raise ValueError("classify requires a null database "
+                             "(build one with movi_tpu_torch.classify)")
+        cl = Classifier(nulldb, bin_width=bin_width)
+        return [(name, cl.classify(pmls)[0])
+                for name, pmls in self.query_pml(reads, lanes,
+                                                 device=device)]
 
 
 def build_index(fasta, **kw) -> Index:

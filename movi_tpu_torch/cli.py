@@ -1,15 +1,17 @@
 """movi_tpu_torch command-line interface: `build`, and `query --pml`,
 `--zml`, `--count`, `--kmer`, `--kmer-count`, `--mem`, `--pml
---sa-entries` and `--pml --multi-classify` on the port.
+--sa-entries` and `--multi-classify` on the port.
 
     python -m movi_tpu_torch.cli build --fasta REF.fa --index IDX \\
         [--color] [--sa-entries [--sa-sample-rate 100]] [--skip-null]
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
-        (--pml | --zml | --count) [--classify | --filter [--invert]] \\
-        [--stdout] [--no-output] [--platform cpu]
+        (--pml [--rpml] | --zml | --count) [--classify | --filter
+        [--invert]] [--stdout] [--no-output] [--no-resplit] [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS \\
-        (--kmer [--ftab-k FK] | --kmer-count) [--k 31] [--stdout] \\
-        [--no-output] [--platform cpu]
+        (--pml | --zml | --count) --no-jax [--logs] [--sa-entries]
+    python -m movi_tpu_torch.cli query --index IDX --read READS \\
+        (--kmer [--ftab-k FK [--multi-ftab]] | --kmer-count) [--k 31] \\
+        [--stdout] [--no-output] [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --mem \\
         [--min-mem-length L [--ftab-k FK]] [--stdout] [--platform cpu]
     python -m movi_tpu_torch.cli query --index IDX --read READS --pml \\
@@ -18,18 +20,20 @@
         --multi-classify [--early-stop] [--report-colors] [--report-all] \\
         [--lca-tree nodes.dmp] [--stdout] [--platform cpu]
 
-Mirrors `build` and the PML, SA-entries, ZML, count, k-mer, MEM and Movi
-Color branches of movi_tpu/cli.py (index and color-table loading, the
-classifier, the stdout/BPF/.matches/report/.kmers/.mems/.multiclass.csv/
-.colors writers, LCA post-processing) with the port's own copies of its
-host modules; the record caches and the layout choice are `api.Index`'s.
-The files `build` writes (index.npz, colors.npz, the null databases) load
-in either package.  The other build outputs (index.movi, index.mmap,
-record caches, ftab), the scalar k-mer path (--multi-ftab), and indexes
-the fused engines cannot run (PML, SA entries or color without
-thresholds, or not built with bound_ff=1; SA entries without a sampled
-SA; MEMs on a non-ACGT index or past MEM2_MAX_N positions) are not yet
-ported: asking for them is an error, never a fallback to another engine.
+Mirrors `build` and the query branches of movi_tpu/cli.py (index and
+color-table loading, the routes, the classifier, the stdout/BPF/.matches/
+report/.kmers/.mems/.multiclass.csv/.colors/log writers, LCA
+post-processing) with the port's own copies of its host modules; the
+record caches and the layout choice are `api.Index`'s.  A query takes the
+route movi_tpu takes for the same index and flags: the record engines, the
+compact engines (an index without thresholds or not built with bound_ff=1,
+--rpml, or tables past the card's budget), or the scalar oracles
+(--no-jax, --logs, SA entries without a device route, k-mers and MEMs on
+an index the device engines cannot run).  The files `build` writes
+(index.npz, colors.npz, the null databases) load in either package.  The
+other build outputs (index.movi, index.mmap, record caches, ftab) and MEMs
+past MEM2_MAX_N positions are not yet ported: asking for them is an error,
+never a fallback to another engine.
 """
 
 from __future__ import annotations
@@ -160,10 +164,11 @@ def cmd_build(args):
     info("build done")
 
 
-def _load_index(index_dir):
-    """Load index.npz, or a reference-built index.movi NT re-split for the
-    fused engines (movi_tpu/cli.py _load_index without --mmap and
-    --no-resplit)."""
+def _load_index(index_dir, resplit=True):
+    """Load index.npz, or a reference-built index.movi, NT re-split for
+    the fused engines unless resplit is False (query --no-resplit: the
+    original rows, for the compact engines); movi_tpu/cli.py _load_index
+    without --mmap."""
     from .index.structure import MoveIndex
 
     npz = os.path.join(index_dir, "index.npz")
@@ -174,14 +179,15 @@ def _load_index(index_dir):
         from .index.movi_format import read_movi
 
         ix = read_movi(movi)
-        if not ix.separators:
+        if resplit and not ix.separators:
             from .index.resplit import needs_resplit, resplit_index
 
             if needs_resplit(ix):
                 r_old = ix.r
                 ix = resplit_index(ix)
                 info(f"re-split reference-format index for the fused "
-                     f"engines (r {r_old} -> {ix.r})")
+                     f"engines (r {r_old} -> {ix.r}); --no-resplit to "
+                     f"keep the original rows")
         return ix
     raise SystemExit(f"no index found in {index_dir}")
 
@@ -249,11 +255,18 @@ def _paired_force(args):
 
 
 def cmd_query(args):
+    """`query`, routed by the index and the flags as movi_tpu/cli.py
+    cmd_query routes it: the record engines where the index allows them,
+    the compact engines past the card's budget or on an index they cannot
+    hold, the scalar oracles with --no-jax (--logs, --sa-entries without a
+    device route) and for k-mers and MEMs on an index the device engines
+    cannot run."""
     from .io.fastx import iter_fastx
     from .io.outputs import BPFWriter, count_line, pml_stdout_lines
 
     from .api import Index
     from .device import resolve_device
+    from .engine.fused import is_bounded
 
     qt = next((q for q in _QUERIES if getattr(args, q)), None)
     if qt is None and args.mem:
@@ -263,12 +276,10 @@ def cmd_query(args):
     if qt is None:
         raise SystemExit("specify one of --pml/--zml/--count/--mem/--kmer/"
                          "--kmer-count")
-    if qt == "kmers" and args.multi_ftab:
-        raise NotPortedError("--multi-ftab takes the scalar k-mer path "
-                             "(AdvancedEngine), which is not yet ported")
+    # every route, the scalar ones too, runs where --platform says
     device = resolve_device("cuda" if args.platform == "gpu" else "cpu")
 
-    ix = _load_index(args.index)
+    ix = _load_index(args.index, resplit=not args.no_resplit)
     reads = list(iter_fastx(args.read))
     if args.reverse:
         reads = [(n, s[::-1]) for n, s in reads]
@@ -277,24 +288,32 @@ def cmd_query(args):
         # engine's order so the output equals ScalarEngine's
         reads = _apply_ignore_illegal(ix, reads, args.ignore_illegal_chars)
 
-    # --sa-entries changes nothing in a ZML or count query's output
-    if args.sa_entries and qt == "pml":
-        sa_entries(args, ix, reads, device)
-        return
+    if args.logs:
+        args.no_jax = True  # per-base cost tracing runs on the scalar path
+    if args.sa_entries and qt == "pml" and not args.no_jax:
+        if is_bounded(ix) and ix.thr is not None \
+                and ix.sampled_SA is not None:
+            sa_entries(args, ix, reads, device)
+            return
+        args.no_jax = True  # the scalar SA path
+    elif args.sa_entries:
+        args.no_jax = True
     index = Index.load(args.index, ix=ix)
-    if qt == "kmers":
-        kmers(args, ix, index, reads, device)
-        return
-    if qt == "mems":
-        mems(args, ix, index, reads, device)
-        return
     if args.multi_classify:
         multi_classify(args, ix, index, reads, device)
         return
-    query = {"pml": index.query_pml, "zml": index.query_zml,
-             "count": index.query_count}[qt]
-    results = query(reads, lanes=args.lanes, paired=_paired_force(args),
-                    device=device)
+    if qt in ("kmers", "mems"):
+        on_device = not args.no_jax and index._on_device(qt)
+        if not on_device:
+            scalar_ftab(args, index)
+        (kmers if qt == "kmers" else mems)(args, ix, index, reads, device,
+                                           on_device)
+        return
+    if args.no_jax:
+        results = scalar_query(args, ix, qt, reads)
+    else:
+        results = index._run(device_engine(args, ix, index, qt, device),
+                             reads, args.lanes)
 
     classifier = None
     report_lines = []
@@ -360,20 +379,115 @@ def cmd_query(args):
             info(f"wrote {rpath}")
 
 
+def device_engine(args, ix, index, qt, device):
+    """The device engine of a PML, ZML or count query: --rpml takes the
+    compact PML engine, anything else the engine Index.engine or
+    search_engine picks (movi_tpu/cli.py's routes: the records where the
+    index allows them and they fit, else the compact engine)."""
+    from .commons import warning
+    from .engine.pml import PMLEngine
+    from .engine.search import CountEngine, ZMLEngine
+    from .engine.select import pick_backend
+
+    paired = _paired_force(args)
+    if pick_backend(ix.r, ix.sigma, "pml" if qt == "pml" else "search",
+                    force_paired=paired, device=device) == "compact":
+        warning(f"index (r={ix.r}) exceeds the device's record-table "
+                f"budget; falling back to the compact engine")
+    if qt == "pml" and args.rpml:
+        eng = index.compact_engine("pml", True, device)
+    elif qt == "pml":
+        eng = index.engine(paired, device)
+    else:
+        eng = index.search_engine(qt, paired, device)
+    name = type(eng).__name__
+    if getattr(eng, "random_repositioning", False):
+        name += ", random repositioning"
+    compact = isinstance(eng, (PMLEngine, CountEngine, ZMLEngine))
+    info(f"using the {'compact' if compact else 'record'} {qt} engine "
+         f"({name})")
+    return eng
+
+
+def scalar_query(args, ix, qt, reads):
+    """--no-jax: ScalarEngine per read (LoggingScalarEngine with --logs
+    for PML, writing .costs/.scans/.fastforwards); with --sa-entries on
+    PML, also {prefix}.pml.sa_entries.bpf."""
+    from .commons import read_progress
+    from .cpu_ref.scalar import ScalarEngine
+    from .io.outputs import BPFWriter
+
+    results = []
+    rand_rep = args.rpml or ix.thr is None
+    if args.logs and qt == "pml":
+        from .logs import LoggingScalarEngine, write_log_files
+
+        leng = LoggingScalarEngine(ix)
+        log_entries = []
+        for name, seq in reads:
+            pmls, qlogs = leng.query_pml_logged(seq)
+            results.append((name, pmls))
+            log_entries.append((name, qlogs))
+        write_log_files(f"{args.read}.{ix.mode}.{qt}", log_entries)
+        info(f"wrote {args.read}.{ix.mode}.{qt}.{{costs,scans,fastforwards}}")
+        return results
+    eng = ScalarEngine(ix, ignore_illegal_chars=args.ignore_illegal_chars)
+    sa_results = []
+    for read_i, (name, seq) in enumerate(reads):
+        read_progress(read_i)
+        if qt == "pml" and args.sa_entries:
+            pmls, sas = eng.query_pml(seq, random_repositioning=rand_rep,
+                                      collect_sa=True)
+            results.append((name, pmls))
+            sa_results.append((name, sas))
+        elif qt == "pml":
+            results.append((name, eng.query_pml(
+                seq, random_repositioning=rand_rep)))
+        elif qt == "zml":
+            results.append((name, eng.query_zml(seq)))
+        else:
+            results.append((name, eng.query_count(seq)))
+    if sa_results and not args.no_output:
+        out_sa = (args.out_file or f"{args.read}.{ix.mode}") + \
+            f".{qt}.sa_entries.bpf"
+        with BPFWriter(out_sa, entry_size=64) as w:
+            for name, sas in sa_results:
+                w.write_read(name, sas)
+        info(f"wrote {out_sa}")
+    return results
+
+
+def scalar_ftab(args, index):
+    """The scalar AdvancedEngine's ftab for --ftab-k > 1: from ftab.{k}.npy
+    or .bin in the index directory, else built (with --multi-ftab, every
+    width from 2 to k)."""
+    fk = args.ftab_k
+    info("using the scalar AdvancedEngine")
+    if fk <= 1 or args.multi_ftab:
+        if fk > 1:
+            index.use_scalar_ftab(fk, multi_ftab=True)
+        return
+    npy = os.path.join(args.index, f"ftab.{fk}.npy")
+    bin_path = os.path.join(args.index, f"ftab.{fk}.bin")
+    if os.path.exists(npy):
+        index.use_scalar_ftab(fk, ftab=np.load(npy))
+    elif os.path.exists(bin_path):
+        from .index.movi_format import read_ftab_bin
+
+        index.use_scalar_ftab(fk, ftab=read_ftab_bin(bin_path)[1])
+    else:
+        index.use_scalar_ftab(fk)
+
+
 def sa_entries(args, ix, reads, device):
-    """The --pml --sa-entries branch: per-base PMLs and SA entries on the
-    fused SA engine; <prefix>.pml.sa_entries.bpf (64-bit entries) and
+    """The --pml --sa-entries branch on an index with thresholds,
+    bound_ff=1 and a sampled SA: per-base PMLs and SA entries on the fused
+    SA engine; <prefix>.pml.sa_entries.bpf (64-bit entries) and
     <prefix>.pml.bpf, or with --no-output the PML lines on --stdout."""
-    from .engine.fused import build_fused_index, is_bounded
+    from .engine.fused import build_fused_index
     from .engine.fused_sa import FusedSAEngine
     from .io.outputs import BPFWriter, pml_stdout_lines
 
-    if not (is_bounded(ix) and ix.thr is not None
-            and ix.sampled_SA is not None):
-        raise NotPortedError(
-            "--sa-entries on an index without thresholds, not built with "
-            "bound_ff=1, or without a sampled SA (build --sa-entries) takes "
-            "the scalar SA path, which is not yet ported")
     info("using the fused SA-entries engine")
     eng = FusedSAEngine(build_fused_index(ix), ix, device)
     out = eng.query(reads, lanes=args.lanes)
@@ -396,15 +510,17 @@ def sa_entries(args, ix, reads, device):
                 print(ln)
 
 
-def kmers(args, ix, index, reads, device):
-    """The --kmer and --kmer-count branches: per read `name<TAB>found/
-    (L-k+1)<TAB>spans` (membership: `start:count ` per stretch) or
-    `...<TAB>total` (exact counts), to {read}.{mode}.kmers.{k} or
-    --stdout."""
+def kmers(args, ix, index, reads, device, on_device):
+    """The --kmer and --kmer-count branches, on the device engines or the
+    scalar oracle (its k-mer statistics go to the log): per read
+    `name<TAB>found/(L-k+1)<TAB>spans` (membership: `start:count ` per
+    stretch) or `...<TAB>total` (exact counts), to {read}.{mode}.kmers.{k}
+    or --stdout."""
     k = args.k
     results = index.query_kmers(reads, k=k, counts=args.kmer_count,
                                 lanes=args.lanes, paired=_paired_force(args),
-                                device=device, ftab_k=args.ftab_k or 10)
+                                device=device, ftab_k=args.ftab_k or 10,
+                                jax=on_device)
     lines = []
     for (name, res), (_, seq) in zip(results, reads):
         if args.kmer_count:
@@ -422,20 +538,27 @@ def kmers(args, ix, index, reads, device):
             for ln in lines:
                 f.write(ln + "\n")
         info(f"wrote {out}")
+    if not on_device:
+        for ln in index.scalar.kmer_stats.summary().splitlines():
+            info(ln)
 
 
-def mems(args, ix, index, reads, device):
+def mems(args, ix, index, reads, device, on_device):
     """The --mem branch: `name<TAB>pos<TAB>end<TAB>count` per MEM (BML with
-    --min-mem-length >= 2, on the table with fk = min(--ftab-k or 10, L)
-    anchor rows; all-MEMs otherwise), to {read}.{mode}.mems or
-    --stdout."""
+    --min-mem-length >= 2, on the device table with fk = min(--ftab-k or
+    10, L) anchor rows, or on the scalar oracle with its ftab; all-MEMs
+    otherwise), to {read}.{mode}.mems or --stdout."""
     from .io.outputs import mem_lines
 
     L = args.min_mem_length
-    fk = min(args.ftab_k or 10, L) if L >= 2 else 0
-    eng = index.mem_engine(L, device, table_ftab_k=fk)
-    lines = [ln for name, res in index._run(eng, reads, args.lanes)
-             for ln in mem_lines(name, res)]
+    if on_device:
+        fk = min(args.ftab_k or 10, L) if L >= 2 else 0
+        results = index._run(index.mem_engine(L, device, table_ftab_k=fk),
+                             reads, args.lanes)
+    else:
+        results = index.query_mems(reads, L, ftab_k=args.ftab_k,
+                                   device=device, jax=False)
+    lines = [ln for name, res in results for ln in mem_lines(name, res)]
     if args.stdout:
         for ln in lines:
             print(ln)
@@ -449,20 +572,38 @@ def mems(args, ix, index, reads, device):
 
 def multi_classify(args, ix, index, reads, device):
     """The --multi-classify branch: the CSV of per-read calls (or stdout),
-    the .colors file with --report-colors, LCA post-processing."""
+    the .colors file with --report-colors, LCA post-processing.  The color
+    engines need thresholds and bound_ff=1; other indexes, and --no-jax,
+    take the scalar ColorEngine."""
     ct = _load_color_table(args.index, ix)
     report_colors = args.report_colors or args.report_color_ids
-    results = index.query_multiclass(
-        reads, ct, lanes=args.lanes, paired=_paired_force(args),
-        device=device, min_match_len=args.min_match_len,
-        pvalue_scoring=args.pvalue_scoring, report_all=args.report_all,
-        min_diff_frac=args.min_diff_frac, min_score_frac=args.min_score_frac,
-        early_stop=args.early_stop)
-    lines = [f"{name},{cell}" for name, (_, cell, _) in results]
+    color_kw = dict(min_match_len=args.min_match_len,
+                    pvalue_scoring=args.pvalue_scoring,
+                    report_all=args.report_all,
+                    min_diff_frac=args.min_diff_frac,
+                    min_score_frac=args.min_score_frac,
+                    early_stop=args.early_stop)
+    if not args.no_jax and index._has_fused_pml():
+        results = [(name, cell, cols) for name, (_, cell, cols) in
+                   index.query_multiclass(reads, ct, lanes=args.lanes,
+                                          paired=_paired_force(args),
+                                          device=device, **color_kw)]
+    else:
+        from .api import _color_needs_thresholds
+        from .color import ColorEngine
+
+        _color_needs_thresholds(ix)
+        info("using the scalar ColorEngine")
+        eng = ColorEngine(ix, ct, report_colors=report_colors, **color_kw)
+        results = []
+        for name, seq in reads:
+            _, cell = eng.query_pml_multiclass(seq)
+            results.append((name, cell, list(eng.last_colors)))
+    lines = [f"{name},{cell}" for name, cell, _ in results]
     if report_colors and not args.no_output:
         cpath = f"{args.read}.{ix.mode}.colors"
         with open(cpath, "w") as f:
-            for name, (_, _, cols) in results:
+            for name, _, cols in results:
                 f.write(f">{name}\n" + " ".join(map(str, reversed(cols)))
                         + "\n")
         info(f"wrote {cpath}")
@@ -527,7 +668,8 @@ def main(argv=None):
                    help="ftab anchor width for --kmer (0: 10, capped at "
                         "k - k/3) and --mem (0: 10, capped at L)")
     q.add_argument("--multi-ftab", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="fall back to smaller-k ftabs when the largest "
+                        "k-mer lookup fails (the scalar k-mer path)")
     q.add_argument("--mem", action="store_true",
                    help="maximal exact matches: BML with --min-mem-length "
                         ">= 2, all MEMs otherwise")
@@ -563,6 +705,18 @@ def main(argv=None):
     q.add_argument("--bin-width", type=int, default=150)
     q.add_argument("--out-file", "-o", default="")
     q.add_argument("--lanes", type=int, default=8192)
+    q.add_argument("--no-jax", action="store_true",
+                   help="use the scalar CPU reference engine (the name "
+                        "is movi_tpu's)")
+    q.add_argument("--rpml", action="store_true",
+                   help="random repositioning PMLs (RPMLs), on the compact "
+                        "engine")
+    q.add_argument("--logs", action="store_true",
+                   help="write .costs/.scans/.fastforwards trace files "
+                        "(the scalar path)")
+    q.add_argument("--no-resplit", action="store_true",
+                   help="do not NT re-split a reference-format index at "
+                        "load time (the compact engines run it)")
     q.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                    help="gpu runs the CUDA kernels (the default; raises "
                         "without a card), cpu the plain PyTorch versions")

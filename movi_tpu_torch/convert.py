@@ -4,7 +4,8 @@ The port keeps its own copies of the JAX package's host classes
 (`index.structure.MoveIndex`, `color.ColorTable`), field for field the
 same.  These helpers turn the JAX package's objects, read as numpy arrays,
 into the port's: the host index and color table, and the record objects
-of PML, count/ZML and k-mers, Movi Color and SA entries; and they read
+of PML, count/ZML and k-mers, Movi Color and SA entries, and the compact
+run tables; and they read
 the `*.npz` caches that movi_tpu writes (`build --fused-cache`, `build
 --paired-cache`, `Index.save`): the one-step and paired PML records and
 the paired search records.  Nothing here imports JAX or the JAX package:
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .color import ColorTable, DocumentInfo
+from .engine.device_index import DeviceIndex
 from .engine.fused import FusedIndex, load_fused_index
 from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
 from .engine.fused_color import FusedColorIndex
@@ -119,6 +121,18 @@ def fused_sa_index_from_jax(sx) -> FusedSAIndex:
         all_p=torch.from_numpy(np.array(sx.all_p, dtype=np.int64)),
         sampled=torch.from_numpy(np.array(sx.sampled, dtype=np.int64)),
         rate=int(sx.rate), n=int(sx.n))
+
+
+def device_index_from_jax(di) -> DeviceIndex:
+    """A movi_tpu DeviceIndex -> the port's (host tensors of the JAX
+    arrays' own types)."""
+    meta = ("r", "length", "end_bwt_idx", "sigma")
+    kw = {f.name: getattr(di, f.name) for f in dataclasses.fields(DeviceIndex)
+          if f.name not in meta + ("mode", "alphamap_query")}
+    kw = {k: None if v is None else torch.from_numpy(np.array(v))
+          for k, v in kw.items()}
+    return DeviceIndex(mode=di.mode, **{k: int(getattr(di, k)) for k in meta},
+                       alphamap_query=np.asarray(di.alphamap_query), **kw)
 
 
 def load_engine_caches(index_dir: str) -> Tuple[

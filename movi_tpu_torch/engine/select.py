@@ -10,6 +10,13 @@ also need the kept doc sets to fit 16-bit color ids.  The budget is the device's
 TPU measurement and is not carried over: no cache-residency rule has been
 measured on the card, so a small index takes the paired layout here.
 Outputs are identical either way.
+
+Past both tables, PML, count and ZML take the compact engines
+(engine/pml.py, engine/search.py) on the run tables, whose bytes
+compact_pml_table_bytes and compact_search_table_bytes give.  For PML
+these cost 13 + 12*sigma B per run (61 for DNA), more than the one-step
+records' 8*(sigma+1) (40): the rung adds no capacity for PML.  For count
+and ZML they cost 16 + 8*sigma B per run (48) against 32*sigma (128).
 """
 
 from __future__ import annotations
@@ -48,6 +55,17 @@ def paired_color_table_bytes(r: int, sigma: int) -> int:
 
 def one_step_color_table_bytes(r: int, sigma: int) -> int:
     return 12 * (sigma + 1) * r
+
+
+def compact_pml_table_bytes(r: int, sigma: int) -> int:
+    """n, lf_abs, c, thr_full, rep_up and rep_down per run, and all_p."""
+    return (4 + 4 + 1 + 3 * 4 * sigma) * r + 4 * (r + 1)
+
+
+def compact_search_table_bytes(r: int, sigma: int) -> int:
+    """n, lf_abs, c_search, ch_up_s and ch_down_s per run, all_p, and the
+    first/last run tables."""
+    return (4 + 4 + 4 + 2 * 4 * sigma) * r + 4 * (r + 1) + 16 * (sigma + 1)
 
 
 def _fits(nbytes: int, device: DeviceLike) -> bool:
@@ -89,8 +107,10 @@ def pick_backend(r: int, sigma: int, kind: str = "pml",
                  device: DeviceLike = None, num_sets: int = 0) -> str:
     """'paired' when the two-step layout of `kind` ("pml", "search" or
     "color", which takes the kept doc-set count num_sets) fits, else
-    'one-step' when the one-step table fits, else 'compact' (not yet
-    ported)."""
+    'one-step' when the one-step table fits, else 'compact': the compact
+    engine on the run tables for PML, count and ZML (as movi_tpu/cli.py
+    routes it), the one-step layout for color and k-mers (as the JAX
+    package runs them)."""
     if kind == "pml":
         paired = use_paired_pml(r, sigma, force_paired, device)
         one_step = one_step_pml_table_bytes(r, sigma)

@@ -41,7 +41,8 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "kmer_member_scan": 0, "kmer_count_scan": 0,
             "fused2_kmer_count_scan": 0, "prep_alc": 0, "mem2_scan": 0,
             "all_mem2_scan": 0, "kmer2_right_scan": 0,
-            "kmer2_left_scan": 0}
+            "kmer2_left_scan": 0, "compact_pml_scan": 0,
+            "compact_count_scan": 0, "compact_zml_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -55,6 +56,10 @@ _LL = ctypes.c_longlong
 # count's first chars, each NULL where the scan takes none
 _SEARCH = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _KMER_COUNT = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# the compact count and ZML scans: (n, lf_abs, all_p, c_search, ch_up_s,
+# ch_down_s, first_runs, first_offsets, last_runs, last_offsets, r, sigma,
+# codes, W, lanes, first, state in, state out, out, stream)
+_COMPACT_SEARCH = [*[_P] * 10, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]
 _SIGNATURES = {
     "movi_fused_pml_scan": [_P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P],
@@ -104,6 +109,11 @@ _SIGNATURES = {
     # anchor, G, k, p, alive, fs, fe, found, count, stream)
     "movi_kmer2_left_scan": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                              _I, _I, *[_P] * 6],
+    # (n, lf_abs, all_p, c, thr_full, rep_up, rep_down, codes, W, lanes, r,
+    # sigma, rpml, 3 state in, 3 state out, ml, err, stream)
+    "movi_compact_pml_scan": [*[_P] * 8, *[_I] * 5, *[_P] * 9],
+    "movi_compact_count_scan": _COMPACT_SEARCH,
+    "movi_compact_zml_scan": _COMPACT_SEARCH,
 }
 
 
@@ -865,3 +875,130 @@ def kmer2_left_scan(rec_all, r: int, sigma: int, n: int, ftab_k: int,
     _raise_on(code, "kmer2_left_scan")
     launches["kmer2_left_scan"] += 1
     return found, cnt
+
+
+# ScalarEngine's message where a reposition finds no run either way
+NOT_FOUND = "character not found in index"
+
+
+def _check_runs(tables, dev):
+    """The compact tables, (name, tensor, dtype, shape) each, on dev."""
+    for name, t, dtype, shape in tables:
+        _check(t, name, dtype, dev, shape)
+
+
+def compact_pml_scan(n, lf_abs, all_p, c, thr_full, rep_up, rep_down,
+                     r: int, sigma: int, codes: torch.Tensor, state,
+                     random_repositioning: bool):
+    """Kernel 12a: compact PML over codes [W, lanes] (int8 chars, -1
+    illegal) from state (idx, off, ml) int32 [lanes] on the run tables of
+    engine/device_index.py; thr_full may be None with
+    random_repositioning.  Returns (state, ml [W, lanes]); raises
+    AssertionError(NOT_FOUND) where a reposition finds no run."""
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError("compact_pml_scan launches on CUDA tensors only")
+    if thr_full is None and not random_repositioning:
+        raise ValueError("threshold repositioning needs thr_full")
+    tables = [("n", n, torch.int32, (r,)),
+              ("lf_abs", lf_abs, torch.int32, (r,)),
+              ("all_p", all_p, torch.int32, (r + 1,)),
+              ("c", c, torch.uint8, (r,)),
+              ("rep_up", rep_up, torch.int32, (sigma, r)),
+              ("rep_down", rep_down, torch.int32, (sigma, r))]
+    if thr_full is not None:
+        tables.append(("thr_full", thr_full, torch.int32, (r, sigma)))
+    _check_runs(tables, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", torch.int8, dev)
+    steps, lanes = codes.shape
+    for i, s in enumerate(state):
+        _check(s, f"state[{i}]", torch.int32, dev, (lanes,))
+    new_state = tuple(torch.empty_like(s) for s in state)
+    ml = torch.empty((steps, lanes), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_compact_pml_scan(
+        n.data_ptr(), lf_abs.data_ptr(), all_p.data_ptr(), c.data_ptr(),
+        None if thr_full is None else thr_full.data_ptr(), rep_up.data_ptr(),
+        rep_down.data_ptr(), codes.data_ptr(), steps, lanes, r, sigma,
+        int(random_repositioning), *[s.data_ptr() for s in state],
+        *[s.data_ptr() for s in new_state], ml.data_ptr(), err.data_ptr(),
+        _stream(dev))
+    _raise_on(code, "compact_pml_scan")
+    launches["compact_pml_scan"] += 1
+    if int(err.item()):
+        raise AssertionError(NOT_FOUND)
+    return new_state, ml
+
+
+def _compact_search(entry: str, counter: str, n, lf_abs, all_p, c_search,
+                    ch_up_s, ch_down_s, first_runs, first_offsets, last_runs,
+                    last_offsets, r: int, sigma: int, codes, state,
+                    out_rows: int):
+    """Shared launch of the compact count and ZML scans: check, allocate,
+    launch.  state None starts from the first row of codes.  out_rows 0
+    gives count [lanes], else ml [out_rows, lanes]."""
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check_runs([("n", n, torch.int32, (r,)),
+                 ("lf_abs", lf_abs, torch.int32, (r,)),
+                 ("all_p", all_p, torch.int32, (r + 1,)),
+                 ("c_search", c_search, torch.int32, (r,)),
+                 ("ch_up_s", ch_up_s, torch.int32, (sigma, r)),
+                 ("ch_down_s", ch_down_s, torch.int32, (sigma, r)),
+                 *[(name, t, torch.int32, (sigma + 1,)) for name, t in (
+                     ("first_runs", first_runs),
+                     ("first_offsets", first_offsets),
+                     ("last_runs", last_runs),
+                     ("last_offsets", last_offsets))]], dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", torch.int8, dev)
+    steps, lanes = codes.shape
+    if state is None and steps == 0:
+        raise ValueError("a scan from the first char needs at least one "
+                         "step")
+    if state is not None:
+        _check(state, "state", torch.int32, dev, (SEARCH_STATE_ROWS, lanes))
+    new_state = torch.empty((SEARCH_STATE_ROWS, lanes), dtype=torch.int32,
+                            device=dev)
+    out = torch.empty((out_rows, lanes) if out_rows else (lanes,),
+                      dtype=torch.int32, device=dev)
+    lib = _load()
+    code = getattr(lib, entry)(
+        n.data_ptr(), lf_abs.data_ptr(), all_p.data_ptr(),
+        c_search.data_ptr(), ch_up_s.data_ptr(), ch_down_s.data_ptr(),
+        first_runs.data_ptr(), first_offsets.data_ptr(),
+        last_runs.data_ptr(), last_offsets.data_ptr(), r, sigma,
+        codes.data_ptr(), steps, lanes, int(state is None),
+        None if state is None else state.data_ptr(), new_state.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    return new_state, out
+
+
+def compact_count_scan(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
+                       first_runs, first_offsets, last_runs, last_offsets,
+                       r: int, sigma: int, codes: torch.Tensor, state=None):
+    """Kernel 12b: the compact count scan over codes [W, lanes] (int8
+    chars, -1 illegal, -2 past the read).  Returns (state [6, lanes],
+    count [lanes])."""
+    return _compact_search("movi_compact_count_scan", "compact_count_scan",
+                           n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
+                           first_runs, first_offsets, last_runs, last_offsets,
+                           r, sigma, codes, state, 0)
+
+
+def compact_zml_scan(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
+                     first_runs, first_offsets, last_runs, last_offsets,
+                     r: int, sigma: int, codes: torch.Tensor, state=None):
+    """Kernel 12c: the compact ZML scan.  Returns (state [6, lanes], ml
+    [W, lanes])."""
+    return _compact_search("movi_compact_zml_scan", "compact_zml_scan", n,
+                           lf_abs, all_p, c_search, ch_up_s, ch_down_s,
+                           first_runs, first_offsets, last_runs, last_offsets,
+                           r, sigma, codes, state, codes.shape[0])

@@ -3,6 +3,9 @@ chip_smoke.py (numpy only, so both packages get identical inputs)."""
 
 from __future__ import annotations
 
+import contextlib
+import io
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -191,6 +194,68 @@ def junction_reads(text: np.ndarray, junctions: Sequence[int], n: int,
         s = int(rng.integers(j - L + 8, j - 8))
         reads.append((f"j{i}", text[s:s + L].tobytes()))
     return reads
+
+
+def separator_text():
+    """The text of tests/test_separators.py: three 800-base documents
+    (default_rng(91)), each followed by '%', its reverse complement and
+    '%'.  Returns (text, the first document)."""
+    from .build.prepare_ref import revcomp
+    from .constants import SEPARATOR
+
+    rng = np.random.default_rng(91)
+    docs = [rng.choice(ACGT, size=800).astype(np.uint8) for _ in range(3)]
+    sep = np.array([SEPARATOR], dtype=np.uint8)
+    return np.concatenate([p for d in docs
+                           for p in (d, sep, revcomp(d), sep)]), docs[0]
+
+
+def run_cli(main, argv) -> Tuple[int, str, str]:
+    """(exit code, stdout, stderr) of a CLI's main(argv), run in this
+    process."""
+    out, err = io.StringIO(), io.StringIO()
+    rc = 0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main([str(a) for a in argv])
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    return rc, out.getvalue(), err.getvalue()
+
+
+def write_fasta(path: str, records: Sequence[Tuple[str, bytes]]):
+    with open(path, "w") as f:
+        f.writelines(f">{n}\n{s.decode()}\n" for n, s in records)
+
+
+def cli_inputs(d: str):
+    """A two-document FASTA (1,300 + 1,100 random bases, seeds 21 and 22;
+    `build` adds reverse complements) and 33 reads from it: 30 of 3-70
+    bases (mixed_reads, with N's) and three of 300 bases with three N's.
+    Returns (fasta path, reads path, reads)."""
+    refs = [random_text(1300, 21), random_text(1100, 22)]
+    fasta = os.path.join(d, "ref.fa")
+    write_fasta(fasta, [(f"doc{i}", t.tobytes()) for i, t in enumerate(refs)])
+    reads = mixed_reads(refs[0], seed=5, count=20) + \
+        mixed_reads(refs[1], seed=6, count=10)
+    for i in range(3):
+        seq = refs[i % 2][100 * i:100 * i + 300].copy()
+        seq[[7, 150, 299]] = ord("N")
+        reads.append((f"long{i}", seq.tobytes()))
+    rpath = os.path.join(d, "reads.fa")
+    write_fasta(rpath, reads)
+    return fasta, rpath, reads
+
+
+def unsplit_index(fasta: str, mode: str = "regular-thresholds"):
+    """The index of `mode` of a FASTA (reverse complements added) without
+    NT splitting (bound_ff None), which no `build` flag makes.  Returns
+    (ix, runs, ref)."""
+    from .build.prepare_ref import prepare_ref
+
+    ref = prepare_ref([fasta])
+    runs = build_bwt_runs(ref.text)
+    return build_move_index(runs, mode), runs, ref
 
 
 def index_from_text(text: np.ndarray, sa_rate: int = 0) -> MoveIndex:

@@ -236,18 +236,31 @@ def built_unbounded(tmp_path_factory, built):
 
 @pytest.mark.parametrize("flags,where", [
     # MEMs on an index not built with bound_ff=1 take the scalar
-    # AdvancedEngine (ROADMAP item 13a); --mem itself is ported
+    # AdvancedEngine, in both packages
     pytest.param(["--mem", "--min-mem-length", "12"], "built_unbounded",
                  id="--mem"),
-    # the scalar k-mer path; --kmer itself is ported
+    # --multi-ftab matters on the scalar k-mer path only: on a bounded
+    # index both CLIs run the membership engine with ftab-4 anchors
     pytest.param(["--kmer", "--multi-ftab", "--ftab-k", "4"], "built",
                  id="--kmer")])
 def test_cli_other_queries_not_yet_ported(request, flags, where):
+    """Routes that once raised "not yet ported" now equal the JAX CLI's
+    output file byte for byte."""
     idx, reads = request.getfixturevalue(where)
-    r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",
-                                    reads, *flags, "--platform", "cpu"])
-    assert r.returncode != 0
-    assert "not yet ported" in r.stderr
+    mode = "regular" if where == "built_unbounded" else "regular-thresholds"
+    out = f"{reads}.{mode}." + ("mems" if "--mem" in flags else "kmers.31")
+    texts = []
+    for module in ("movi_tpu.cli", "movi_tpu_torch.cli"):
+        if os.path.exists(out):
+            os.unlink(out)
+        r = _cli(module, ["query", "--index", idx, "--read", reads, *flags,
+                          "--platform", "cpu"])
+        assert r.returncode == 0, r.stderr
+        with open(out) as f:
+            texts.append(f.read())
+    assert texts[0] == texts[1]
+    assert len(texts[0].splitlines()) > 0
+    assert "not yet ported" not in r.stderr
 
 
 def _rc_text():
@@ -511,12 +524,19 @@ def test_cli_sa_entries_stdout_byte_identical(built_sa):
 
 
 def test_cli_sa_entries_without_sampled_sa_not_yet_ported(built):
+    """Without a sampled SA both CLIs take the scalar SA path, which
+    stops on the index's missing SA with the same error."""
     idx, reads = built
-    r = _cli("movi_tpu_torch.cli", ["query", "--index", idx, "--read",
-                                    reads, "--pml", "--sa-entries",
-                                    "--platform", "cpu"])
-    assert r.returncode == 1
-    assert "not yet ported" in r.stderr
+    errs = []
+    for module in ("movi_tpu.cli", "movi_tpu_torch.cli"):
+        r = _cli(module, ["query", "--index", idx, "--read", reads, "--pml",
+                          "--sa-entries", "--platform", "cpu"])
+        assert r.returncode == 1
+        assert r.stdout == ""
+        errs.append(r.stderr)
+    for err in errs:
+        assert "index has no sampled SA" in err
+    assert "not yet ported" not in errs[1]
 
 
 @pytest.mark.parametrize("flags", [["--movi-format"], ["--mmap"],

@@ -208,13 +208,28 @@ def test_color_engine_choice(setup):
     assert eng.ci.records3 is None
 
 
-def test_color_needs_thresholds_and_bound_ff():
-    """No silent scalar ColorEngine: an index the fused engines cannot run
-    raises "not yet ported"."""
+def test_color_needs_thresholds_and_bound_ff(setup):
+    """An index the color engines cannot run (thresholds, no bound_ff=1)
+    takes the scalar ColorEngine through multi_classify, equal to the JAX
+    API; the engine getter refuses it."""
+    from movi_tpu import api as japi
     from movi_tpu.build.suffix import build_bwt_runs
+    from movi_tpu.color import DocumentInfo as JDocumentInfo
+    from movi_tpu.color import build_color_table as jbuild_color_table
     from movi_tpu.index.structure import build_move_index
-    from movi_tpu_torch.testing import random_text
+    from movi_tpu_torch.convert import color_table_from_jax
 
-    ix = build_move_index(build_bwt_runs(random_text(600, 2)), "regular")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Index(ix).color_engine(None, device="cpu")
+    docs = [np.random.default_rng(5 + i).choice(ACGT, size=700)
+            for i in range(2)]
+    text = np.concatenate(docs)
+    runs = build_bwt_runs(text)
+    ix = build_move_index(runs, "regular-thresholds")
+    jct = jbuild_color_table(ix, runs.sa, JDocumentInfo.create(
+        np.cumsum([len(d) for d in docs]), taxon_ids=[101, 202]))
+    ct = color_table_from_jax(jct)
+    reads = setup["reads"][:12]
+    with pytest.raises(ValueError, match="scalar ColorEngine"):
+        Index(ix).color_engine(ct, device="cpu")
+    want = japi.Index(ix).multi_classify(reads, jct, min_match_len=2)
+    assert Index(ix).multi_classify(reads, ct, device="cpu",
+                                    min_match_len=2) == want

@@ -11,6 +11,7 @@ import torch
 
 import movi_tpu_torch
 from movi_tpu_torch import device, kernels
+from movi_tpu_torch.engine import device_index as tdi
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
 from movi_tpu_torch.engine import fused_color as tfc
@@ -20,8 +21,12 @@ from movi_tpu_torch.engine import fused_mem2 as tm2
 from movi_tpu_torch.engine import fused_sa as tsa
 from movi_tpu_torch.engine import fused_search as ts
 from movi_tpu_torch.engine import fused_search2 as ts2
-from movi_tpu_torch.testing import (small_color_index, small_index,
-                                    small_sa_index)
+from movi_tpu_torch.engine import pml as tpml
+from movi_tpu_torch.engine import search as tsearch
+from movi_tpu_torch.build.suffix import build_bwt_runs
+from movi_tpu_torch.index.structure import build_move_index
+from movi_tpu_torch.testing import (mixed_reads, small_color_index,
+                                    small_index, small_sa_index)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(movi_tpu_torch.__file__)
@@ -43,6 +48,7 @@ def test_port_imports_no_jax():
     assert "movi_tpu_torch.cli" in mods and len(mods) >= 10
     assert "movi_tpu_torch.engine.fused_color" in mods
     assert "movi_tpu_torch.engine.fused_kmer2" in mods
+    assert "movi_tpu_torch.engine.search" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -59,6 +65,7 @@ def test_port_imports_nothing_of_movi_tpu():
     """Importing every port module and chip_smoke.py in a fresh
     interpreter loads no `movi_tpu` or `movi_tpu.*` module."""
     mods = _modules() + ["chip_smoke"]
+    assert "movi_tpu_torch.logs" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -110,7 +117,7 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     monkeypatch.setattr(kernels, "_load", no_loader)
     monkeypatch.setattr(kernels, "build", no_loader)
     kernels.reset_launches()
-    _, ix = small_index(n=600)
+    text, ix = small_index(n=600)
     fi = tf.build_fused_index(ix)
     slots = fi.sigma + 1
     alphas = torch.randint(0, slots, (9, 4), dtype=torch.uint8)
@@ -176,6 +183,15 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     anchor = torch.tensor([0, 3, 1], dtype=torch.int32)
     right = tk2.kmer2_right_scan(m2, al8, own, anchor, 5)
     tk2.kmer2_left_scan(m2, s2, *right, al8, own, anchor, 5, 2)
+    for mode in ("regular-thresholds", "regular"):
+        cix = build_move_index(build_bwt_runs(text), mode)
+        di = tdi.build_device_index(cix)
+        codes = torch.randint(-1, di.sigma, (9, 4), dtype=torch.int8)
+        for rr in ([False, True] if cix.thr is not None else [True]):
+            tpml.compact_pml_scan(di, codes, tpml.initial_state(di, 4, "cpu"),
+                                  rr)
+        tsearch.compact_count_scan(di, chars)
+        tsearch.compact_zml_scan(di, chars)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
@@ -190,7 +206,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "kmer_member_scan", "kmer_count_scan",
                                      "fused2_kmer_count_scan", "prep_alc",
                                      "mem2_scan", "all_mem2_scan",
-                                     "kmer2_right_scan", "kmer2_left_scan"}
+                                     "kmer2_right_scan", "kmer2_left_scan",
+                                     "compact_pml_scan", "compact_count_scan",
+                                     "compact_zml_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -260,6 +278,26 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                        idx32, idx32, 5)
 
 
+def test_compact_wrappers_refuse_cpu_tensors():
+    """The three compact wrappers launch on CUDA tensors only."""
+    _, ix = small_index(n=600)
+    di = tdi.build_device_index(ix)
+    codes = torch.zeros((3, 4), dtype=torch.int8)
+    st = tpml.initial_state(di, 4, "cpu")
+    for rr in (False, True):
+        with pytest.raises(ValueError):
+            kernels.compact_pml_scan(di.n, di.lf_abs, di.all_p, di.c,
+                                     di.thr_full, di.rep_up, di.rep_down,
+                                     di.r, di.sigma, codes, st, rr)
+    search = (di.n, di.lf_abs, di.all_p, di.c_search, di.ch_up_s,
+              di.ch_down_s, di.first_runs, di.first_offsets, di.last_runs,
+              di.last_offsets, di.r, di.sigma, codes)
+    with pytest.raises(ValueError):
+        kernels.compact_count_scan(*search)
+    with pytest.raises(ValueError):
+        kernels.compact_zml_scan(*search)
+
+
 def test_mem2_wrappers_refuse_cpu_tensors():
     """The four MEM v2 wrappers launch on CUDA tensors only."""
     r, sigma, n = 3, 4, 10
@@ -297,3 +335,21 @@ def test_no_silent_cpu_fallback(monkeypatch):
         device.resolve_device("cuda")
     assert device.resolve_device("cpu") == torch.device("cpu")
     assert device.memory_budget_bytes("cpu") > 0
+    # every route resolves its device first, the scalar and compact ones
+    # too: without a card the default raises before any query runs
+    from movi_tpu_torch.api import Index
+
+    text, ix = small_index(n=600)
+    reads = mixed_reads(text, count=3)
+    unbounded = Index(build_move_index(build_bwt_runs(text), "regular"))
+    for index in (Index(ix), unbounded):
+        for call in (lambda: index.query_pml(reads, jax=False),
+                     lambda: index.query_count(reads),
+                     lambda: index.query_zml(reads, jax=False),
+                     lambda: index.query_kmers(reads, k=5, jax=False),
+                     lambda: index.query_mems(reads, 5, ftab_k=4),
+                     lambda: index.multi_classify(reads, None, jax=False),
+                     lambda: index.compact_engine("zml"),
+                     lambda: index.engine()):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()

@@ -14,7 +14,6 @@ from movi_tpu.engine import fused_search as js
 from movi_tpu.engine import fused_search2 as js2
 from movi_tpu_torch.api import Index
 from movi_tpu_torch.build.suffix import build_bwt_runs
-from movi_tpu_torch.cli import NotPortedError
 from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
 from movi_tpu_torch.engine import fused_kmer as tk
 from movi_tpu_torch.engine import fused_search as ts
@@ -110,10 +109,15 @@ def test_kmer_spans_order():
 
 @pytest.mark.parametrize("counts", [False, True])
 def test_unbounded_index_not_ported(counts):
-    """An index without NT splitting (bound_ff) takes the JAX package's
-    scalar AdvancedEngine path, which is not yet ported: no quiet
-    fallback."""
+    """An index without NT splitting (bound_ff) takes the scalar
+    AdvancedEngine route in both packages, with equal answers; the device
+    engine getter refuses it."""
+    from movi_tpu.api import Index as JIndex
+
     ix = build_move_index(build_bwt_runs(random_text(600, 2)), "regular")
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        Index(ix).query_kmers([("r", b"ACGTACGTAC")], k=5, counts=counts,
-                              device="cpu")
+    reads = [("r", b"ACGTACGTAC"), ("s", b"TTGCANACGGT")]
+    want = JIndex(ix).query_kmers(reads, k=5, counts=counts)
+    assert Index(ix).query_kmers(reads, k=5, counts=counts,
+                                 device="cpu") == want
+    with pytest.raises(ValueError, match="scalar AdvancedEngine"):
+        Index(ix).kmer_engine(5, counts, device="cpu")

@@ -69,19 +69,25 @@ def test_api_bidirectional_counts_equal_jax(rc, k, paired):
 
 
 def test_api_unported_mem_routes_raise(rc, monkeypatch):
-    """ftab_k > 1 (the scalar engine with its own ftab, item 13a), a
-    non-ACGT index (item 13a) and n past MEM2_MAX_N (the v1 machines,
-    item 15) raise NotPortedError naming their item."""
+    """ftab_k > 1 and a non-ACGT index take the scalar AdvancedEngine in
+    both APIs, with equal MEMs; n past MEM2_MAX_N (the v1 machines, item
+    15) raises NotPortedError naming its item."""
     ix, reads = rc
     index = tapi.Index(ix)
-    with pytest.raises(NotPortedError, match="item 13a"):
-        index.query_mems(reads, min_mem_length=12, ftab_k=6, device="cpu")
-    text = random_text(2000, 3)
+    assert (index.query_mems(reads, min_mem_length=12, ftab_k=6,
+                             device="cpu")
+            == japi.Index(ix).query_mems(reads, min_mem_length=12,
+                                         ftab_k=6))
+    # the scalar MEMs extend both ways: a reverse-complement closed text
+    text = with_revcomp(random_text(2000, 3))
     text[::97] = ord("N")
+    text[-1 - np.arange(0, len(text), 97)] = ord("N")
     ixn = build_move_index(build_bwt_runs(text), "regular", bound_ff=1)
     assert bytes(ixn.alphabet) != b"ACGT"
-    with pytest.raises(NotPortedError, match="item 13a"):
-        tapi.Index(ixn).query_mems(reads, device="cpu")
+    some = reads[:8]
+    for L in (0, 12):
+        assert (tapi.Index(ixn).query_mems(some, L, device="cpu")
+                == japi.Index(ixn).query_mems(some, L))
     monkeypatch.setattr(tm2, "MEM2_MAX_N", int(ix.all_p[-1]) - 1)
     with pytest.raises(NotPortedError, match="item 15"):
         tapi.Index(ix).query_mems(reads, min_mem_length=12, device="cpu")
