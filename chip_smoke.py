@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (fifteen sources,
-twenty-four launch counters), checks each one against its plain PyTorch
+Builds the CUDA kernels from movi_tpu_torch/csrc (sixteen sources,
+twenty-seven launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
-`FusedSAEngine.query`, `query_kmers`, `query_mems` and
+`FusedSAEngine.query`, `query_kmers`, `query_mems` (on the MEM v2
+table and, past MEM2_MAX_N, on the v1 machines) and
 `query_multiclass`/`multi_classify`, both record layouts each; the
 compact engines of `Index.compact_engine`; and `movi_tpu_torch.cli build`
 and `query`) at a real index size,
@@ -97,6 +98,14 @@ the card's name and power limit.  Phases:
               kernels 11a and 11b (k 5, 11, 31; p 1 too) on the index of
               tests/test_fused_kmer2.py; the MEM and bidirectional count
               engines equal AdvancedEngine
+     small MEM v1  the same index, reads with N, '#', shorter than L and
+              past 512 bases, and the first-run-longer-than-one index
+              (tests/test_torch_mem1.py): kernel 13a equals its plain
+              version and np.repeat; 13b (L 2, 12) and 13c equal theirs
+              (every register, ends, counts, ticks and bytes) with
+              pos2rba and with the binary search over all_p; the v1
+              engines equal AdvancedEngine; a lane past its tick budget
+              raises
      MEM      bench.py's reverse-complement closed index (3,000,000
               bases from default_rng(1) and their reverse complement,
               built by the port): the MEM v2 table with ftab-10 rows,
@@ -112,6 +121,22 @@ the card's name and power limit.  Phases:
               over the 150 bp batches and 8 long lanes cut to 1,500
               bases, 11a/11b over every group, timings, bounds from the
               rows really loaded, latency floors and warm breakdowns
+     MEM v1   phase MEM's index and reads through Index.query_mems (BML
+              at L = 20, all-MEMs) with MEM2_MAX_N lowered below the
+              index's length in this process (the route an index past
+              2^28 positions takes), first with pos2rba (kernel 13a
+              builds it) and then with POS2RUN_MAX_N at 0 (the binary
+              search over all_p that the route past 2^28 always takes),
+              counted apart: both equal phase MEM's v2 answers on every
+              read, 256 sampled reads equal AdvancedEngine (numpy run
+              walks), kernels 13a-13c equal their plain versions in both
+              forms (13b/13c over the 150 bp batches and 8 long lanes cut
+              to 1,500 bases), timings per form, bounds from the bytes
+              really loaded, latency floors and warm breakdowns; then
+              `query --mem` (L = 20 and all-MEMs) through the CLI in this
+              process, counted apart again: it logs the v1 engine,
+              launches only 13b or 13c, and its .mems file equals the v2
+              answers' lines
   6. small color  the three-document index of tests/test_fused_color.py:
               kernels A (3-word and two-load forms), B and C equal their
               plain versions with early stop off and on (ml, color ids,
@@ -228,6 +253,12 @@ CUDA_SOURCES = {
                            "movi_tpu/engine/search.py:84"),
     "compact_zml_scan": ("movi_tpu_torch/csrc/compact_search.cu",
                          "movi_tpu/engine/search.py:161"),
+    "pos2rba_build": ("movi_tpu_torch/csrc/fused_mem.cu",
+                      "movi_tpu/engine/fused_mem.py:73"),
+    "mem1_scan": ("movi_tpu_torch/csrc/fused_mem.cu",
+                  "movi_tpu/engine/fused_mem.py:146"),
+    "all_mem1_scan": ("movi_tpu_torch/csrc/fused_mem.cu",
+                      "movi_tpu/engine/fused_mem.py:337"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
@@ -256,6 +287,7 @@ KMER_LANES = 16384        # the screening reads of the k-mer phase
 KMER_SEED = 77
 MEM_KERNELS = ("mem2_scan", "all_mem2_scan", "kmer2_right_scan",
                "kmer2_left_scan")
+MEM1_KERNELS = ("pos2rba_build", "mem1_scan", "all_mem1_scan")
 MEM_RC_HALF = 3_000_000   # bench.py HBM_RC_HALF: half of the rc text
 MEM_L = 20                # bench.py MEM_L
 MEM_LANES = 16384         # bench.py MEM_LANES
@@ -1645,18 +1677,24 @@ def require_kmer_equal(what, got, want, errs, key):
     require_equal(f"{what} ticks and rows", work_k, work_p, errs, key)
 
 
+def kmer_member_args(si, alc, state, k, ticks):
+    """Kernel 9a's arguments (the rows with ftab codes when alc is [lanes,
+    2W])."""
+    use_ftab = alc.shape[1] == 2 * state["out"].shape[1]
+    return (si.rec_all, si.init_rec, si.r, si.sigma, si.ftab_k, alc, state,
+            k, ticks, use_ftab)
+
+
 def kmer_member_pair(si, alc, state, k, ticks, what, errs, split=None):
-    """Kernel 9a and its plain version on the same inputs (the rows with
-    ftab codes when alc is [lanes, 2W]); with `split`, the kernel also runs
-    `split` ticks and then the rest from that state, which must equal one
-    pass.  Returns the kernel's (state, work), the plain version's
-    milliseconds and the kernel's arguments."""
+    """Kernel 9a and its plain version on the same inputs; with `split`,
+    the kernel also runs `split` ticks and then the rest from that state,
+    which must equal one pass.  Returns the kernel's (state, work), the
+    plain version's milliseconds and the kernel's arguments."""
     from movi_tpu_torch import kernels
     from movi_tpu_torch.engine import fused_kmer as tk
 
-    use_ftab = alc.shape[1] == 2 * state["out"].shape[1]
-    args = (si.rec_all, si.init_rec, si.r, si.sigma, si.ftab_k, alc, state,
-            k, ticks, use_ftab)
+    args = kmer_member_args(si, alc, state, k, ticks)
+    use_ftab = args[-1]
     got = kernels.kmer_member_scan(*args)
     want, plain_ms = timed_ms(
         lambda: tk.kmer_scan_plain(si, alc, state, k, ticks, use_ftab))
@@ -1892,7 +1930,7 @@ def kmer_breakdown(index, reads, k, kw, dev, k_ms, n_windows, card):
 
 
 def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
-               long_sample=2):
+               long_sample=2, cut_lanes=8, cut_len=LONG_CUT):
     """k-mer membership and exact counts on phase 4's index (ftab-10
     anchor rows), counted apart."""
     import torch
@@ -1967,27 +2005,41 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
     del res
 
     # every kernel against its plain version over all lanes of the main
-    # path's batches; the plain versions are timed in this pass
+    # path's batches (9a: the 150 bp batches, and the first `cut_lanes`
+    # long reads cut to `cut_len` bases, since the plain machine takes
+    # milliseconds per lockstep tick on the card; the 10 kb batch through
+    # the kernel only); the plain versions are timed in this pass
     si0, s2 = index._search, index._paired_search
     batches = list(_as_batches(reads, QUERY_LANES))
+    cut = next(_as_batches([(nm, sq[:cut_len]) for nm, sq in
+                            longs[:cut_lanes]], QUERY_LANES))
     runs = {name: [] for name in KMER_KERNELS}
     plain_ms = dict.fromkeys(KMER_KERNELS, 0.0)
     longest, n_ticks, n_steps = [], 0, 0
-    for b in batches:
+    for b in batches + [cut]:
         al8 = torch.from_numpy(left_aligned_slots(b, si.alphamap_query,
                                                   fill=-1)
                                .astype(np.int8)).to(dev)
         alc, ms = prep_pair(al8, si.ftab_k, "full", errs)
+        state = tk.make_kmer_state(b.lanes, b.width,
+                                   torch.from_numpy(b.lengths).to(dev), k)
+        ticks_cap = tk.tick_cap(k, b.width)
+        if b is cut:
+            _, ms, _ = kmer_member_pair(si, alc, state, k, ticks_cap,
+                                        "full cut", errs)
+            plain_ms["kmer_member_scan"] += ms
+            continue
         plain_ms["prep_alc"] += ms
         runs["prep_alc"].append((kernels.prep_alc, (al8, si.ftab_k)))
         add_work(work, "prep_alc", al8.numel() * (1 + 8),
                  al8.numel() * 3 * si.ftab_k)
-        state = tk.make_kmer_state(b.lanes, b.width,
-                                   torch.from_numpy(b.lengths).to(dev), k)
-        (_, kw_), ms, args = kmer_member_pair(si, alc, state, k,
-                                              tk.tick_cap(k, b.width),
-                                              "full", errs)
-        plain_ms["kmer_member_scan"] += ms
+        if b.width <= READ_LEN:
+            (_, kw_), ms, args = kmer_member_pair(si, alc, state, k,
+                                                  ticks_cap, "full", errs)
+            plain_ms["kmer_member_scan"] += ms
+        else:
+            args = kmer_member_args(si, alc, state, k, ticks_cap)
+            kw_ = kernels.kmer_member_scan(*args)[1]
         runs["kmer_member_scan"].append((kernels.kmer_member_scan, args))
         ticks, rows = (int(x) for x in kw_.to(torch.int64).sum(dim=1))
         longest.append(int(kw_[0].max()))
@@ -2014,8 +2066,10 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
             add_work(work, name, slots.numel() + lane.numel() * (8 + 8 + 5)
                      + n * 2 * (24 if paired else 16), n * OPS_PER_ROW)
     say("k-mer", f"kernels 9a, 9b, 7b and 10a equal their plain versions "
-                 f"over all lanes; membership: {n_ticks} ticks, "
-                 f"{n_ticks / n_windows:.6f} per window, the longest lane "
+                 f"over all lanes (9a: the 150 bp batches and {cut_lanes} "
+                 f"long lanes cut to {cut_len} bases); membership: "
+                 f"{n_ticks} ticks, {n_ticks / n_windows:.6f} per window, "
+                 f"the longest lane "
                  f"per batch {longest} ticks (latency floor); counts: "
                  f"{n_steps} one-step steps, the longest k-mer {k - 1} steps "
                  f"one-step, {(k - 2) // 2 + 1} pair steps paired")
@@ -2219,21 +2273,6 @@ def fast_oracle(ix):
     return FastOracle(ix, ftab_k=0)
 
 
-def mem_batch_state(eng, batch, L):
-    """(alc, start state, tick cap) of a MEM engine's batch on its
-    device."""
-    from movi_tpu_torch.engine import fused_mem2 as tm2
-
-    if L >= 2:
-        alc = eng.slots(batch, eng.m2.ftab_k if eng.use_ftab else 0)
-        return alc, tm2.make_mem2_state(batch.lanes, batch.width,
-                                        eng.lengths(batch), L), \
-            tm2.bml_tick_cap(batch.width)
-    alc = eng.slots(batch)
-    return alc, tm2.make_all_mem2_state(eng.m2, alc, eng.lengths(batch)), \
-        tm2.all_mem2_tick_cap(batch.width)
-
-
 def phase_small_mem2(dev, errs):
     from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
     from movi_tpu_torch.engine import fused_mem2 as tm2
@@ -2267,7 +2306,7 @@ def phase_small_mem2(dev, errs):
         m2 = tm2.build_fused_mem2_index(ix, fk).to(dev)
         eng = (tm2.FusedMem2Engine(m2, L, dev) if L
                else tm2.FusedAllMem2Engine(m2, dev))
-        alc, state, cap = mem_batch_state(eng, batch, L)
+        alc, state, cap = eng.prepare(batch)
         (_, work_k), _, _ = mem_machine_pair(
             m2, alc, state, cap, f"small fk={fk} L={L}", errs, L=L,
             use_ftab=bool(L) and eng.use_ftab, split=53)
@@ -2285,7 +2324,7 @@ def phase_small_mem2(dev, errs):
     for L in (0, 3):
         eng = (tm2.FusedMem2Engine(m50, L, dev) if L
                else tm2.FusedAllMem2Engine(m50, dev))
-        alc, state, cap = mem_batch_state(eng, b50, L)
+        alc, state, cap = eng.prepare(b50)
         mem_machine_pair(m50, alc, state, cap, f"small first-run L={L}",
                          errs, L=L)
         check_mem_oracle(f"small first-run L={L}", reads50,
@@ -2298,7 +2337,7 @@ def phase_small_mem2(dev, errs):
     joracle = AdvancedEngine(jix, ftab_k=0)
     for L in (8, 12):
         eng = tm2.FusedMem2Engine(jm2, L, dev)
-        alc, state, cap = mem_batch_state(eng, jb, L)
+        alc, state, cap = eng.prepare(jb)
         mem_machine_pair(jm2, alc, state, cap, f"small junction L={L}", errs,
                          L=L, use_ftab=True)
         check_mem_oracle(f"small junction L={L}", jreads,
@@ -2334,11 +2373,12 @@ def phase_small_mem2(dev, errs):
                      f"walks (the full phase's oracle)")
 
 
-def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what):
+def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what,
+                  phase="MEM"):
     """Where a warm query's time goes (MEMs, or bidirectional counts with
     kw["k"]): host batching, prep (slots to the card, kernel 10a and the
-    start state; or the groups), kernels, D2H, result lists; the device's
-    busy and idle shares."""
+    state before entry; or the groups), kernels, D2H, result lists; the
+    device's busy and idle shares."""
     import torch
 
     from movi_tpu_torch.api import _as_batches
@@ -2381,14 +2421,10 @@ def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what):
             marks.append(time.perf_counter())
             list(zip(f, t))
         else:
-            alc, state, cap = mem_batch_state(eng, b, kw["L"])
+            prep = eng.prepare(b)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if kw["L"] >= 2:
-                st, _ = tm2.mem2_scan(eng.m2, alc, state, kw["L"], cap,
-                                      eng.use_ftab)
-            else:
-                st, _ = tm2.all_mem2_scan(eng.m2, alc, state, cap)
+            st, _ = eng.scan(*prep)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             ends, cnts = st["ends"].cpu().numpy(), st["counts"].cpu().numpy()
@@ -2399,7 +2435,7 @@ def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what):
                                  marks[1:]):
             stage[key] += t_b - t_a
     busy = k_ms / 1e3 / wall
-    say("MEM", f"warm {what}: wall {wall:.6f} s = {n_bases / wall:.6e} "
+    say(phase, f"warm {what}: wall {wall:.6f} s = {n_bases / wall:.6e} "
                f"bases/s; kernels {k_ms:.6f} ms, device busy share (kernels "
                f"/ wall) {busy:.6f}, idle share {1 - busy:.6f}; host stages: "
                + ", ".join(f"{key} {v:.6f} s" for key, v in stage.items())
@@ -2501,6 +2537,9 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
     say("MEM", f"{len(pick)} sampled reads equal AdvancedEngine with numpy "
                f"run walks (BML, all-MEMs, counts; "
                f"{time.perf_counter() - t0:.1f} s host)")
+    # what the MEM v1 phase reuses: the index, the reads and these answers
+    ctx = dict(ix=ix, reads=reads, lanes=lanes, oracle=oracle,
+               v2={"bml": res["bml"], "all": res["all"]})
     del res
 
     # every kernel against its plain version: all lanes of the 150 bp
@@ -2518,7 +2557,7 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
         e = index.mem_engine(L, dev)
         name = "mem2_scan" if L else "all_mem2_scan"
         for b in batches + [cut]:
-            alc, state, cap = mem_batch_state(e, b, L)
+            alc, state, cap = e.prepare(b)
             use_ftab = bool(L) and e.use_ftab
             if b is cut or b.width <= READ_LEN:
                 (_, w), ms, run = mem_machine_pair(
@@ -2610,7 +2649,437 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
                   f"query_kmers bidirectional counts k={KMER_K}")
     say("MEM", f"peak device memory in this phase "
                f"{torch.cuda.max_memory_allocated(dev)} B  ({card})")
+    return counts, ctx
+
+
+def mem1_kernel_run(mi, al, state, ticks, L=0):
+    """(fn, args) of kernel 13b (L >= 2, BML) or 13c (L = 0, all-MEMs) on
+    these inputs."""
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine.fused_mem import kernel_tables
+
+    if L:
+        return kernels.mem1_scan, (*kernel_tables(mi), al, state, L, ticks)
+    return kernels.all_mem1_scan, (*kernel_tables(mi), al, state, ticks)
+
+
+def mem1_machine_pair(mi, al, state, ticks, what, errs, L=0):
+    """Kernel 13b or 13c and its plain version on the same inputs, each
+    run to convergence: every register, the ends and counts, each lane's
+    ticks and table bytes.  Returns the kernel's (state, work), the plain
+    version's milliseconds and the kernel's (fn, args)."""
+    from movi_tpu_torch.engine import fused_mem as tm1
+
+    fn, args = mem1_kernel_run(mi, al, state, ticks, L)
+    got = fn(*args)
+    if L:
+        want, plain_ms = timed_ms(lambda: tm1.mem_scan_plain(
+            mi, al, state, L, ticks))
+    else:
+        want, plain_ms = timed_ms(lambda: tm1.all_mem_scan_plain(
+            mi, al, state, ticks))
+    require_machine_equal(what, got, want, errs, fn.__name__)
+    return got, plain_ms, (fn, args)
+
+
+def mem1_tables(ix, dev):
+    """The MEM v1 table of ix on dev in both reposition forms: with
+    pos2rba, and with POS2RUN_MAX_N at 0 (the binary search)."""
+    from movi_tpu_torch.engine import fused_mem as tm1
+
+    saved = tm1.POS2RUN_MAX_N
+    try:
+        out = {"pos2rba": tm1.build_fused_mem_index(ix, dev)}
+        tm1.POS2RUN_MAX_N = 0
+        out["search"] = tm1.build_fused_mem_index(ix, dev)
+    finally:
+        tm1.POS2RUN_MAX_N = saved
+    return out
+
+
+def pos2rba_pair(ix, mi, what, errs):
+    """Kernel 13a against its plain version, np.repeat and one PyTorch
+    call (repeat_interleave of the runs' (run, all_p[run]) rows), byte for
+    byte, on the table mi holds.  Returns (the kernel's (fn, args), the
+    plain version's milliseconds, the library call's milliseconds)."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_mem as tm1
+
+    dev = mi.all_p64.device
+    n_arr = torch.from_numpy(ix.n_arr.astype(np.int32)).to(dev)
+    args = (n_arr, mi.all_p64, mi.n)
+    got = kernels.pos2rba_build(*args)
+    want, plain_ms = timed_ms(lambda: tm1.pos2rba_plain(*args))
+    require_equal(f"{what} pos2rba", got, want, errs, "pos2rba_build")
+    # the library call's inputs, made before it is timed: the r pairs and
+    # the run lengths as int64
+    pairs = torch.stack((torch.arange(ix.r, dtype=torch.int32, device=dev),
+                         mi.all_p64[:-1]), 1)
+    reps64 = n_arr.to(torch.int64)
+
+    def library():
+        return torch.repeat_interleave(pairs, reps64, dim=0,
+                                       output_size=mi.n)
+
+    lib = library()
+    lib_ms = cuda_ms(library, reps=3)
+    runs = np.repeat(np.arange(ix.r), ix.n_arr)
+    ref = np.stack([runs, ix.all_p[:-1][runs]], axis=1).astype(np.int32)
+    for t, who in ((got, "kernel 13a"), (mi.pos2rba, "the table's pos2rba"),
+                   (lib, "repeat_interleave")):
+        if t.cpu().numpy().tobytes() != ref.tobytes():
+            raise AssertionError(f"{what}: {who} differs from np.repeat")
+    return (kernels.pos2rba_build, args), plain_ms, lib_ms
+
+
+def phase_small_mem1(dev, errs):
+    """The MEM v1 kernels on the index of tests/test_fused_mem.py: 13a
+    equals its plain version and np.repeat; 13b (L 2, 12) and 13c equal
+    theirs in both reposition forms on reads with N, '#', shorter than L
+    and past 512 bases, and on the first-run-longer-than-one index; the
+    engines equal AdvancedEngine; a lane past its tick budget raises."""
+    from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
+    from movi_tpu_torch.engine import fused_mem as tm1
+    from movi_tpu_torch.io.fastx import make_batches
+    from movi_tpu_torch.testing import mem_reads, rc_index
+
+    fw, ix = rc_index(4000, 7)
+    fw50, ix50 = rc_index(50, 13)
+    rng = np.random.default_rng(21)
+    hashes = []
+    for name, seq in mem_reads(rng, fw, 12, prefix="h"):
+        a = np.frombuffer(seq, np.uint8).copy()
+        a[rng.integers(0, len(a), size=1 + len(hashes) % 2)] = ord("#")
+        hashes.append((name, a.tobytes()))
+    cases = [(ix, mem_reads(rng, fw, 40, with_n=True)
+              + mem_reads(rng, fw, 4, err=0.03, prefix="L",
+                          lengths=(530, 700))
+              + hashes
+              + [("short", b"ACG"), ("one", b"A"), ("allN", b"N" * 12),
+                 ("edge", b"##" + fw[:20].tobytes() + b"#")]),
+             (ix50, [("n", b"N"), ("nn", b"NN"),
+                     ("mix", b"N" + fw50[:9].tobytes()),
+                     ("tail", fw50[5:20].tobytes() + b"N")])]
+    ticks = {}
+    for cix, reads in cases:
+        oracle = AdvancedEngine(cix, ftab_k=0)
+        batch = next(make_batches(reads, lanes=len(reads),
+                                  bucket_widths=False))
+        for form, mi in mem1_tables(cix, dev).items():
+            if form == "pos2rba":
+                pos2rba_pair(cix, mi, f"small r={cix.r}", errs)
+            for L in (12, 2, 0):
+                eng = (tm1.FusedMemEngine(mi, L, dev) if L
+                       else tm1.FusedAllMemEngine(mi, dev))
+                al, state, cap = eng.prepare(batch)
+                what = f"small r={cix.r} {form} L={L}"
+                (_, work), _, _ = mem1_machine_pair(mi, al, state, cap,
+                                                    what, errs, L)
+                ticks[cix.r, form, L] = int(work[0].max())
+                check_mem_oracle(what, reads,
+                                 list(zip(batch.names,
+                                          eng.query_batch(batch))),
+                                 oracle, L)
+                # a lane still running past its budget raises from the
+                # wrapper
+                fn, args = mem1_kernel_run(mi, al, state, 3, L)
+                try:
+                    fn(*args)
+                except RuntimeError as e:
+                    if "did not converge" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"{what}: no error past the tick "
+                                         f"budget")
+    say("small MEM v1", f"kernel 13a equals plain and np.repeat; kernels "
+                        f"13b (L 2, 12) and 13c equal plain (every "
+                        f"register, ends, counts, ticks and bytes) with "
+                        f"pos2rba and with the binary search, on "
+                        f"{len(cases[0][1])} reads (width {batch.width} "
+                        f"last, with N, '#', shorter than L, past 512 "
+                        f"bases) and on the first-run-longer-than-one "
+                        f"index; the engines equal AdvancedEngine ('#' "
+                        f"reads and a lone N included); a lane past its "
+                        f"budget raises; longest lanes {ticks} ticks")
+
+
+def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
+               cut_len=LONG_CUT):
+    """MEMs on the v1 machines: phase MEM's index and reads through
+    Index.query_mems (BML at L = 20, all-MEMs) with MEM2_MAX_N lowered
+    below the index's length, as on an index past 2^28 positions; first
+    with pos2rba, then with POS2RUN_MAX_N at 0 (the binary search that
+    the route past 2^28 always takes), counted apart; then `query --mem`
+    through the CLI, counted apart again."""
+    import torch
+
+    from movi_tpu_torch import cli as tcli
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import Index, _as_batches
+    from movi_tpu_torch.engine import fused_mem as tm1
+    from movi_tpu_torch.engine import fused_mem2 as tm2
+    from movi_tpu_torch.io.outputs import mem_lines
+    from movi_tpu_torch.testing import run_cli
+
+    ix, reads, lanes = ctx["ix"], ctx["reads"], ctx["lanes"]
+    n = int(ix.all_p[-1])
+    n_bases = sum(len(s) for _, s in reads)
+    forms = {"pos2rba": tm1.POS2RUN_MAX_N, "search": 0}
+    saved = (tm2.MEM2_MAX_N, tm1.POS2RUN_MAX_N)
+    tm2.MEM2_MAX_N = n - 1  # the route past the cap, in this process
+    try:
+        # the main path, counted: nothing else launches between reset and
+        # read; each form builds its own table (kernel 13a with pos2rba)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        indexes, res, walls = {}, {}, {}
+        for form, cap in forms.items():
+            tm1.POS2RUN_MAX_N = cap
+            indexes[form] = Index(ix)
+            for key, L in (("bml", MEM_L), ("all", 0)):
+                t0 = time.perf_counter()
+                res[form, key] = indexes[form].query_mems(reads, L,
+                                                          device=dev)
+                torch.cuda.synchronize()
+                walls[form, key] = time.perf_counter() - t0
+        counts = {name: kernels.launches[name] for name in MEM1_KERNELS}
+        others = {k: v for k, v in kernels.launches.items()
+                  if v and k not in MEM1_KERNELS}
+        say("MEM v1", f"main-path launches {counts}")
+        for name, c in counts.items():
+            if c <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"MEM v1 path")
+        if others:
+            raise AssertionError(f"the MEM v1 path launched {others}")
+        for form in forms:
+            mi = indexes[form]._mem1
+            if (mi is None or indexes[form]._mem2 is not None
+                    or (mi.pos2rba is None) != (form == "search")):
+                raise AssertionError(f"{form}: Index.query_mems did not "
+                                     f"take the v1 machines in this form")
+        say("MEM v1", f"rc text n={n}, r={ix.r}, MEM2_MAX_N lowered to "
+                      f"{n - 1}: v1 table {mem1_table_bytes(mi)} B without "
+                      f"pos2rba, + {8 * n} B of pos2rba; cold end to end "
+                      f"(host clock, the table build included): "
+                      + "; ".join(f"{f} {k} {w:.3f} s"
+                                  for (f, k), w in walls.items())
+                      + f"  ({card})")
+        for key in ("bml", "all"):
+            for form in forms:
+                if res[form, key] != ctx["v2"][key]:
+                    bad = sum(a != b for a, b in zip(res[form, key],
+                                                     ctx["v2"][key]))
+                    raise AssertionError(f"MEM v1 {form} {key}: {bad} reads "
+                                         f"differ from the v2 answers")
+        rng = np.random.default_rng(8)
+        pick = np.sort(np.concatenate([
+            rng.choice(lanes, ORACLE_SAMPLE - 1, replace=False),
+            lanes + rng.choice(len(reads) - lanes, 1, replace=False)]))
+        t0 = time.perf_counter()
+        for key, L in (("bml", MEM_L), ("all", 0)):
+            check_mem_oracle(f"MEM v1 sample {key}", [reads[i] for i in pick],
+                             [res["search", key][i] for i in pick],
+                             ctx["oracle"], L)
+        n_mems = {key: sum(len(m) for _, m in res["search", key])
+                  for key in ("bml", "all")}
+        say("MEM v1", f"both forms equal phase MEM's v2 answers on all "
+                      f"{len(reads)} reads (BML L={MEM_L} {n_mems['bml']} "
+                      f"MEMs, all-MEMs {n_mems['all']}), and {len(pick)} "
+                      f"sampled reads equal AdvancedEngine with numpy run "
+                      f"walks ({time.perf_counter() - t0:.1f} s host)")
+        v2_lines = {key: "".join(ln + "\n" for name, r in res["search", key]
+                                 for ln in mem_lines(name, r))
+                    for key in ("bml", "all")}
+        del res
+
+        # every kernel against its plain version, in both forms: all lanes
+        # of the 150 bp batches, and the first `cut_lanes` long reads cut
+        # to `cut_len` bases; the 10 kb batch through the kernels only
+        batches = list(_as_batches(reads, QUERY_LANES))
+        cut = next(_as_batches([(nm, sq[:cut_len]) for nm, sq in
+                                reads[lanes:lanes + cut_lanes]],
+                               QUERY_LANES))
+        runs = {(name, form): [] for name in MEM1_KERNELS for form in forms}
+        plain_ms = {key: 0.0 for key in runs}
+        longest = {key: [] for key in runs}
+        works = {key: [] for key in runs}
+        nbytes = dict.fromkeys(runs, 0)
+        for form in forms:
+            mi = indexes[form]._mem1
+            if form == "pos2rba":
+                run, ms, timings["pos2rba_build.library"] = pos2rba_pair(
+                    ix, mi, "MEM v1", errs)
+                runs["pos2rba_build", form].append(run)
+                plain_ms["pos2rba_build", form] += ms
+                add_work(work, "pos2rba_build", 4 * (2 * ix.r + 1) + 8 * n,
+                         0)
+            for L in (MEM_L, 0):
+                e = indexes[form].mem_engine(L, dev)
+                name = "mem1_scan" if L else "all_mem1_scan"
+                for b in batches + [cut]:
+                    al, state, tcap = e.prepare(b)
+                    if b is cut or b.width <= READ_LEN:
+                        (_, w), ms, run = mem1_machine_pair(
+                            mi, al, state, tcap, f"MEM v1 {form} {name}",
+                            errs, L)
+                        plain_ms[name, form] += ms
+                        if b is cut:
+                            continue
+                    else:
+                        run = mem1_kernel_run(mi, al, state, tcap, L)
+                        w = run[0](*run[1])[1]
+                    runs[name, form].append(run)
+                    works[name, form].append(w)
+                    ticks_sum, table = (int(x) for x in
+                                        w.to(torch.int64).sum(dim=1))
+                    longest[name, form].append(int(w[0].max()))
+                    nbytes[name, form] += table
+                    # slots and the state read once, the table bytes each
+                    # tick loads, ends and counts written once
+                    add_work(work, name, al.numel() + table
+                             + 2 * 48 * b.lanes + 8 * b.lanes * b.width,
+                             ticks_sum * 2 * OPS_PER_ROW)
+        say("MEM v1", f"kernels 13a, 13b and 13c equal their plain versions "
+                      f"in both forms (13a and np.repeat byte for byte; "
+                      f"13b/13c over all lanes of the 150 bp batches and "
+                      f"{cut_lanes} long lanes cut to {cut_len} bases: every "
+                      f"register, ends, counts, ticks and bytes); the "
+                      f"longest lane per batch: "
+                      + "; ".join(f"{nm} {f} {longest[nm, f]} ticks"
+                                  for nm, f in runs if longest[nm, f])
+                      + "; table bytes loaded: "
+                      + "; ".join(f"{nm} {f} {nbytes[nm, f]}"
+                                  for nm, f in runs if nbytes[nm, f]))
+        shapes = [tuple(b.seqs.shape) for b in batches]
+        floors = mem1_floors(works, tm1.find_run_loads(ix.r), lat_us)
+        for name in MEM1_KERNELS:
+            both = [run for form in forms for run in runs[name, form]]
+            k_ms = cuda_ms(lambda: [fn(*a) for fn, a in both], reps=3)
+            timings[name] = (k_ms, sum(plain_ms[name, f] for f in forms))
+            per = []
+            for form in forms:
+                rs = runs[name, form]
+                if not rs:
+                    continue
+                f_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
+                timings[f"{name}.{form}"] = f_ms
+                per.append(f"{form} {f_ms:.6f} ms"
+                           + ("" if name == "pos2rba_build" else " [" + ", ".join(
+                               f"{lb} lanes x {wb}: "
+                               f"{cuda_ms(lambda: fn(*a), reps=3):.6f} ms"
+                               for (lb, wb), (fn, a) in zip(shapes, rs))
+                               + "]"))
+            if name == "pos2rba_build":
+                tail = (f"library (one repeat_interleave) "
+                        f"{timings[name + '.library']:.6f} ms; no chain")
+            else:
+                tail = "latency floors " + "; ".join(
+                    f"{form} {ms:.6f} ms ({t} ticks x {TICK_US} us + {x} "
+                    f"extensions x {k} loads x {lat_us * 1e3:.3f} ns)"
+                    for form, (ms, t, x, k) in floors[name].items())
+            say("MEM v1", f"{name} over the main path's {len(both)} "
+                          f"launches: kernel {k_ms:.6f} ms ("
+                          + "; ".join(per)
+                          + f"), plain {timings[name][1]:.6f} ms (over the "
+                          f"inputs compared above), {tail}  ({card})")
+        del runs
+
+        for form, index in indexes.items():
+            mem_breakdown(index, reads, {"L": MEM_L}, dev,
+                          timings[f"mem1_scan.{form}"], n_bases, card,
+                          f"query_mems BML L={MEM_L}, {form}", "MEM v1")
+            mem_breakdown(index, reads, {"L": 0}, dev,
+                          timings[f"all_mem1_scan.{form}"], n_bases, card,
+                          f"query_mems all-MEMs, {form}", "MEM v1")
+        del indexes
+
+        # `query --mem` through the CLI (in this process) past the cap, on
+        # the route past 2^28 (no pos2rba), counted apart
+        tm1.POS2RUN_MAX_N = 0
+        with tempfile.TemporaryDirectory() as d:
+            idx = os.path.join(d, "idx")
+            os.makedirs(idx)
+            ix.save(os.path.join(idx, "index.npz"))
+            rpath = os.path.join(d, "reads.fa")
+            with open(rpath, "w") as f:
+                f.writelines(f">{nm}\n{sq.decode()}\n" for nm, sq in reads)
+            out = f"{rpath}.{ix.mode}.mems"
+            for key, flags in (("bml", ["--min-mem-length", str(MEM_L)]),
+                               ("all", [])):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                rc, _, err = run_cli(tcli.main, [
+                    "query", "--index", idx, "--read", rpath, "--mem",
+                    *flags, "--platform", "gpu"])
+                wall = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"CLI query --mem {key}: rc {rc}"
+                                         f"\n{err[-2000:]}")
+                name = "mem1_scan" if key == "bml" else "all_mem1_scan"
+                used = {k: v for k, v in kernels.launches.items() if v}
+                if ("using the fused MEM engine (v1, large-n)" not in err
+                        or set(used) != {name}):
+                    raise AssertionError(f"CLI query --mem {key} did not "
+                                         f"take the v1 route: launches "
+                                         f"{used}")
+                with open(out) as f:
+                    if f.read() != v2_lines[key]:
+                        raise AssertionError(f"CLI query --mem {key}: the "
+                                             f".mems file differs from the "
+                                             f"v2 route's lines")
+                say("MEM v1", f"CLI query --mem {' '.join(flags)} past the "
+                              f"cap: logged the v1 engine, launches "
+                              f"{used}, .mems equal to the v2 route's "
+                              f"lines ({wall:.3f} s host, index load and "
+                              f"table build included)")
+    finally:
+        tm2.MEM2_MAX_N, tm1.POS2RUN_MAX_N = saved
     return counts
+
+
+def mem1_floors(works, find_loads, lat_us):
+    """Kernels 13b and 13c's latency floors in each reposition form: the
+    most, over every lane of every batch, of the lane's ticks x TICK_US
+    and its successful extensions x the reposition's dependent loads x
+    lat_us (one pos2rba row; find_loads for the binary search).  Both
+    forms run the same ticks on the same reads, and a search extension
+    loads 8 * find_loads - 16 bytes more than a pos2rba one, so a lane's
+    extensions are its byte difference over that.  works[name, form]:
+    the kernel's work per batch.  Returns {name: {form: (ms, ticks,
+    extensions, loads)}} of each form's longest chain."""
+    import torch
+
+    extra = 8 * find_loads - 16
+    loads = {"pos2rba": 1, "search": find_loads}
+    out = {}
+    for name in ("mem1_scan", "all_mem1_scan"):
+        out[name] = dict.fromkeys(loads, (0.0, 0, 0, 0))
+        for wp, ws in zip(works[name, "pos2rba"], works[name, "search"],
+                          strict=True):
+            diff = (ws[1] - wp[1]).to(torch.int64)
+            if not torch.equal(wp[0], ws[0]) or bool((diff % extra).any()):
+                raise AssertionError(f"{name}: the reposition forms differ "
+                                     f"in more than their repositions")
+            ext = diff // extra
+            for form, k in loads.items():
+                chain = (wp[0].to(torch.float64) * TICK_US
+                         + ext.to(torch.float64) * (k * lat_us))
+                i = int(chain.argmax())
+                if float(chain[i]) / 1e3 > out[name][form][0]:
+                    out[name][form] = (float(chain[i]) / 1e3, int(wp[0][i]),
+                                       int(ext[i]), k)
+    return out
+
+
+def mem1_table_bytes(mi):
+    """The v1 table's bytes on the card without pos2rba: the search
+    records and init rows, all_p and the skip rows."""
+    return sum(t.numel() * t.element_size() for t in
+               (mi.si.rec_all, mi.si.init_rec, mi.all_p64, mi.skip_rec))
 
 
 def require_color_equal(what, got, want, errs, key):
@@ -2660,6 +3129,39 @@ def color_pair(eng, batch, what, errs, key, split=False):
                             (st, torch.cat([ml1, ml2]), torch.cat([c1, c2])),
                             got, errs, key)
     return got, plain_ms, (kern, args, kw)
+
+
+def color_cut(reads, lanes, cut_lanes, cut_len):
+    """The long lanes the color scans' plain versions are held on: the
+    first cut_lanes / 2 genome reads and the last cut_lanes / 2 random
+    ones (color_reads), cut to `cut_len` bases, as one batch."""
+    from movi_tpu_torch.api import _as_batches
+
+    longs = reads[lanes:]
+    half = cut_lanes // 2
+    return next(_as_batches([(nm, sq[:cut_len]) for nm, sq in
+                             longs[:half] + longs[-half:]], QUERY_LANES))
+
+
+def color_pairs(eng, batches, cut, what, errs, key):
+    """An engine's color scan kernel against its plain version on every
+    150 bp batch and on `cut` (long reads cut short: the plain version
+    takes milliseconds per lockstep step on the card); the long batches
+    through the kernel only.  Returns the main path's runs (fn, args, kw)
+    and the plain version's milliseconds."""
+    runs, plain_ms = [], 0.0
+    for b in batches + [cut]:
+        if b is cut or b.width <= READ_LEN:
+            _, ms, run = color_pair(eng, b, what, errs, key)
+            plain_ms += ms
+            if b is cut:
+                continue
+        else:
+            kern, _, args, kw, _ = color_scan(eng, b)
+            kern(*args, **kw)
+            run = (kern, args, kw)
+        runs.append(run)
+    return runs, plain_ms
 
 
 def check_color_oracle(what, reads, got, oracle):
@@ -2850,7 +3352,7 @@ def color_breakdown(index, ct, reads, paired, dev, k_ms, n_bases, card,
 
 def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
                 long_reads=LONG_READS, genomes=COLOR_GENOMES,
-                genome_len=COLOR_GENOME_LEN):
+                genome_len=COLOR_GENOME_LEN, cut_lanes=8, cut_len=LONG_CUT):
     import torch
 
     from movi_tpu_torch import kernels
@@ -2923,7 +3425,8 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
                  f"cells, colors; early stop off and on)")
 
     # every kernel against its plain version over all lanes of the main
-    # path's batches, and the compose over the whole table
+    # path's 150 bp batches and `cut_lanes` long reads cut to `cut_len`
+    # bases (color_cut), and the compose over the whole table
     fi = index._fused
     ci2 = index._paired_color[1]
     cids = torch.from_numpy(np.minimum(ct.doc_set_inds, C)
@@ -2936,25 +3439,24 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
                   "compose_paired_color_records")
     del table_p
     batches = list(_as_batches(reads, QUERY_LANES))
+    cut = color_cut(reads, lanes, cut_lanes, cut_len)
     runs, plain_ms = {}, {}
     for paired in (False, True):
         for es in (False, True):
             eng = index.color_engine(ct, paired, dev, early_stop=es)
             key = "fused2_color_scan" if paired else "fused_color_scan"
-            runs[key, es], plain_ms[key, es] = [], 0.0
-            for b in batches:
-                _, ms, run = color_pair(eng, b, f"full {key} early_stop={es}",
-                                        errs, key)
-                runs[key, es].append(run)
-                plain_ms[key, es] += ms
+            runs[key, es], plain_ms[key, es] = color_pairs(
+                eng, batches, cut, f"full {key} early_stop={es}", errs, key)
+            for run in runs[key, es]:
                 if not es:  # a record row (and a color id) per code
                     _, (rec, _, _, codes, _), kw = run
                     row = 4 * rec.shape[1] + (4 if kw.get("cids") is not None
                                               else 0)
                     add_work(work, key, *scan_work(
                         codes, row, 8 * (2 if paired else 1), 12))
-    say("color", "kernels A-C equal their plain versions over all lanes "
-                 "and the whole table")
+    say("color", f"kernels A-C equal their plain versions over all lanes "
+                 f"of the 150 bp batches and {cut_lanes} long lanes cut to "
+                 f"{cut_len} bases, and over the whole table")
     # the compose reads the one-step table and the color ids, writes the
     # paired color table
     add_work(work, "compose_paired_color_records",
@@ -3003,7 +3505,8 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
 
 def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
                          long_reads=LONG_READS, genomes=WIDE_GENOMES,
-                         genome_len=WIDE_GENOME_LEN):
+                         genome_len=WIDE_GENOME_LEN, cut_lanes=8,
+                         cut_len=LONG_CUT):
     """A pangenome whose compressed color table keeps 2^16 sets: no
     3-word records, no paired color records; kernel A's two-load form."""
     import torch
@@ -3045,14 +3548,11 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
                            [reads[i] for i in pick],
                            [res[es][i] for i in pick], oracle)
     batches = list(_as_batches(reads, QUERY_LANES))
+    cut = color_cut(reads, lanes, cut_lanes, cut_len)
     for es in (False, True):
         eng = index.color_engine(ct, device=dev, early_stop=es)
-        rs, p_ms = [], 0.0
-        for b in batches:
-            _, ms, run = color_pair(eng, b, f"two-load early_stop={es}",
-                                    errs, "fused_color_scan")
-            rs.append(run)
-            p_ms += ms
+        rs, p_ms = color_pairs(eng, batches, cut, f"two-load early_stop={es}",
+                               errs, "fused_color_scan")
         k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
         timings["two-load", es] = (k_ms, p_ms)
         say("two-load", f"fused_color_scan (two-load form) early_stop={es} "
@@ -3062,7 +3562,8 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
                         f"{p_ms:.6f} ms  ({card})")
     say("two-load", f"launches {counts}; {len(pick)} sampled reads equal "
                     f"ColorEngine; the kernel equals its plain version over "
-                    f"all lanes")
+                    f"all lanes of the 150 bp batches and {cut_lanes} long "
+                    f"lanes cut to {cut_len} bases")
     color_breakdown(index, ct, reads, False, dev,
                     timings["two-load", False][0], n_bases, card, "two-load")
 
@@ -3251,8 +3752,15 @@ def main() -> int:
     lap("SA, k-mer")
     phase_small_mem2(dev, errs)
     lap("small MEM")
-    counts.update(phase_mem(dev, card, errs, timings, work))
+    phase_small_mem1(dev, errs)
+    lap("small MEM v1")
+    mem_counts, mem_ctx = phase_mem(dev, card, errs, timings, work)
+    counts.update(mem_counts)
     lap("MEM")
+    counts.update(phase_mem1(dev, card, errs, timings, work, mem_ctx,
+                             lat_us))
+    del mem_ctx
+    lap("MEM v1")
     phase_small_color(dev, errs)
     counts.update(phase_color(dev, card, errs, timings, work))
     phase_color_two_load(dev, card, errs, timings)
@@ -3269,11 +3777,13 @@ def main() -> int:
                      f"path's inputs -> bound {bound_ms:.6f} ms "
                      f"({bound_by}); kernel {ms:.6f} ms, "
                      f"{bound_ms / ms:.6f} of the bound  ({card})")
-        # no single PyTorch call computes any of these scans or composes
+        # one PyTorch call computes 13a (repeat_interleave); none
+        # computes any of the scans or composes
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=counts[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
+                         bound_by=bound_by,
+                         library_ms=timings.get(name + ".library")))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

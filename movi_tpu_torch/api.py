@@ -22,9 +22,10 @@ caller names the CPU).  Routes follow movi_tpu/api.py: the record engines
 on an index built with bound_ff=1 (PML and color also need thresholds),
 the compact engines past the card's budget for their records, and the
 scalar oracles (`Index.scalar`, color.ColorEngine) otherwise or with
-jax=False, as the JAX package names that choice.  MEMs past MEM2_MAX_N
-positions (the v1 machines, ROADMAP item 15) raise NotPortedError.  SA
-entries are FusedSAEngine's (engine/fused_sa.py).
+jax=False, as the JAX package names that choice.  MEMs run on the MEM v2
+table up to MEM2_MAX_N positions and on the v1 machines past it
+(engine/fused_mem.py).  SA entries are FusedSAEngine's
+(engine/fused_sa.py).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from .build.suffix import build_bwt_runs
 from .index.structure import MoveIndex, build_move_index
 from .io.fastx import batches_from_file, iter_fastx, make_batches
 
-from .cli import NotPortedError
 from .convert import load_engine_caches
 from .device import DeviceLike, resolve_device
 from .engine.device_index import (PML_TABLES, SEARCH_TABLES,
@@ -50,6 +50,8 @@ from .engine.fused2 import (Fused2ColorEngine, Fused2PMLEngine,
 from .engine.fused_color import FusedColorEngine, build_fused_color_index
 from .engine.fused_kmer import FusedKmerCountEngine, FusedKmerEngine
 from .engine.fused_kmer2 import FusedKmer2CountEngine
+from .engine.fused_mem import (FusedAllMemEngine, FusedMemEngine,
+                               build_fused_mem_index)
 from .engine.fused_mem2 import (FusedAllMem2Engine, FusedMem2Engine,
                                 build_fused_mem2_index, looks_rc_closed,
                                 mem2_supported)
@@ -103,6 +105,7 @@ class Index:
         self._paired_search = None  # FusedSearch2Index
         self._kmer_si = None  # (fk, FusedSearchIndex with fk anchor rows)
         self._mem2 = None     # FusedMem2Index (its ftab_k anchor rows)
+        self._mem1 = None     # FusedMemIndex (past MEM2_MAX_N positions)
         self._color = None    # (ColorTable, FusedColorIndex)
         self._paired_color = None   # (ColorTable, Fused2ColorIndex)
         self._compact = None  # DeviceIndex (run tables)
@@ -336,9 +339,10 @@ class Index:
 
     def mem_engine(self, min_mem_length: int = 0, device: DeviceLike = None,
                    table_ftab_k: int = 10):
-        """The MEM engine on `device`: BML for min_mem_length >= 2 (with
-        the table's ftab anchors when 1 < table_ftab_k <= L), all-MEMs
-        otherwise, on the MEM v2 table with table_ftab_k anchor rows."""
+        """The MEM engine on `device`: BML for min_mem_length >= 2, all-MEMs
+        otherwise.  Up to MEM2_MAX_N positions on the MEM v2 table with
+        table_ftab_k anchor rows (used when 1 < table_ftab_k <= L); past
+        it, as in movi_tpu, on the v1 machines (table_ftab_k unused)."""
         dev = resolve_device(device)
         self._require_bounded("MEMs")
         if bytes(self.ix.alphabet) != b"ACGT":
@@ -346,10 +350,13 @@ class Index:
                              "scalar AdvancedEngine (Index.scalar, "
                              "query_mems)")
         if not mem2_supported(self.ix):
-            raise NotPortedError(
-                f"MEMs past MEM2_MAX_N positions (n={int(self.ix.all_p[-1])})"
-                f" take the v1 MEM machines (ROADMAP item 15), which are not "
-                f"yet ported")
+            # the v1 table, built once (pos2rba on the device)
+            if self._mem1 is None:
+                self._mem1 = build_fused_mem_index(self.ix, dev)
+            self._mem1 = self._mem1.to(dev)
+            if min_mem_length >= 2:
+                return FusedMemEngine(self._mem1, min_mem_length, dev)
+            return FusedAllMemEngine(self._mem1, dev)
         m2 = self._mem2_table(table_ftab_k, dev)
         if min_mem_length >= 2:
             return FusedMem2Engine(m2, min_mem_length, dev)
@@ -461,7 +468,8 @@ class Index:
                    ftab_k: int = 0, lanes: int = 8192,
                    device: DeviceLike = None, jax: bool = True):
         """[(name, [(pos, end, count)])]: query_mems(seq, L) for
-        min_mem_length >= 2 (BML, on the table with ftab-10 anchors),
+        min_mem_length >= 2 (BML, on the MEM v2 table with ftab-10
+        anchors, or past MEM2_MAX_N positions on the v1 machines),
         query_all_mems otherwise.  ftab_k > 1, an index not built with
         bound_ff=1 or not over ACGT, and jax=False take the scalar oracle
         (with its own ftab of width ftab_k)."""

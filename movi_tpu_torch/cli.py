@@ -29,11 +29,12 @@ route movi_tpu takes for the same index and flags: the record engines, the
 compact engines (an index without thresholds or not built with bound_ff=1,
 --rpml, or tables past the card's budget), or the scalar oracles
 (--no-jax, --logs, SA entries without a device route, k-mers and MEMs on
-an index the device engines cannot run).  The files `build` writes
+an index the device engines cannot run); MEMs past MEM2_MAX_N positions
+take the v1 machines, as in movi_tpu.  The files `build` writes
 (index.npz, colors.npz, the null databases) load in either package.  The
-other build outputs (index.movi, index.mmap, record caches, ftab) and MEMs
-past MEM2_MAX_N positions are not yet ported: asking for them is an error,
-never a fallback to another engine.
+other build outputs (index.movi, index.mmap, record caches, ftab) are not
+yet ported: asking for them is an error, never a fallback to another
+engine.
 """
 
 from __future__ import annotations
@@ -546,15 +547,20 @@ def kmers(args, ix, index, reads, device, on_device):
 def mems(args, ix, index, reads, device, on_device):
     """The --mem branch: `name<TAB>pos<TAB>end<TAB>count` per MEM (BML with
     --min-mem-length >= 2, on the device table with fk = min(--ftab-k or
-    10, L) anchor rows, or on the scalar oracle with its ftab; all-MEMs
-    otherwise), to {read}.{mode}.mems or --stdout."""
+    10, L) anchor rows, past MEM2_MAX_N positions on the v1 machines, or
+    on the scalar oracle with its ftab; all-MEMs otherwise), to
+    {read}.{mode}.mems or --stdout."""
+    from .engine.fused_mem import FusedAllMemEngine, FusedMemEngine
     from .io.outputs import mem_lines
 
     L = args.min_mem_length
     if on_device:
         fk = min(args.ftab_k or 10, L) if L >= 2 else 0
-        results = index._run(index.mem_engine(L, device, table_ftab_k=fk),
-                             reads, args.lanes)
+        eng = index.mem_engine(L, device, table_ftab_k=fk)
+        if isinstance(eng, (FusedMemEngine, FusedAllMemEngine)):
+            # past the v2 table's cap: the v1 machines (--ftab-k unused)
+            info("using the fused MEM engine (v1, large-n)")
+        results = index._run(eng, reads, args.lanes)
     else:
         results = index.query_mems(reads, L, ftab_k=args.ftab_k,
                                    device=device, jax=False)

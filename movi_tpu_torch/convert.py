@@ -4,8 +4,8 @@ The port keeps its own copies of the JAX package's host classes
 (`index.structure.MoveIndex`, `color.ColorTable`), field for field the
 same.  These helpers turn the JAX package's objects, read as numpy arrays,
 into the port's: the host index and color table, and the record objects
-of PML, count/ZML and k-mers, Movi Color and SA entries, and the compact
-run tables; and they read
+of PML, count/ZML and k-mers, Movi Color, SA entries and the MEM v1
+machines, and the compact run tables; and they read
 the `*.npz` caches that movi_tpu writes (`build --fused-cache`, `build
 --paired-cache`, `Index.save`): the one-step and paired PML records and
 the paired search records.  Nothing here imports JAX or the JAX package:
@@ -26,6 +26,7 @@ from .engine.device_index import DeviceIndex
 from .engine.fused import FusedIndex, load_fused_index
 from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
 from .engine.fused_color import FusedColorIndex
+from .engine.fused_mem import FusedMemIndex
 from .engine.fused_search import FusedSearchIndex
 from .engine.fused_sa import FusedSAIndex
 from .engine.fused_search2 import FusedSearch2Index, load_fused_search2_index
@@ -101,6 +102,16 @@ def fused_search_index_from_jax(si) -> FusedSearchIndex:
                             all_p=_tensor(si.all_p),
                             alphamap_query=np.asarray(si.alphamap_query),
                             ftab_k=int(si.ftab_k))
+
+
+def fused_mem_index_from_jax(mi) -> FusedMemIndex:
+    """A movi_tpu FusedMemIndex -> the port's (host tensors): its search
+    records, skip rows and pos2rba (or None); all_p64 is the search
+    records' all_p in both."""
+    pos2rba = None if mi.pos2rba is None else _tensor(mi.pos2rba)
+    return FusedMemIndex(si=fused_search_index_from_jax(mi.si),
+                         skip_rec=_tensor(mi.skip_rec),
+                         n=int(np.asarray(mi.all_p64)[-1]), pos2rba=pos2rba)
 
 
 def fused_search2_index_from_jax(s2) -> FusedSearch2Index:

@@ -1,6 +1,7 @@
 // LF with the unbounded fast-forward and the backward-search interval
 // update on the compact run tables (movi_tpu_torch/engine/device_index.py),
-// shared by the compact PML, count and ZML scans.
+// shared by the compact PML, count and ZML scans; the run search over
+// all_p also serves the MEM v1 machines (csrc/fused_mem.cu).
 //
 // Tables: n, lf_abs, c_search int32 [r]; all_p int32 [r+1] (all_p[r] = n,
 // the text length); ch_up_s/ch_down_s int32 [sigma, r] (r: none).
@@ -11,30 +12,27 @@
 namespace movi {
 namespace compact {
 
-// LF_move + fast_forward for one (run, offset): the absolute destination
-// lf_abs[idx] + off, mapped back to (run, offset) by a branch-free binary
-// search over all_p (a fixed number of dependent loads for a given r).
-__device__ __forceinline__ void lf(const int* __restrict__ lf_abs,
-                                   const int* __restrict__ all_p, int r,
-                                   int& idx, int& off) {
-    const int x = __ldg(lf_abs + idx) + off;
+// The run holding absolute row x: the last i in [0, r] with all_p[i] <= x
+// (searchsorted(all_p, x, side="right") - 1 for 0 <= x), by a branch-free
+// binary search over all_p (a fixed number of dependent loads for a given
+// r).  Shared by the compact scans and the MEM v1 machines' reposition.
+__device__ __forceinline__ int find_run(const int* __restrict__ all_p, int r,
+                                        int x) {
     int base = 0;
     // all_p[base] <= x throughout, and the answer stays in [base,
     // base+len)
     for (int len = r + 1; len > 1; len -= len >> 1)
         if (__ldg(all_p + base + (len >> 1)) <= x) base += len >> 1;
-    idx = base;
-    off = x - __ldg(all_p + base);
+    return base;
 }
 
-// LF on both ends of an interval, the two searches interleaved so that
-// both chains of loads are in flight at once.
-__device__ __forceinline__ void lf2(const int* __restrict__ lf_abs,
-                                    const int* __restrict__ all_p, int r,
-                                    int& rs, int& os, int& re, int& oe) {
-    const int xs = __ldg(lf_abs + rs) + os;
-    const int xe = __ldg(lf_abs + re) + oe;
-    int bs = 0, be = 0;
+// find_run of two rows, the two searches interleaved so that both chains
+// of loads are in flight at once.
+__device__ __forceinline__ void find_run2(const int* __restrict__ all_p,
+                                          int r, int xs, int xe, int& bs,
+                                          int& be) {
+    bs = 0;
+    be = 0;
     for (int len = r + 1; len > 1; len -= len >> 1) {
         const int half = len >> 1;
         const int vs = __ldg(all_p + bs + half);
@@ -42,10 +40,35 @@ __device__ __forceinline__ void lf2(const int* __restrict__ lf_abs,
         if (vs <= xs) bs += half;
         if (ve <= xe) be += half;
     }
-    rs = bs;
-    os = xs - __ldg(all_p + bs);
-    re = be;
-    oe = xe - __ldg(all_p + be);
+}
+
+// The dependent loads of one find_run: its halvings and the final all_p
+// row of the offset.
+__device__ __forceinline__ int find_run_loads(int r) {
+    int loads = 1;
+    for (int len = r + 1; len > 1; len -= len >> 1) ++loads;
+    return loads;
+}
+
+// LF_move + fast_forward for one (run, offset): the absolute destination
+// lf_abs[idx] + off, mapped back to (run, offset) by find_run.
+__device__ __forceinline__ void lf(const int* __restrict__ lf_abs,
+                                   const int* __restrict__ all_p, int r,
+                                   int& idx, int& off) {
+    const int x = __ldg(lf_abs + idx) + off;
+    idx = find_run(all_p, r, x);
+    off = x - __ldg(all_p + idx);
+}
+
+// LF on both ends of an interval (find_run2).
+__device__ __forceinline__ void lf2(const int* __restrict__ lf_abs,
+                                    const int* __restrict__ all_p, int r,
+                                    int& rs, int& os, int& re, int& oe) {
+    const int xs = __ldg(lf_abs + rs) + os;
+    const int xe = __ldg(lf_abs + re) + oe;
+    find_run2(all_p, r, xs, xe, rs, re);
+    os = xs - __ldg(all_p + rs);
+    oe = xe - __ldg(all_p + re);
 }
 
 struct Tables {

@@ -21,7 +21,10 @@
 // emission a plain add into the lane's row of ends and counts (the TPU's
 // one-hot selects and emits are not needed).  The tick budget and the
 // state go in and out, so a run split in two equals one pass; each lane
-// reports the ticks it ran and the rows it loaded.
+// reports the ticks it ran and the rows it loaded.  A lane that comes in
+// at phase ENTRY first gets its start state from its slots (BML: INIT or
+// DONE by the read's length; all-MEMs: init_bidirectional at the first
+// char, the JAX engine's jitted make_state).
 
 #include <cuda_runtime.h>
 
@@ -38,6 +41,7 @@ using movi::Step2;
 constexpr int INIT = 0, BACK = 1, RESOLVE = 2, FWD = 3, NEXT = 4, DONE = 5,
               BSCAN = 6;
 constexpr int AM2_RIGHT = 0, AM2_LEFT = 1, AM2_RES = 2, AM2_DONE = 3;
+constexpr int ENTRY = -1;  // the start state is still to be built
 constexpr int NREG = 16;
 
 __device__ __forceinline__ void load_init6(const int* __restrict__ g,
@@ -80,6 +84,12 @@ __global__ void mem2_kernel(
     const int m = read_len(row, W);
     const int64_t p2r = 2 * (int64_t)sigma * r;
     const int64_t ftb = p2r + n;
+    if (phase == ENTRY) {  // the window at 0, or done for a short read
+        phase = m >= L ? INIT : DONE;
+        pos = jc = end = 0;
+        frs = fos = fre = foe = fas = fae = 0;
+        rrs = ros = rre = roe = ras = rae = 0;
+    }
 
     long long t = 0;
     int rows = 0;  // 32 B rows loaded
@@ -281,6 +291,12 @@ __global__ void all_mem2_kernel(
     int* crow = counts + (int64_t)lane * W;
     const int m = read_len(row, W);
     const int64_t p2r = 2 * (int64_t)sigma * r;
+    if (phase == ENTRY) {  // init_bidirectional at the first char, ml = 1
+        phase = m > 0 ? AM2_RIGHT : AM2_DONE;
+        s = e = 0;
+        ml = 1;
+        init_pair6(init6, sigma, p1, row[0], f, rc);
+    }
 
     long long t = 0;
     int rows = 0;

@@ -24,6 +24,9 @@ lockstep form (`ticks` ticks over [lanes, W(+W)]) and stop early once
 every lane is done; a kernel thread loops until its lane is done.  A done
 lane's tick changes nothing, so both equal the JAX package's quanta with
 lane compaction, and a run split at any tick equals one pass.  A lane
+that comes in at phase ENTRY (entry_state) gets its start state from its
+slots inside the machine: the JAX engines' make_mem2_state and jitted
+all-MEMs make_state.  A lane
 still running past the JAX budget (W quanta of 2W+84 ticks for BML, of
 4W+64 for all-MEMs) is an error, not a partial answer.
 
@@ -52,6 +55,8 @@ _GUARD = 0xFFFF
 INIT, BACK, RESOLVE, FWD, NEXT, DONE, BSCAN = 0, 1, 2, 3, 4, 5, 6
 # all-MEMs phases
 AM2_RIGHT, AM2_LEFT, AM2_RES, AM2_DONE = 0, 1, 2, 3
+# a lane whose machine has yet to build its start state (entry_state)
+ENTRY = -1
 # the machines' per-lane registers, in the kernels' row order
 MEM2_STATE_KEYS = kernels.MEM2_STATE_KEYS
 AM2_STATE_KEYS = kernels.AM2_STATE_KEYS
@@ -345,35 +350,44 @@ def init_pair6(m2: FusedMem2Index, c0):
         tuple(x.to(torch.int32) for x in rc)
 
 
-def make_mem2_state(lanes: int, W: int, lengths: torch.Tensor, L: int
-                    ) -> Dict[str, torch.Tensor]:
-    """The BML machine's start state on lengths' device: lanes at least
-    L long start at INIT, the others are done."""
-    lengths = lengths.to(torch.int32)
-    st = {key: torch.zeros_like(lengths) for key in MEM2_STATE_KEYS}
-    st["phase"] = torch.where(lengths >= L, INIT, DONE).to(torch.int32)
+def entry_state(keys, lanes: int, W: int, device
+                ) -> Dict[str, torch.Tensor]:
+    """A MEM machine's state before its first tick: phase ENTRY, every
+    other register 0, no emissions.  The machine, kernel or plain, builds
+    each ENTRY lane's start state from that lane's slots."""
+    st = {key: torch.zeros(lanes, dtype=torch.int32, device=device)
+          for key in keys}
+    st["phase"].fill_(ENTRY)
     for key in ("ends", "counts"):
-        st[key] = torch.zeros((lanes, W), dtype=torch.int32,
-                              device=lengths.device)
+        st[key] = torch.zeros((lanes, W), dtype=torch.int32, device=device)
     return st
 
 
-def make_all_mem2_state(m2: FusedMem2Index, alc: torch.Tensor,
-                        lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The all-MEMs machine's entry state: init_bidirectional at the
-    first char, ml = 1, RIGHT (done for an empty read)."""
-    lanes, W = alc.shape
-    lengths = lengths.to(torch.int32)
-    z = torch.zeros_like(lengths)
-    fw, rc = init_pair6(m2, alc[:, 0])
-    st = dict(phase=torch.where(lengths > 0, AM2_RIGHT, AM2_DONE)
-              .to(torch.int32), s=z, ml=torch.ones_like(z), e=z.clone())
-    st.update(zip(AM2_STATE_KEYS[4:10], fw))
-    st.update(zip(AM2_STATE_KEYS[10:], rc))
-    for key in ("ends", "counts"):
-        st[key] = torch.zeros((lanes, W), dtype=torch.int32,
-                              device=alc.device)
-    return st
+def enter(st, keys, regs) -> Dict[str, torch.Tensor]:
+    """st with each ENTRY lane's registers set to regs, its start
+    state."""
+    entry = st["phase"] == ENTRY
+    out = {key: torch.where(entry, v, st[key]).to(torch.int32)
+           for key, v in zip(keys, regs)}
+    out["ends"], out["counts"] = st["ends"], st["counts"]
+    return out
+
+
+def _enter_mem2(st, m, L: int):
+    """The BML start state (fused_mem2.py make_mem2_state): INIT for a
+    read at least L long, else DONE; every other register 0."""
+    return enter(st, MEM2_STATE_KEYS,
+                 (torch.where(m >= L, INIT, DONE),) + (0,) * 15)
+
+
+def _enter_all_mem2(m2: FusedMem2Index, alphas, m, st):
+    """The all-MEMs start state (the jitted make_state of fused_mem2.py
+    FusedAllMem2Engine.query_batch): init_bidirectional at the first
+    char, ml = 1, RIGHT (done for an empty read)."""
+    fw, rc = init_pair6(m2, alphas[:, 0])
+    return enter(st, AM2_STATE_KEYS,
+                 (torch.where(m > 0, AM2_RIGHT, AM2_DONE), 0, 1, 0)
+                 + fw + rc)
 
 
 def _mem2_tick(m2: FusedMem2Index, alphas, codes, m, st, L: int,
@@ -661,10 +675,11 @@ def _read_lengths(alphas: torch.Tensor) -> torch.Tensor:
 
 def mem2_scan_plain(m2: FusedMem2Index, alc: torch.Tensor, state, L: int,
                     ticks: int, use_ftab: bool = False):
-    """Plain PyTorch BML machine: `ticks` lockstep ticks from state (the
-    keys of make_mem2_state) over alc, int32 [lanes, W] read-order slots
-    (-1 illegal, -3 '#', -2 past the read) or, with use_ftab, [lanes, 2W]
-    slots and fk-mer codes (prep_alc).  Returns (state, work)."""
+    """Plain PyTorch BML machine: the start state of each ENTRY lane,
+    then `ticks` lockstep ticks from state (MEM2_STATE_KEYS, ends and
+    counts) over alc, int32 [lanes, W] read-order slots (-1 illegal, -3
+    '#', -2 past the read) or, with use_ftab, [lanes, 2W] slots and
+    fk-mer codes (prep_alc).  Returns (state, work)."""
     W = alc.shape[1] // 2 if use_ftab else alc.shape[1]
     alphas, codes = alc[:, :W], (alc[:, W:] if use_ftab else None)
     m = _read_lengths(alphas)
@@ -672,20 +687,20 @@ def mem2_scan_plain(m2: FusedMem2Index, alc: torch.Tensor, state, L: int,
     return _lockstep(
         lambda st, ends, counts: _mem2_tick(m2, alphas, codes, m, st, L,
                                             lane_idx, ends, counts),
-        state, DONE, ticks, alc.device)
+        _enter_mem2(state, m, L), DONE, ticks, alc.device)
 
 
 def all_mem2_scan_plain(m2: FusedMem2Index, alc: torch.Tensor, state,
                         ticks: int):
-    """Plain PyTorch all-MEMs machine over alc int32 [lanes, W]: `ticks`
-    lockstep ticks from state (make_all_mem2_state's keys).  Returns
-    (state, work)."""
+    """Plain PyTorch all-MEMs machine over alc int32 [lanes, W]: the
+    start state of each ENTRY lane, then `ticks` lockstep ticks from
+    state (AM2_STATE_KEYS, ends and counts).  Returns (state, work)."""
     m = _read_lengths(alc)
     lane_idx = torch.arange(alc.shape[0], device=alc.device)
     return _lockstep(
         lambda st, ends, counts: _all_mem2_tick(m2, alc, m, st, lane_idx,
                                                 ends, counts),
-        state, AM2_DONE, ticks, alc.device)
+        _enter_all_mem2(m2, alc, m, state), AM2_DONE, ticks, alc.device)
 
 
 def mem2_scan(m2: FusedMem2Index, alc: torch.Tensor, state, L: int,
@@ -739,6 +754,9 @@ def mem_lists(ends: np.ndarray, counts: np.ndarray
 
 
 class _Mem2Engine:
+    done_phase: int   # the machine's done phase
+    what: str         # its name in a tick-budget error
+
     def __init__(self, m2: FusedMem2Index, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.m2 = m2.to(self.device)
@@ -752,15 +770,14 @@ class _Mem2Engine:
         al8 = left_aligned_slots(batch, amap).astype(np.int8)
         return prep_alc(torch.from_numpy(al8).to(self.device), fk)
 
-    def lengths(self, batch: ReadBatch) -> torch.Tensor:
-        return torch.from_numpy(batch.lengths.astype(np.int32)).to(
-            self.device)
-
-    @staticmethod
-    def _finish(st, work, done: int, cap: int, what: str):
-        if bool((st["phase"] != done).any()):
-            raise RuntimeError(f"{what} scan did not finish within {cap} "
-                               f"ticks")
+    def query_batch_device(self, batch: ReadBatch):
+        """(ends, counts int32 [lanes, W], work int32 [2, lanes]: each
+        lane's ticks and 32 B rows) on the device."""
+        alc, state, cap = self.prepare(batch)
+        st, work = self.scan(alc, state, cap)
+        if bool((st["phase"] != self.done_phase).any()):
+            raise RuntimeError(f"{self.what} scan did not finish within "
+                               f"{cap} ticks")
         return st["ends"], st["counts"], work
 
     def query_batch(self, batch: ReadBatch
@@ -774,6 +791,7 @@ class FusedMem2Engine(_Mem2Engine):
     """Batched MEMs (BML, min_mem_length >= 2) on the v2 records, with
     the table's ftab anchors when 1 < ftab_k <= L.  Results identical to
     AdvancedEngine.query_mems(seq, L)."""
+    done_phase, what = DONE, "BML"
 
     def __init__(self, m2: FusedMem2Index, min_mem_length: int,
                  device: DeviceLike = None):
@@ -782,28 +800,33 @@ class FusedMem2Engine(_Mem2Engine):
         self.L = min_mem_length
         self.use_ftab = 1 < m2.ftab_k <= self.L
 
-    def query_batch_device(self, batch: ReadBatch):
-        """(ends, counts int32 [lanes, W], work int32 [2, lanes]: each
-        lane's ticks and 32 B rows) on the device."""
+    def prepare(self, batch: ReadBatch):
+        """(alc, the state before entry, the tick budget) of a batch on
+        the device."""
         alc = self.slots(batch, self.m2.ftab_k if self.use_ftab else 0)
-        state = make_mem2_state(batch.lanes, batch.width,
-                                self.lengths(batch), self.L)
-        cap = bml_tick_cap(batch.width)
-        st, work = mem2_scan(self.m2, alc, state, self.L, cap,
-                             self.use_ftab)
-        return self._finish(st, work, DONE, cap, "BML")
+        return (alc, entry_state(MEM2_STATE_KEYS, batch.lanes, batch.width,
+                                 self.device), bml_tick_cap(batch.width))
+
+    def scan(self, alc: torch.Tensor, state, cap: int):
+        """The BML machine on prepare's output: (state, work)."""
+        return mem2_scan(self.m2, alc, state, self.L, cap, self.use_ftab)
 
 
 class FusedAllMem2Engine(_Mem2Engine):
     """Batched all-MEMs (min_mem_length <= 1) on the v2 records.  Results
     identical to AdvancedEngine.query_all_mems."""
+    done_phase, what = AM2_DONE, "all-MEMs"
 
-    def query_batch_device(self, batch: ReadBatch):
-        alc = self.slots(batch)
-        state = make_all_mem2_state(self.m2, alc, self.lengths(batch))
-        cap = all_mem2_tick_cap(batch.width)
-        st, work = all_mem2_scan(self.m2, alc, state, cap)
-        return self._finish(st, work, AM2_DONE, cap, "all-MEMs")
+    def prepare(self, batch: ReadBatch):
+        """(alc, the state before entry, the tick budget) of a batch on
+        the device."""
+        return (self.slots(batch),
+                entry_state(AM2_STATE_KEYS, batch.lanes, batch.width,
+                            self.device), all_mem2_tick_cap(batch.width))
+
+    def scan(self, alc: torch.Tensor, state, cap: int):
+        """The all-MEMs machine on prepare's output: (state, work)."""
+        return all_mem2_scan(self.m2, alc, state, cap)
 
 
 def prep_alc_plain(al8: torch.Tensor, fk: int) -> torch.Tensor:

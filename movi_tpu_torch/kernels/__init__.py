@@ -42,7 +42,8 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused2_kmer_count_scan": 0, "prep_alc": 0, "mem2_scan": 0,
             "all_mem2_scan": 0, "kmer2_right_scan": 0,
             "kmer2_left_scan": 0, "compact_pml_scan": 0,
-            "compact_count_scan": 0, "compact_zml_scan": 0}
+            "compact_count_scan": 0, "compact_zml_scan": 0,
+            "pos2rba_build": 0, "mem1_scan": 0, "all_mem1_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -114,6 +115,16 @@ _SIGNATURES = {
     "movi_compact_pml_scan": [*[_P] * 8, *[_I] * 5, *[_P] * 9],
     "movi_compact_count_scan": _COMPACT_SEARCH,
     "movi_compact_zml_scan": _COMPACT_SEARCH,
+    # (n_arr, all_p, r, n, out, stream)
+    "movi_pos2rba_build": [_P, _P, _I, _I, _P, _P],
+    # (rec_all, init_rec, all_p, skip_rec, pos2rba or NULL, r, sigma, n,
+    # alphas, W, lanes, L, ticks, state in, state out, ends, counts, work,
+    # stream)
+    "movi_mem1_scan": [*[_P] * 5, _I, _I, _I, _P, _I, _I, _I, _LL,
+                       *[_P] * 6],
+    # the same without L
+    "movi_all_mem1_scan": [*[_P] * 5, _I, _I, _I, _P, _I, _I, _LL,
+                           *[_P] * 6],
 }
 
 
@@ -774,9 +785,10 @@ def mem2_scan(rec_all, init6, r: int, sigma: int, n: int, ftab_k: int,
               alc: torch.Tensor, state, L: int, ticks: int, use_ftab: bool):
     """Kernel 10b: the BML machine over alc int32 [lanes, W] (read-order
     slots) or, with use_ftab, [lanes, 2W] (slots and fk-mer codes), on the
-    MEM v2 table.  state: the int32 [lanes] registers of MEM2_STATE_KEYS,
-    ends and counts int32 [lanes, W].  Each lane runs until it is done or
-    has run `ticks` ticks.  Returns (state, work int32 [2, lanes]: the
+    MEM v2 table.  state: the int32 [lanes] registers of MEM2_STATE_KEYS
+    (a lane at phase -1, ENTRY, starts from its slots), ends and counts
+    int32 [lanes, W].  Each lane runs until it is done or has run `ticks`
+    ticks.  Returns (state, work int32 [2, lanes]: the
     ticks each lane ran and the 32 B rows it loaded)."""
     if alc.dim() != 2:
         raise ValueError("alc must be [lanes, W] or [lanes, 2W]")
@@ -1002,3 +1014,112 @@ def compact_zml_scan(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                            lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                            first_runs, first_offsets, last_runs, last_offsets,
                            r, sigma, codes, state, codes.shape[0])
+
+
+# the MEM v1 machines' registers, in the rows of their [12, lanes] states
+MEM1_STATE_KEYS = ("phase", "pos", "jc", "end", "frs", "fos", "fre", "foe",
+                   "rrs", "ros", "rre", "roe")
+AM1_STATE_KEYS = ("phase", "s", "ml", "e") + MEM1_STATE_KEYS[4:]
+_MEM1_DONE = {"mem1_scan": 4, "all_mem1_scan": 2}  # the machines' DONE
+
+
+def _check_positions(n: int):
+    if not 0 < n < (1 << 31):
+        raise ValueError(f"n = {n} BWT rows: the MEM v1 kernels take "
+                         f"0 < n < 2^31 (int32 positions)")
+
+
+def pos2rba_build(n_arr: torch.Tensor, all_p: torch.Tensor, n: int):
+    """Kernel 13a: the (run, all_p[run]) row of every BWT row, int32 [n,
+    2], from the run lengths n_arr int32 [r] and all_p int32 [r+1]."""
+    dev = n_arr.device
+    if dev.type != "cuda":
+        raise ValueError("pos2rba_build launches on CUDA tensors only")
+    if n_arr.dim() != 1:
+        raise ValueError("n_arr must be [r]")
+    r = n_arr.shape[0]
+    _check(n_arr, "n_arr", torch.int32, dev)
+    _check(all_p, "all_p", torch.int32, dev, (r + 1,))
+    _check_positions(n)
+    out = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_pos2rba_build(n_arr.data_ptr(), all_p.data_ptr(), r, n,
+                                  out.data_ptr(), _stream(dev))
+    _raise_on(code, "pos2rba_build")
+    launches["pos2rba_build"] += 1
+    return out
+
+
+def _mem1_machine(counter: str, keys, rec_all, init_rec, all_p, skip_rec,
+                  pos2rba, r: int, sigma: int, n: int, alphas, state,
+                  ticks: int, L=()):
+    """Shared launch of the two MEM v1 machines: check, allocate, launch,
+    and raise where a lane is still running after `ticks` ticks."""
+    dev = alphas.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    _check_positions(n)
+    _check(rec_all, "rec_all", torch.int32, dev, (2 * sigma * r, 4))
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    _check(all_p, "all_p", torch.int32, dev, (r + 1,))
+    _check(skip_rec, "skip_rec", torch.int32, dev, (sigma * r, 2))
+    if pos2rba is not None:
+        _check(pos2rba, "pos2rba", torch.int32, dev, (n, 2))
+    if alphas.dim() != 2:
+        raise ValueError("alphas must be [lanes, W]")
+    _check(alphas, "alphas", torch.int8, dev)
+    lanes, W = alphas.shape
+    if W < 1 or ticks < 0:
+        raise ValueError("a MEM scan needs W >= 1 and ticks >= 0")
+    st_in = torch.stack([state[key] for key in keys])
+    _check(st_in, "state", torch.int32, dev, (len(keys), lanes))
+    for key in ("ends", "counts"):
+        _check(state[key], key, torch.int32, dev, (lanes, W))
+    ends, counts = state["ends"].clone(), state["counts"].clone()
+    st_out = torch.empty_like(st_in)
+    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = getattr(lib, "movi_" + counter)(
+        rec_all.data_ptr(), init_rec.data_ptr(), all_p.data_ptr(),
+        skip_rec.data_ptr(), None if pos2rba is None else pos2rba.data_ptr(),
+        r, sigma, n, alphas.data_ptr(), W, lanes, *L, int(ticks),
+        st_in.data_ptr(), st_out.data_ptr(), ends.data_ptr(),
+        counts.data_ptr(), work.data_ptr(), _stream(dev))
+    _raise_on(code, counter)
+    launches[counter] += 1
+    if bool((st_out[0] != _MEM1_DONE[counter]).any()):
+        raise RuntimeError(f"MEM scan did not converge within {ticks} ticks")
+    new_state = dict(zip(keys, st_out.unbind(0)))
+    new_state["ends"], new_state["counts"] = ends, counts
+    return new_state, work
+
+
+def mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, r: int,
+              sigma: int, n: int, alphas: torch.Tensor, state, L: int,
+              ticks: int):
+    """Kernel 13b: the BML machine over alphas int8 [lanes, W] (read-order
+    slots: -1 illegal, -3 '#', -2 past the read) on the MEM v1 table (the
+    one-step search records int32 [2*sigma*r, 4] and init_rec [sigma+1,
+    4], all_p [r+1], skip_rec [sigma*r, 2], pos2rba [n, 2] or None for
+    the binary search).  state: the int32 [lanes] registers of
+    MEM1_STATE_KEYS (a lane at phase -1, ENTRY, starts from its slots),
+    ends and counts int32 [lanes, W].  Each lane runs
+    until it is done; one still running after `ticks` ticks raises.
+    Returns (state, work int32 [2, lanes]: each lane's ticks and table
+    bytes)."""
+    if L < 2:
+        raise ValueError(f"BML needs L >= 2, got {L}")
+    return _mem1_machine("mem1_scan", MEM1_STATE_KEYS, rec_all, init_rec,
+                         all_p, skip_rec, pos2rba, r, sigma, n, alphas,
+                         state, ticks, (L,))
+
+
+def all_mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, r: int,
+                  sigma: int, n: int, alphas: torch.Tensor, state,
+                  ticks: int):
+    """Kernel 13c: the all-MEMs machine over alphas int8 [lanes, W] from
+    the registers of AM1_STATE_KEYS, on kernel 13b's tables.  Returns
+    (state, work) as kernel 13b."""
+    return _mem1_machine("all_mem1_scan", AM1_STATE_KEYS, rec_all, init_rec,
+                         all_p, skip_rec, pos2rba, r, sigma, n, alphas,
+                         state, ticks)

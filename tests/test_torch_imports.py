@@ -17,6 +17,7 @@ from movi_tpu_torch.engine import fused2 as tf2
 from movi_tpu_torch.engine import fused_color as tfc
 from movi_tpu_torch.engine import fused_kmer as tk
 from movi_tpu_torch.engine import fused_kmer2 as tk2
+from movi_tpu_torch.engine import fused_mem as tm1
 from movi_tpu_torch.engine import fused_mem2 as tm2
 from movi_tpu_torch.engine import fused_sa as tsa
 from movi_tpu_torch.engine import fused_search as ts
@@ -49,6 +50,7 @@ def test_port_imports_no_jax():
     assert "movi_tpu_torch.engine.fused_color" in mods
     assert "movi_tpu_torch.engine.fused_kmer2" in mods
     assert "movi_tpu_torch.engine.search" in mods
+    assert "movi_tpu_torch.engine.fused_mem" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -175,14 +177,26 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     m2 = tm2.build_fused_mem2_index(ix, 4)
     for fk, L in ((0, 5), (4, 5)):
         alc = tm2.prep_alc(al8, fk)
-        tm2.mem2_scan(m2, alc, tm2.make_mem2_state(4, 9, lengths, L), L, 50,
-                      fk > 0)
+        tm2.mem2_scan(m2, alc,
+                      tm2.entry_state(tm2.MEM2_STATE_KEYS, 4, 9, "cpu"), L,
+                      50, fk > 0)
     alc = tm2.prep_alc(al8, 0)
-    tm2.all_mem2_scan(m2, alc, tm2.make_all_mem2_state(m2, alc, lengths), 50)
+    tm2.all_mem2_scan(m2, alc,
+                      tm2.entry_state(tm2.AM2_STATE_KEYS, 4, 9, "cpu"), 50)
     own = torch.tensor([0, 0, 1], dtype=torch.int32)
     anchor = torch.tensor([0, 3, 1], dtype=torch.int32)
     right = tk2.kmer2_right_scan(m2, al8, own, anchor, 5)
     tk2.kmer2_left_scan(m2, s2, *right, al8, own, anchor, 5, 2)
+    for cap in (1 << 27, 0):  # pos2rba (kernel 13a), then the search
+        monkeypatch.setattr(tm1, "POS2RUN_MAX_N", cap)
+        m1 = tm1.build_fused_mem_index(ix, "cpu")
+        assert (m1.pos2rba is None) == (cap == 0)
+        tm1.mem_scan(m1, al8,
+                     tm2.entry_state(tm1.MEM1_STATE_KEYS, 4, 9, "cpu"), 5,
+                     tm1.mem_tick_cap(9))
+        tm1.all_mem_scan(m1, al8,
+                         tm2.entry_state(tm1.AM1_STATE_KEYS, 4, 9, "cpu"),
+                         tm1.mem_tick_cap(9))
     for mode in ("regular-thresholds", "regular"):
         cix = build_move_index(build_bwt_runs(text), mode)
         di = tdi.build_device_index(cix)
@@ -208,7 +222,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "mem2_scan", "all_mem2_scan",
                                      "kmer2_right_scan", "kmer2_left_scan",
                                      "compact_pml_scan", "compact_count_scan",
-                                     "compact_zml_scan"}
+                                     "compact_zml_scan", "pos2rba_build",
+                                     "mem1_scan", "all_mem1_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -304,8 +319,7 @@ def test_mem2_wrappers_refuse_cpu_tensors():
     rec = torch.zeros((2 * sigma * r + n, 8), dtype=torch.int32)
     init6 = torch.zeros((sigma + 1, 6), dtype=torch.int32)
     alc = torch.zeros((4, 9), dtype=torch.int32)
-    lengths = torch.full((4,), 9, dtype=torch.int32)
-    st = tm2.make_mem2_state(4, 9, lengths, 5)
+    st = tm2.entry_state(tm2.MEM2_STATE_KEYS, 4, 9, "cpu")
     with pytest.raises(ValueError):
         kernels.mem2_scan(rec, init6, r, sigma, n, 0, alc, st, 5, 10, False)
     ast = {key: torch.zeros(4, dtype=torch.int32)
@@ -325,6 +339,29 @@ def test_mem2_wrappers_refuse_cpu_tensors():
                                             dtype=torch.int32),
                                 torch.zeros(r + 1, dtype=torch.int32),
                                 slots8, g, g, alive, fs, fs, 5, 2)
+
+
+def test_mem1_wrappers_refuse_cpu_tensors():
+    """The three MEM v1 wrappers launch on CUDA tensors only."""
+    r, sigma, n = 3, 4, 10
+    n_arr = torch.zeros(r, dtype=torch.int32)
+    all_p = torch.zeros(r + 1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.pos2rba_build(n_arr, all_p, n)
+    tabs = (torch.zeros((2 * sigma * r, 4), dtype=torch.int32),
+            torch.zeros((sigma + 1, 4), dtype=torch.int32), all_p,
+            torch.zeros((sigma * r, 2), dtype=torch.int32),
+            torch.zeros((n, 2), dtype=torch.int32), r, sigma, n)
+    al8 = torch.zeros((4, 9), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        kernels.mem1_scan(*tabs, al8,
+                          tm2.entry_state(tm1.MEM1_STATE_KEYS, 4, 9, "cpu"),
+                          5, 10)
+    st = {key: torch.zeros(4, dtype=torch.int32)
+          for key in kernels.AM1_STATE_KEYS}
+    st["ends"] = st["counts"] = torch.zeros((4, 9), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.all_mem1_scan(*tabs, al8, st, 10)
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

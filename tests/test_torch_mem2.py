@@ -136,7 +136,8 @@ def test_mem2_scan_equals_jax(setup, fk, L, ticks):
     the window (fk = L)."""
     t, j, alc, batch, lengths, use_ftab, _ = _bml_inputs(setup, fk, L)
     assert use_ftab == (fk > 0)
-    state = tm2.make_mem2_state(batch.lanes, batch.width, lengths, L)
+    state = tm2.entry_state(tm2.MEM2_STATE_KEYS, batch.lanes, batch.width,
+                            "cpu")
     jstate = jm2.make_mem2_state(batch.lanes, batch.width,
                                  jnp.asarray(lengths.numpy()), L)
     want, _ = jm2._mem2_scan(j, jnp.asarray(alc.numpy()), jstate, L, ticks,
@@ -159,21 +160,26 @@ def _all_mem_inputs(setup, n=24, seed=12):
     amap[ord("#")] = -3
     alc = tm2.prep_alc(torch.from_numpy(
         left_aligned_slots(batch, amap).astype(np.int8)), 0)
-    state = tm2.make_all_mem2_state(
-        t, alc, torch.from_numpy(batch.lengths.astype(np.int32)))
+    state = tm2.entry_state(tm2.AM2_STATE_KEYS, batch.lanes, batch.width,
+                            "cpu")
     return t, alc, state, reads, batch
 
 
 @pytest.mark.parametrize("ticks", [29, 400])
 def test_all_mem2_scan_equals_jax(setup, ticks):
-    """The entry state equals the JAX engine's, and every register and
-    emission after `ticks` lockstep ticks equals _all_mem2_scan's."""
+    """The start state the machine builds (0 ticks) equals the JAX
+    engine's, and every register and emission after `ticks` lockstep
+    ticks equals _all_mem2_scan's."""
     t, alc, state, _, batch = _all_mem_inputs(setup)
     j = setup["j0"]
+    start, _ = tm2.all_mem2_scan(t, alc, state, 0)
     fw, rc = jm2._init_pair6(j, jnp.asarray(alc.numpy()[:, 0]))
-    for key, w in zip(tm2.AM2_STATE_KEYS[4:], (*fw, *rc)):
-        assert np.array_equal(state[key].numpy(), np.asarray(w)), key
-    jstate = {key: jnp.asarray(v.numpy()) for key, v in state.items()}
+    lanes = batch.lanes
+    want0 = (np.where(batch.lengths > 0, jm2.AM2_RIGHT, jm2.AM2_DONE),
+             np.zeros(lanes), np.ones(lanes), np.zeros(lanes), *fw, *rc)
+    for key, w in zip(tm2.AM2_STATE_KEYS, want0):
+        assert np.array_equal(start[key].numpy(), np.asarray(w)), key
+    jstate = {key: jnp.asarray(v.numpy()) for key, v in start.items()}
     want, _ = jm2._all_mem2_scan(j, jnp.asarray(alc.numpy()), ticks, jstate)
     got, work = tm2.all_mem2_scan(t, alc, state, ticks)
     _equal_states(got, want, tm2.AM2_STATE_KEYS)
@@ -193,7 +199,8 @@ def test_split_equals_one_pass(setup, machine):
     else:
         fk = 6 if machine == "bml-ftab" else 0
         t, _, alc, batch, lengths, use_ftab, _ = _bml_inputs(setup, fk, 12)
-        state = tm2.make_mem2_state(batch.lanes, batch.width, lengths, 12)
+        state = tm2.entry_state(tm2.MEM2_STATE_KEYS, batch.lanes,
+                                batch.width, "cpu")
         cap = tm2.bml_tick_cap(batch.width)
 
         def run(st, ticks):

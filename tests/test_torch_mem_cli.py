@@ -4,7 +4,7 @@ on a reverse-complement closed index equal the JAX API; `query --mem`
 (BML and all-MEMs) and `--kmer-count --paired-records` equal the JAX CLI
 byte for byte, the .mems / .kmers files and --stdout, on a one-document
 reference (where the JAX engines are right: no document junctions, no
-'#' in the reads); the routes the port has no engine for raise."""
+'#' in the reads); the routes past the device engines agree too."""
 
 import os
 import subprocess
@@ -15,7 +15,7 @@ import pytest
 
 from movi_tpu import api as japi
 from movi_tpu_torch import api as tapi
-from movi_tpu_torch.cli import NotPortedError
+from movi_tpu.engine import fused_mem2 as jm2
 from movi_tpu_torch.engine import fused_mem2 as tm2
 from movi_tpu_torch.build.suffix import build_bwt_runs
 from movi_tpu_torch.index.structure import build_move_index
@@ -70,8 +70,10 @@ def test_api_bidirectional_counts_equal_jax(rc, k, paired):
 
 def test_api_unported_mem_routes_raise(rc, monkeypatch):
     """ftab_k > 1 and a non-ACGT index take the scalar AdvancedEngine in
-    both APIs, with equal MEMs; n past MEM2_MAX_N (the v1 machines, item
-    15) raises NotPortedError naming its item."""
+    both APIs, with equal MEMs; n past MEM2_MAX_N, which raised before
+    the v1 machines were ported (item 15), now takes them in both APIs,
+    with equal MEMs (tests/test_torch_mem1_cli.py has that route's
+    cases)."""
     ix, reads = rc
     index = tapi.Index(ix)
     assert (index.query_mems(reads, min_mem_length=12, ftab_k=6,
@@ -89,8 +91,9 @@ def test_api_unported_mem_routes_raise(rc, monkeypatch):
         assert (tapi.Index(ixn).query_mems(some, L, device="cpu")
                 == japi.Index(ixn).query_mems(some, L))
     monkeypatch.setattr(tm2, "MEM2_MAX_N", int(ix.all_p[-1]) - 1)
-    with pytest.raises(NotPortedError, match="item 15"):
-        tapi.Index(ix).query_mems(reads, min_mem_length=12, device="cpu")
+    monkeypatch.setattr(jm2, "MEM2_MAX_N", int(ix.all_p[-1]) - 1)
+    got = tapi.Index(ix).query_mems(reads, min_mem_length=12, device="cpu")
+    assert got == japi.Index(ix).query_mems(reads, min_mem_length=12)
 
 
 def _cli(module, args):
