@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from movi_tpu_torch/csrc (sixteen sources,
-twenty-seven launch counters), checks each one against its plain PyTorch
+Builds the CUDA kernels from movi_tpu_torch/csrc (nineteen sources,
+thirty-one launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
 `FusedSAEngine.query`, `query_kmers`, `query_mems` (on the MEM v2
 table and, past MEM2_MAX_N, on the v1 machines) and
 `query_multiclass`/`multi_classify`, both record layouts each; the
-compact engines of `Index.compact_engine`; and `movi_tpu_torch.cli build`
+compact engines of `Index.compact_engine`; the dense-automaton engine;
+the multi-device runtime of movi_tpu_torch/parallel (the data-parallel
+engines with on-device classification, the model-sharded record scans,
+the dry run and the multi-host runner); and `movi_tpu_torch.cli build`
 and `query`) at a real index size,
 checks the answers against the scalar oracles, and prints timings with
 the card's name and power limit.  Phases:
@@ -88,6 +91,33 @@ the card's name and power limit.  Phases:
               AdvancedEngine, kernels 9a, 9b, 7b and 10a equal their plain
               versions over all lanes, timings, the longest lane's ticks
               and steps, and a warm breakdown of each query
+     dense    phase 4's index as the dense transition table (kernel 14)
+              and phase 4's reads through DensePMLEngine, counted apart:
+              equal to phase 4's answers on every read, the kernel equal
+              to its plain version over the 150 bp batches and 8 long
+              lanes cut to 1,500 bases, time, bound, floor, table bytes
+     mesh     a process group of one rank on the card (NCCL): phase 4's
+              reads through ShardedPMLEngine one-step and paired with
+              on-device classification (kernels 1 or 3, then 16a),
+              counted apart: ml equals phase 4's answers and found/above/
+              below the host Classifier's on every read, kernel 16a
+              equals its plain version over all lanes; then
+              parallel/dryrun.py on that rank (search, color, k-mer and
+              MEM engines, all-MEMs through kernel 13c, the sharded scans)
+     sharded  kernels 15a and 15b (count and ZML) equal their plain
+              versions at steps 0 and 1 on both shards of phase 4's
+              tables, whose rows sum to the unsharded ones; two spawned
+              ranks sharing the card (gloo) run sharded_fused_pml/count/
+              zml at model = 2 on a 5,000-base index, equal to the
+              unsharded scans; then, counted apart, model = 1 over NCCL on
+              phase 4's index and first 150 bp batch: equal to phases 4-5,
+              the wall and kernel time per step, the scans against their
+              plain versions
+     multihost  `python -m movi_tpu_torch.parallel.multihost --pml
+              --classify` with 1 host and 2 hosts sharing the card on a
+              50 kb two-document index saved with its engine caches: the
+              merged .bpf and .report equal each other and
+              Index.query_pml in this process byte for byte
      small MEM  the rc index of tests/test_fused_mem2.py (4,000 bases,
               seed 7), reads with N, '#', shorter than L and past 512
               bases: kernel 10b (fk 0, 6, 8; L 2, 8, 12) and 10c equal
@@ -259,6 +289,14 @@ CUDA_SOURCES = {
                   "movi_tpu/engine/fused_mem.py:146"),
     "all_mem1_scan": ("movi_tpu_torch/csrc/fused_mem.cu",
                       "movi_tpu/engine/fused_mem.py:337"),
+    "dense_pml_scan": ("movi_tpu_torch/csrc/dense_pml.cu",
+                       "movi_tpu/engine/dense.py:117"),
+    "classify_from_ml": ("movi_tpu_torch/csrc/classify.cu",
+                         "movi_tpu/parallel/mesh.py:71"),
+    "sharded_pml_gather": ("movi_tpu_torch/csrc/sharded.cu",
+                           "movi_tpu/parallel/sharded_index.py:45"),
+    "sharded_search_gather": ("movi_tpu_torch/csrc/sharded.cu",
+                              "movi_tpu/parallel/sharded_index.py:91"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
@@ -298,6 +336,11 @@ COMPACT_KERNELS = ("compact_pml_scan", "compact_count_scan",
                    "compact_zml_scan")
 COMPACT_KINDS = {"pml": "compact_pml_scan", "rpml": "compact_pml_scan",
                  "count": "compact_count_scan", "zml": "compact_zml_scan"}
+MESH_KERNELS = PML_KERNELS + ("classify_from_ml",)
+SHARDED_KERNELS = ("sharded_pml_gather", "sharded_search_gather")
+BIN_WIDTH = 150           # query --bin-width's default
+NULL_PERCENTILE = 59      # the null statistics of the mesh phase: thr 60
+CLASSIFY_OPS = 4          # integer operations per ml element of 16a
 
 
 def say(phase, msg):
@@ -3568,6 +3611,526 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
                     timings["two-load", False][0], n_bases, card, "two-load")
 
 
+def phase_dense(dev, card, errs, timings, work, ctx, cut_lanes=8,
+                cut_len=LONG_CUT):
+    """Dense-automaton PML (kernel 14) on phase 4's index and reads,
+    counted apart: equal to phase 4's answers on every read, the kernel
+    equal to its plain version over the 150 bp batches and cut_lanes long
+    lanes cut to cut_len bases, its time per query, bound, floor and
+    table bytes."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.engine import dense as td
+
+    index, reads, n_bases = ctx["index"], ctx["reads"], ctx["n_bases"]
+    t0 = time.perf_counter()
+    di = td.build_dense_index(index.ix)
+    t_build = time.perf_counter() - t0
+    table_bytes = di.table.numel() * 4
+    say("dense", f"n={di.n} rows: table {table_bytes} B ((sigma+1) x 4 B a "
+                 f"row), host build {t_build:.3f} s")
+    eng = td.DensePMLEngine(di, dev)
+    di = eng.di   # the table on the card
+    batches = list(_as_batches(reads, QUERY_LANES))
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = [pair for b in batches for pair in zip(b.names,
+                                                  eng.query_batch(b))]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"dense_pml_scan": kernels.launches["dense_pml_scan"]}
+    say("dense", f"main-path launches {counts}")
+    if counts["dense_pml_scan"] <= 0:
+        raise AssertionError("kernel dense_pml_scan never launched")
+    if got != ctx["pmls"]:
+        raise AssertionError("dense PML differs from phase 4's answers")
+    say("dense", f"{len(got)} reads equal phase 4's query_pml answers; "
+                 f"end to end {wall:.6f} s = {n_bases / wall:.6e} bases/s "
+                 f"(host clock)  ({card})")
+
+    slots = di.sigma + 1
+    args, plain_ms = [], 0.0
+    for b in batches:
+        codes = eng.prepare(b)
+        args.append((di.table, slots, codes,
+                     td.initial_state(di, codes.shape[1], dev)))
+        add_work(work, "dense_pml_scan", *scan_work(codes, 4, 4, 8))
+        if codes.shape[0] > READ_LEN:
+            codes = codes[:cut_len, :cut_lanes].contiguous()
+        a = (di.table, slots, codes,
+             td.initial_state(di, codes.shape[1], dev))
+        st_k, ml_k = kernels.dense_pml_scan(*a)
+        (st_p, ml_p), ms = timed_ms(lambda: td.dense_pml_scan_plain(*a))
+        plain_ms += ms
+        require_equal("dense ml", ml_k, ml_p, errs, "dense_pml_scan")
+        for name, x, y in zip(("p", "ml"), st_k, st_p):
+            require_equal(f"dense state {name}", x, y, errs,
+                          "dense_pml_scan")
+    k_ms = cuda_ms(lambda: [kernels.dense_pml_scan(*a) for a in args],
+                   reps=10)
+    timings["dense_pml_scan"] = (k_ms, plain_ms)
+    steps = max(b.width for b in batches)
+    b_ms, b_by = bound(*work["dense_pml_scan"])
+    say("dense", f"kernel 14 over the main path's {len(batches)} batches: "
+                 f"{k_ms:.6f} ms a query = {n_bases / k_ms * 1e3:.6e} "
+                 f"bases/s; bound {b_ms:.6f} ms ({b_by}); latency floor "
+                 f"{steps * TICK_US / 1e3:.6f} ms ({steps} dependent "
+                 f"steps x {TICK_US} us); plain {plain_ms:.6f} ms (150 bp "
+                 f"batches and {cut_lanes} long lanes cut to {cut_len} "
+                 f"bases); table {table_bytes} B  ({card})")
+    return counts
+
+
+def classify_work(ml, lens):
+    """(bytes, ops) of kernel 16a on ml [W, lanes]: each lane's in-read
+    lengths and its read length in, three results out."""
+    W, lanes = ml.shape
+    loaded = int(lens.clamp(max=W).sum())
+    return 4 * loaded + lanes * (4 + 1 + 8), ml.numel() * CLASSIFY_OPS
+
+
+def phase_mesh(dev, card, errs, timings, work, ctx):
+    """A process group of one rank on the card (NCCL): ShardedPMLEngine
+    one-step and paired with on-device classification over phase 4's
+    index and reads at full width, counted apart; ml equal to phase 4's
+    answers and found/above/below to the host Classifier on every read;
+    kernel 16a equal to its plain version over all lanes; then the dry
+    run of parallel/dryrun.py on that rank.  The process group stays for
+    phase sharded.  Returns the counts."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.classify import Classifier, EmpNullDatabase
+    from movi_tpu_torch.parallel import init_process_group, make_mesh
+    from movi_tpu_torch.parallel import mesh as tmesh
+    from movi_tpu_torch.parallel.dryrun import dryrun_multichip
+    from movi_tpu_torch.testing import free_port
+
+    index, reads, n_bases = ctx["index"], ctx["reads"], ctx["n_bases"]
+    init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, dev)
+    mesh = make_mesh(1, dev)
+    db = EmpNullDatabase()
+    db.compute([NULL_PERCENTILE] * 5)
+    cl = Classifier(db, bin_width=BIN_WIDTH)
+    thr = cl.max_value_thr
+    say("mesh", f"one rank, backend {mesh.backend}, {dev}; bin width "
+                f"{BIN_WIDTH}, max_value_thr {thr}")
+    batches = list(_as_batches(reads, QUERY_LANES))
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, walls = {}, {}
+    for paired in (False, True):
+        t0 = time.perf_counter()
+        eng = tmesh.ShardedPMLEngine(index._fused, mesh, BIN_WIDTH, thr,
+                                     paired)
+        out[paired] = [eng.query_batch_device(b.seqs, b.lengths)
+                       for b in batches]
+        torch.cuda.synchronize()
+        walls[paired] = time.perf_counter() - t0
+        del eng
+    counts = {k: kernels.launches[k] for k in MESH_KERNELS}
+    say("mesh", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh path")
+    pmls = dict(ctx["pmls"])
+    n_found = 0
+    for paired, res in out.items():
+        for b, (ml, found, above, below) in zip(batches, res):
+            mlh = ml.cpu().numpy()
+            votes = np.stack([t.cpu().numpy().astype(np.int64)
+                              for t in (found, above, below)], axis=1)
+            for lane, (name, L) in enumerate(zip(b.names, b.lengths)):
+                want = pmls[name]
+                if mlh[:L, lane].tolist() != want:
+                    raise AssertionError(f"mesh ml of {name} differs from "
+                                         f"phase 4's")
+                wf, _, wa, wb = cl.classify(want)
+                if tuple(votes[lane]) != (int(wf), wa, wb):
+                    raise AssertionError(f"mesh vote of {name} differs "
+                                         f"from Classifier")
+                n_found += int(wf) if paired else 0
+    say("mesh", f"one-step and paired: ml equals phase 4's answers and "
+                f"found/above/below the host Classifier's on all "
+                f"{len(pmls)} reads ({n_found} found); end to end "
+                f"one-step {walls[False]:.6f} s, paired incl. compose "
+                f"{walls[True]:.6f} s (host clock)  ({card})")
+
+    # kernel 16a against its plain version over all lanes
+    args, plain_ms = [], 0.0
+    for b, (ml, *_) in zip(batches, out[False]):
+        lens = torch.from_numpy(b.lengths.astype(np.int32)).to(dev)
+        a = (ml, lens, BIN_WIDTH, thr)
+        args.append(a)
+        got = kernels.classify_from_ml(*a)
+        want, ms = timed_ms(lambda: tmesh.classify_from_ml_plain(*a))
+        plain_ms += ms
+        for name, x, y in zip(("found", "above", "below"), got, want):
+            require_equal(f"classify {name}", x, y, errs,
+                          "classify_from_ml")
+        add_work(work, "classify_from_ml", *classify_work(ml, lens))
+    k_ms = cuda_ms(lambda: [kernels.classify_from_ml(*a) for a in args],
+                   reps=10)
+    timings["classify_from_ml"] = (k_ms, plain_ms)
+    b_ms, b_by = bound(*work["classify_from_ml"])
+    say("mesh", f"kernel 16a over the {len(batches)} batches: {k_ms:.6f} "
+                f"ms a query, bound {b_ms:.6f} ms ({b_by}), plain "
+                f"{plain_ms:.6f} ms (all lanes)  ({card})")
+    del out, args
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = dryrun_multichip(1, dev)
+    say("mesh", f"parallel/dryrun.py on one rank: {res} "
+                f"({time.perf_counter() - t0:.3f} s)")
+    return counts
+
+
+def sharded_step_pairs(dev, ctx, errs, model=2):
+    """Kernels 15a and 15b (count and ZML) against their plain versions,
+    steps 0 and 1, on each of `model` shards of phase 4's one-step PML and
+    search records (the first 150 bp batch): rows, state and ml equal,
+    and the shards' rows sum to the unsharded ones."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.api import _as_batches
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.engine.fused_search import search_chars
+    from movi_tpu_torch.parallel import Mesh
+    from movi_tpu_torch.parallel import sharded_index as tsi
+
+    index = ctx["index"]
+    fi, si = index._fused, index._search
+    b = next(_as_batches(ctx["reads"], QUERY_LANES))
+    codes = tf.FusedPMLEngine(fi, dev).prepare(b)
+    chars = torch.from_numpy(np.ascontiguousarray(search_chars(
+        si.alphamap_query, b, True).T).astype(np.int8)).to(dev)
+    W, lanes = codes.shape
+    st0 = torch.stack(tf.initial_state(fi, lanes, dev))
+    init_rec = si.init_rec.to(dev)
+
+    def zeros(rows):
+        return torch.zeros((rows, lanes), dtype=torch.int32, device=dev)
+
+    def pml(fn, mesh, t, rec_in):
+        local, lo = tsi.local_shard(mesh, fi.records)
+        st, ml = st0.clone(), zeros(W)
+        return fn(local, lo, fi.sigma + 1, fi.p_dollar, codes, t, rec_in, st,
+                  ml), st, ml
+
+    def search(zml, fn, mesh, t, rec_in):
+        local, lo = tsi.local_shard(mesh, si.rec_all)
+        st, ml = zeros(6), zeros(W)
+        rows = fn(local, lo, si.r, si.sigma, init_rec, chars, 0, zml, None,
+                  st, ml)
+        if t == 1:
+            rows = fn(local, lo, si.r, si.sigma, init_rec, chars, 1, zml,
+                      rec_in, st, ml)
+        return rows, st, ml
+
+    shards = [Mesh(1, model, 0, m, dev, None) for m in range(model)]
+    whole = Mesh(1, 1, 0, 0, dev, None)
+    cases = [("sharded_pml_gather", pml, kernels.sharded_pml_gather,
+              tsi.sharded_pml_gather_plain)]
+    for zml in (False, True):
+        cases.append(("sharded_search_gather",
+                      lambda *a, zml=zml: search(zml, *a),
+                      kernels.sharded_search_gather,
+                      tsi.sharded_search_gather_plain))
+    for key, run, kfn, pfn in cases:
+        rec_in = None
+        for t in (0, 1):
+            want = run(pfn, whole, t, rec_in)[0]
+            total = torch.zeros_like(want)
+            for mesh in shards:
+                got_k, got_p = (run(fn, mesh, t, rec_in)
+                                for fn in (kfn, pfn))
+                for name, x, y in zip(("rows", "state", "ml"), got_k, got_p):
+                    require_equal(f"{key} shard {mesh.m} step {t} {name}",
+                                  x, y, errs, key)
+                total += got_k[0]
+            require_equal(f"{key} step {t}: the shards' sum", total, want,
+                          errs, key)
+            rec_in = want
+    return b, codes, chars
+
+
+def phase_sharded(dev, card, errs, timings, work, ctx):
+    """Model-sharded record scans: kernels 15a/15b against their plain
+    versions on two shards of phase 4's tables; two spawned ranks sharing
+    the card (gloo) at model = 2 on a small index against the unsharded
+    scans; then, counted apart, model = 1 (the NCCL group of the mesh
+    phase) on phase 4's index and first 150 bp batch for the per-step
+    time, against phase 4-5's answers."""
+    import torch
+    import torch.distributed as dist
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.engine import fused_search as ts
+    from movi_tpu_torch.parallel import make_2d_mesh
+    from movi_tpu_torch.parallel import sharded_index as tsi
+    from movi_tpu_torch.testing import (run_ranks, scan_order_codes,
+                                        small_index)
+
+    b, codes, chars = sharded_step_pairs(dev, ctx, errs)
+    say("sharded", "kernels 15a and 15b (count, ZML) equal their plain "
+                   "versions at steps 0 and 1 on both shards of phase 4's "
+                   "tables, and the shards' rows sum to the unsharded rows")
+
+    # two ranks on the one card, gloo, model = 2, against the unsharded
+    # scans on the card
+    text, six = small_index(53)
+    sfi, ssi = tf.build_fused_index(six), ts.build_fused_search_index(six)
+    rng = np.random.default_rng(53)
+    pml_a, _ = scan_order_codes(rng, text, sfi.alphamap_query, 64, 40,
+                                sfi.sigma)
+    search_a, _ = scan_order_codes(rng, text, ssi.alphamap_query, 64, 40,
+                                   -2)
+    t0 = time.perf_counter()
+    res = run_ranks("movi_tpu_torch.testing:sharded_rank", 2, timeout=600,
+                    shapes=[(1, 2)], text=text, pml_alphas=pml_a,
+                    search_alphas=search_a, device="cuda",
+                    backend="gloo")[0][0]
+    t_ranks = time.perf_counter() - t0
+    sfi, ssi = sfi.to(dev), ssi.to(dev)
+    ml = tf.fused_pml_scan(sfi.records, sfi.sigma + 1, sfi.p_dollar,
+                           torch.from_numpy(pml_a.astype(np.uint8)).to(dev),
+                           tf.initial_state(sfi, 64, dev))[1]
+    ch = torch.from_numpy(search_a.astype(np.int8)).to(dev)
+    st, cnt = ts.fused_count_scan(ssi.rec_all, ssi.init_rec, ssi.all_p,
+                                  ssi.r, ssi.sigma, ch)
+    zml = ts.fused_zml_scan(ssi.rec_all, ssi.init_rec, ssi.r, ssi.sigma,
+                            ch)[1]
+    for what, got, want in (("PML", res["pml"], ml),
+                            ("matched", res["count"][0], st[4]),
+                            ("count", res["count"][1], cnt),
+                            ("ZML", res["zml"], zml)):
+        if not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(f"2-rank gloo sharded {what} differs from "
+                                 f"the unsharded scan")
+    say("sharded", f"two spawned ranks on the card (gloo, model = 2): "
+                   f"sharded_fused_pml/count/zml equal the unsharded scans "
+                   f"on 64 lanes ({t_ranks:.3f} s with start-up)")
+
+    # model = 1 over NCCL on phase 4's index: the counted main path (one
+    # all-reduce first, so the communicator's set-up is not timed)
+    mesh = make_2d_mesh(1, 1, dev)
+    mesh.all_reduce_model(torch.zeros(1, dtype=torch.int32, device=dev))
+    index = ctx["index"]
+    fi, si = index._fused, index._search
+    codes_np, chars_np = codes.cpu().numpy(), chars.cpu().numpy()
+    W, lanes = codes.shape
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    walls = {}
+    t0 = time.perf_counter()
+    ml = tsi.sharded_fused_pml(mesh, fi, codes_np)
+    torch.cuda.synchronize()
+    walls["pml"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    matched, count = tsi.sharded_fused_count(mesh, si, chars_np)
+    torch.cuda.synchronize()
+    walls["count"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zml = tsi.sharded_fused_zml(mesh, si, chars_np)
+    torch.cuda.synchronize()
+    walls["zml"] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in SHARDED_KERNELS}
+    say("sharded", f"main-path launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"sharded path")
+    first = {name: i for i, (name, _) in enumerate(ctx["reads"])}
+    mlh, mh, ch_, zh = (t.cpu().numpy() for t in (ml, matched, count, zml))
+    for lane, (name, L) in enumerate(zip(b.names, b.lengths)):
+        i = first[name]
+        if (mlh[:L, lane].tolist() != ctx["pmls"][i][1]
+                or (int(L) - int(mh[lane]), int(ch_[lane]))
+                != ctx["count"][i][1]
+                or zh[:L, lane].tolist() != ctx["zml"][i][1]):
+            raise AssertionError(f"sharded scans of {name} differ from "
+                                 f"phases 4-5")
+    say("sharded", f"model = 1 ({mesh.backend}) on phase 4's index, "
+                   f"{lanes} x {W} bp: PML, count and ZML equal phases "
+                   f"4-5 on every lane; wall per step (launch + "
+                   f"all_reduce): " + ", ".join(
+                       f"{k} {w / W * 1e6:.3f} us" for k, w in walls.items())
+        + f"  ({card})")
+
+    # kernel-only times (model = 1: the all-reduce is the identity) and
+    # the plain versions on the same inputs
+    local, lo = tsi.local_shard(mesh, fi.records)
+    slocal, slo = tsi.local_shard(mesh, si.rec_all)
+    init_rec = si.init_rec.to(dev)
+    st0 = torch.stack(tf.initial_state(fi, lanes, dev))
+
+    def pml_loop(fn):
+        st, rec = st0.clone(), None
+        out = torch.empty((W, lanes), dtype=torch.int32, device=dev)
+        for t in range(W + 1):
+            rec = fn(local, lo, fi.sigma + 1, fi.p_dollar, codes, t, rec,
+                     st, out)
+        return st, out
+
+    def search_loop(fn, zml_):
+        """The state, and ZML's ml."""
+        st, rec = torch.empty((6, lanes), dtype=torch.int32,
+                              device=dev), None
+        out = (torch.empty((W, lanes), dtype=torch.int32, device=dev)
+               if zml_ else None)
+        for t in range(W):
+            rec = fn(slocal, slo, si.r, si.sigma, init_rec, chars, t, zml_,
+                     rec, st, out)
+        return (st, out) if zml_ else (st,)
+
+    (st_k, ml_k) = pml_loop(kernels.sharded_pml_gather)
+    (st_p, ml_p), pml_plain = timed_ms(
+        lambda: pml_loop(tsi.sharded_pml_gather_plain))
+    require_equal("15a full scan ml", ml_k, ml_p, errs, "sharded_pml_gather")
+    require_equal("15a full scan state", st_k, st_p, errs,
+                  "sharded_pml_gather")
+    search_plain = 0.0
+    for zml_ in (False, True):
+        got = search_loop(kernels.sharded_search_gather, zml_)
+        want, ms = timed_ms(
+            lambda: search_loop(tsi.sharded_search_gather_plain, zml_))
+        search_plain += ms
+        for x, y in zip(got, want):
+            require_equal("15b full scan", x, y, errs,
+                          "sharded_search_gather")
+    timings["sharded_pml_gather"] = (
+        cuda_ms(lambda: pml_loop(kernels.sharded_pml_gather), reps=5),
+        pml_plain)
+    timings["sharded_search_gather"] = (
+        cuda_ms(lambda: [search_loop(kernels.sharded_search_gather, z)
+                         for z in (False, True)], reps=5), search_plain)
+    add_work(work, "sharded_pml_gather", *scan_work(codes, 8, 4, 12))
+    add_work(work, "sharded_search_gather", *scan_work(chars, 32, 0, 24))
+    add_work(work, "sharded_search_gather", *scan_work(chars, 32, 4, 24))
+    for name, steps in (("sharded_pml_gather", W + 1),
+                        ("sharded_search_gather", 2 * W)):
+        k_ms, p_ms = timings[name]
+        b_ms, b_by = bound(*work[name])
+        say("sharded", f"{name}: {k_ms:.6f} ms a query ({steps} launches, "
+                       f"{k_ms / steps * 1e3:.3f} us a launch), bound "
+                       f"{b_ms:.6f} ms ({b_by}), latency floor "
+                       f"{steps * TICK_US / 1e3:.6f} ms, plain "
+                       f"{p_ms:.6f} ms  ({card})")
+    dist.destroy_process_group()
+    return counts
+
+
+def phase_multihost(dev, card):
+    """`python -m movi_tpu_torch.parallel.multihost --pml --classify` with
+    1 host and with 2 hosts sharing the card, on an index built by the
+    port's `build` and saved with its engine caches: the merged .bpf and
+    .report equal each other and Index.query_pml in this process, byte
+    for byte."""
+    from movi_tpu_torch import cli as tcli
+    from movi_tpu_torch.api import Index
+    from movi_tpu_torch.classify import (Classifier, EmpNullDatabase,
+                                         format_report_header,
+                                         format_report_line)
+    from movi_tpu_torch.io.outputs import BPFWriter
+    from movi_tpu_torch.parallel.multihost import bpf_header
+    from movi_tpu_torch.testing import free_port, random_text, run_cli
+    from movi_tpu_torch.testing import sim_reads
+
+    with tempfile.TemporaryDirectory() as d:
+        refs = [random_text(30000, 41), random_text(20000, 42)]
+        fasta = os.path.join(d, "ref.fa")
+        with open(fasta, "w") as f:
+            for i, t in enumerate(refs):
+                f.write(f">doc{i}\n{t.tobytes().decode()}\n")
+        idx = os.path.join(d, "idx")
+        t0 = time.perf_counter()
+        rc, _, err = run_cli(tcli.main, ["build", "--fasta", fasta,
+                                         "--index", idx])
+        if rc != 0:
+            raise AssertionError(f"build failed (rc {rc}): {err[-2000:]}")
+        index = Index.load(idx)
+        index.save(idx)   # the engine caches beside index.npz
+        t_build = time.perf_counter() - t0
+        reads = [(f"m{i}", s.tobytes()) for i, s in enumerate(
+            np.concatenate([sim_reads(refs[0], 1500, READ_LEN, seed=44),
+                            sim_reads(refs[1], 1000, READ_LEN, seed=45),
+                            np.random.default_rng(46).choice(
+                                np.frombuffer(b"ACGT", np.uint8),
+                                size=(500, READ_LEN))]))]
+        rpath = os.path.join(d, "reads.fastq")
+        with open(rpath, "w") as f:
+            for name, seq in reads:
+                f.write(f"@{name}\n{seq.decode()}\n+\n{'I' * len(seq)}\n")
+
+        def launch(hosts, tag):
+            port = free_port()
+            prefix = os.path.join(d, tag)
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "movi_tpu_torch.parallel.multihost",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-hosts",
+                 str(hosts), "--host-id", str(h), "--index", idx, "--read",
+                 rpath, "--pml", "--classify", "--out-prefix", prefix],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for h in range(hosts)]
+            return prefix, procs
+
+        t0 = time.perf_counter()
+        runs = [launch(1, "one"), launch(2, "two")]
+        for _, procs in runs:
+            for proc in procs:
+                try:
+                    _, err = proc.communicate(timeout=600)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                if proc.returncode != 0:
+                    raise AssertionError(f"multihost host failed (rc "
+                                         f"{proc.returncode}): "
+                                         f"{err[-3000:]}")
+        t_run = time.perf_counter() - t0
+        out = index.query_pml(reads, device=dev)
+        want_bpf = os.path.join(d, "want.bpf")
+        with BPFWriter(want_bpf) as w:
+            for name, pmls in out:
+                w.write_read(name, pmls)
+        cl = Classifier(EmpNullDatabase.load(os.path.join(
+            idx, "movi.pml.nulldb")), bin_width=BIN_WIDTH)
+        lines = [format_report_header(cl.max_value_thr)]
+        n_found = 0
+        for name, pmls in out:
+            ok, avg, above, below = cl.classify(pmls)
+            n_found += int(ok)
+            lines.append(format_report_line(name, ok, avg, above, below))
+        with open(want_bpf, "rb") as f:
+            want = {".bpf": f.read(),
+                    ".report": ("\n".join(lines) + "\n").encode()}
+        if not want[".bpf"].startswith(bpf_header()):
+            raise AssertionError("BPF header differs")
+        for suffix, body in want.items():
+            for prefix, _ in runs:
+                with open(prefix + suffix, "rb") as f:
+                    if f.read() != body:
+                        raise AssertionError(f"multihost {suffix} of "
+                                             f"{prefix} differs from "
+                                             f"Index.query_pml")
+    say("multihost", f"1 host and 2 hosts sharing the card (gloo counters, "
+                     f"queries on the card): merged .bpf and .report equal "
+                     f"each other and Index.query_pml byte for byte "
+                     f"({len(reads)} reads, {n_found} found; build + save "
+                     f"{t_build:.3f} s, hosts {t_run:.3f} s with "
+                     f"start-up)  ({card})")
+
+
 def phase_cli(platform):
     """The port's CLI, run in this process (movi_tpu_torch.cli.main), on
     `platform` against --platform cpu, byte for byte."""
@@ -3748,8 +4311,17 @@ def main() -> int:
     lap("compact")
     counts.update(phase_sa(dev, card, errs, timings, work, ctx))
     counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
-    del ctx
     lap("SA, k-mer")
+    counts.update(phase_dense(dev, card, errs, timings, work, ctx))
+    lap("dense")
+    mesh_counts = phase_mesh(dev, card, errs, timings, work, ctx)
+    counts["classify_from_ml"] = mesh_counts["classify_from_ml"]
+    lap("mesh")
+    counts.update(phase_sharded(dev, card, errs, timings, work, ctx))
+    del ctx
+    lap("sharded")
+    phase_multihost(dev, card)
+    lap("multihost")
     phase_small_mem2(dev, errs)
     lap("small MEM")
     phase_small_mem1(dev, errs)

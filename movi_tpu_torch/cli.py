@@ -394,7 +394,9 @@ def device_engine(args, ix, index, qt, device):
     if pick_backend(ix.r, ix.sigma, "pml" if qt == "pml" else "search",
                     force_paired=paired, device=device) == "compact":
         warning(f"index (r={ix.r}) exceeds the device's record-table "
-                f"budget; falling back to the compact engine")
+                f"budget; falling back to the compact engine.  A model-"
+                f"sharded mesh runs the record layout "
+                f"(parallel/sharded_index.py; engine/select.pick_backend)")
     if qt == "pml" and args.rpml:
         eng = index.compact_engine("pml", True, device)
     elif qt == "pml":

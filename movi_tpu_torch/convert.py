@@ -5,7 +5,7 @@ The port keeps its own copies of the JAX package's host classes
 same.  These helpers turn the JAX package's objects, read as numpy arrays,
 into the port's: the host index and color table, and the record objects
 of PML, count/ZML and k-mers, Movi Color, SA entries and the MEM v1
-machines, and the compact run tables; and they read
+machines, the compact run tables and the dense PML table; and they read
 the `*.npz` caches that movi_tpu writes (`build --fused-cache`, `build
 --paired-cache`, `Index.save`): the one-step and paired PML records and
 the paired search records.  Nothing here imports JAX or the JAX package:
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .color import ColorTable, DocumentInfo
+from .engine.dense import DenseIndex
 from .engine.device_index import DeviceIndex
 from .engine.fused import FusedIndex, load_fused_index
 from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
@@ -132,6 +133,14 @@ def fused_sa_index_from_jax(sx) -> FusedSAIndex:
         all_p=torch.from_numpy(np.array(sx.all_p, dtype=np.int64)),
         sampled=torch.from_numpy(np.array(sx.sampled, dtype=np.int64)),
         rate=int(sx.rate), n=int(sx.n))
+
+
+def dense_index_from_jax(di) -> DenseIndex:
+    """A movi_tpu DenseIndex -> the port's (the transition table as a host
+    tensor)."""
+    return DenseIndex(n=int(di.n), sigma=int(di.sigma),
+                      table=_tensor(di.table), start_pos=int(di.start_pos),
+                      alphamap_query=np.asarray(di.alphamap_query))
 
 
 def device_index_from_jax(di) -> DeviceIndex:

@@ -11,7 +11,10 @@ TPU measurement and is not carried over: no cache-residency rule has been
 measured on the card, so a small index takes the paired layout here.
 Outputs are identical either way.
 
-Past both tables, PML, count and ZML take the compact engines
+Past both tables, pick_backend names the 'sharded' rung when a
+'model' mesh axis can split the one-step table (parallel/sharded_index
+.py; no query route takes it, as in movi_tpu), and otherwise PML, count
+and ZML take the compact engines
 (engine/pml.py, engine/search.py) on the run tables, whose bytes
 compact_pml_table_bytes and compact_search_table_bytes give.  For PML
 these cost 13 + 12*sigma B per run (61 for DNA), more than the one-step
@@ -103,14 +106,18 @@ def use_paired_color(r: int, sigma: int, num_sets: int,
 
 
 def pick_backend(r: int, sigma: int, kind: str = "pml",
+                 model_shards: int = 1,
                  force_paired: Optional[bool] = None,
                  device: DeviceLike = None, num_sets: int = 0) -> str:
     """'paired' when the two-step layout of `kind` ("pml", "search" or
     "color", which takes the kept doc-set count num_sets) fits, else
-    'one-step' when the one-step table fits, else 'compact': the compact
-    engine on the run tables for PML, count and ZML (as movi_tpu/cli.py
-    routes it), the one-step layout for color and k-mers (as the JAX
-    package runs them)."""
+    'one-step' when the one-step table fits, else -- when the one-step
+    table exceeds the budget and a 'model' mesh axis of model_shards > 1
+    ranks is available -- 'sharded' (parallel/sharded_index.py: the table
+    split over model_shards cards), else 'compact': the compact engine
+    on the run tables for PML, count and ZML (as movi_tpu/cli.py routes
+    it), the one-step layout for color and k-mers (as the JAX package
+    runs them).  No query route takes 'sharded': the CLI warns there."""
     if kind == "pml":
         paired = use_paired_pml(r, sigma, force_paired, device)
         one_step = one_step_pml_table_bytes(r, sigma)
@@ -126,4 +133,7 @@ def pick_backend(r: int, sigma: int, kind: str = "pml",
         return "paired"
     if _fits(one_step, device):
         return "one-step"
+    if (model_shards > 1 and one_step <= BUDGET_FRACTION
+            * memory_budget_bytes(device) * model_shards):
+        return "sharded"
     return "compact"

@@ -43,7 +43,9 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "all_mem2_scan": 0, "kmer2_right_scan": 0,
             "kmer2_left_scan": 0, "compact_pml_scan": 0,
             "compact_count_scan": 0, "compact_zml_scan": 0,
-            "pos2rba_build": 0, "mem1_scan": 0, "all_mem1_scan": 0}
+            "pos2rba_build": 0, "mem1_scan": 0, "all_mem1_scan": 0,
+            "dense_pml_scan": 0, "sharded_pml_gather": 0,
+            "sharded_search_gather": 0, "classify_from_ml": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -125,6 +127,19 @@ _SIGNATURES = {
     # the same without L
     "movi_all_mem1_scan": [*[_P] * 5, _I, _I, _I, _P, _I, _I, _LL,
                            *[_P] * 6],
+    # (table, codes, W, lanes, slots, p in, ml in, p out, ml out, ml,
+    # stream)
+    "movi_dense_pml_scan": [_P, _P, _I, _I, _I, *[_P] * 6],
+    # (local records, lo, shard_len, slots, pd_run, pd_off, codes, W,
+    # lanes, t, rec_in or NULL, state, ml, rec_out, stream)
+    "movi_sharded_pml_step": [_P, _LL, _LL, _I, _I, _I, _P, _I, _I, _I,
+                              *[_P] * 5],
+    # (local records, lo, shard_len, r, sigma, init_rec, chars, W, lanes,
+    # t, zml, rec_in or NULL, state, ml or NULL, rec_out, stream)
+    "movi_sharded_search_step": [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I,
+                                 _I, *[_P] * 5],
+    # (ml, lengths, W, lanes, bin_width, thr, found, above, below, stream)
+    "movi_classify_from_ml": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -1123,3 +1138,138 @@ def all_mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, r: int,
     return _mem1_machine("all_mem1_scan", AM1_STATE_KEYS, rec_all, init_rec,
                          all_p, skip_rec, pos2rba, r, sigma, n, alphas,
                          state, ticks)
+
+
+def dense_pml_scan(table: torch.Tensor, slots: int, codes: torch.Tensor,
+                   state) -> Tuple[tuple, torch.Tensor]:
+    """Kernel 14: dense-automaton PML over codes [W, lanes] (uint8 slots)
+    on the transition table int32 [n*slots], from state (p, ml) int32
+    [lanes].  Returns (state, ml [W, lanes])."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("dense_pml_scan launches on CUDA tensors only")
+    if table.dim() != 1 or table.shape[0] % slots:
+        raise ValueError("table must be [n*slots]")
+    _check(table, "table", torch.int32, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", torch.uint8, dev)
+    steps, lanes = codes.shape
+    for i, s in enumerate(state):
+        _check(s, f"state[{i}]", torch.int32, dev, (lanes,))
+    new_state = tuple(torch.empty_like(s) for s in state)
+    ml = torch.empty((steps, lanes), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_dense_pml_scan(
+        table.data_ptr(), codes.data_ptr(), steps, lanes, slots,
+        *[s.data_ptr() for s in state], *[s.data_ptr() for s in new_state],
+        ml.data_ptr(), _stream(dev))
+    _raise_on(code, "dense_pml_scan")
+    launches["dense_pml_scan"] += 1
+    return new_state, ml
+
+
+def _check_step(counter: str, local_rec, words: int, codes, code_dtype,
+                state, rows: int, rec_in, key_rows: int):
+    """The shared checks of the sharded steps; returns (dev, W, lanes)."""
+    dev = local_rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    if local_rec.dim() != 2 or local_rec.shape[1] != words:
+        raise ValueError(f"local records must be [shard_len, {words}]")
+    _check(local_rec, "local records", torch.int32, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", code_dtype, dev)
+    W, lanes = codes.shape
+    _check(state, "state", torch.int32, dev, (rows, lanes))
+    if rec_in is not None:
+        _check(rec_in, "rec_in", torch.int32, dev, (key_rows * lanes, words))
+    return dev, W, lanes
+
+
+def sharded_pml_gather(local_rec: torch.Tensor, lo: int, slots: int,
+                       p_dollar, codes: torch.Tensor, t: int, rec_in,
+                       state: torch.Tensor, ml: torch.Tensor):
+    """Kernel 15a, one step of the model-sharded PML scan: with rec_in
+    (step t-1's summed records int32 [lanes, 2]), that step's math on
+    state (idx, off, ml) int32 [3, lanes] and ml row t-1, both updated in
+    place; then, for t < W, this shard's records of step t's keys
+    idx*slots + codes[t] (rows [lo, lo + shard_len) of the padded table,
+    zero elsewhere) as int32 [lanes, 2] (None at t = W)."""
+    dev, W, lanes = _check_step("sharded_pml_gather", local_rec, 2, codes,
+                                torch.uint8, state, 3, rec_in, 1)
+    if not 0 <= t <= W or (t > 0) != (rec_in is not None):
+        raise ValueError("step t in [0, W] takes step t-1's records for "
+                         "t > 0 only")
+    _check(ml, "ml", torch.int32, dev, (W, lanes))
+    rec_out = torch.empty((lanes, 2), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_sharded_pml_step(
+        local_rec.data_ptr(), int(lo), local_rec.shape[0], slots,
+        int(p_dollar[0]), int(p_dollar[1]), codes.data_ptr(), W, lanes, t,
+        None if rec_in is None else rec_in.data_ptr(), state.data_ptr(),
+        ml.data_ptr(), rec_out.data_ptr(), _stream(dev))
+    _raise_on(code, "sharded_pml_gather")
+    launches["sharded_pml_gather"] += 1
+    return rec_out if t < W else None
+
+
+def sharded_search_gather(local_rec: torch.Tensor, lo: int, r: int,
+                          sigma: int, init_rec: torch.Tensor,
+                          chars: torch.Tensor, t: int, zml: bool, rec_in,
+                          state: torch.Tensor, ml):
+    """Kernel 15b, one step of the model-sharded count (zml False) or ZML
+    scan over chars int8 [W, lanes]: step 0 starts from chars[0]
+    (init_rec int32 [sigma+1, 4]); step t >= 1 applies chars[t] with the
+    summed records rec_in int32 [2*lanes, 4] (down rows, then up rows).
+    The state int32 [6, lanes] and ZML's ml [W, lanes] are updated in
+    place.  Returns this shard's rows of chars[t+1]'s keys, int32
+    [2*lanes, 4], or None after the last step."""
+    dev, W, lanes = _check_step("sharded_search_gather", local_rec, 4,
+                                chars, torch.int8, state, SEARCH_STATE_ROWS,
+                                rec_in, 2)
+    if not 0 <= t < W or (t > 0) != (rec_in is not None):
+        raise ValueError("step t in [0, W) takes step t's records for "
+                         "t > 0 only")
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    if zml:
+        _check(ml, "ml", torch.int32, dev, (W, lanes))
+    rec_out = torch.empty((2 * lanes, 4), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_sharded_search_step(
+        local_rec.data_ptr(), int(lo), local_rec.shape[0], r, sigma,
+        init_rec.data_ptr(), chars.data_ptr(), W, lanes, t, int(zml),
+        None if rec_in is None else rec_in.data_ptr(), state.data_ptr(),
+        ml.data_ptr() if zml else None, rec_out.data_ptr(), _stream(dev))
+    _raise_on(code, "sharded_search_gather")
+    launches["sharded_search_gather"] += 1
+    return rec_out if t + 1 < W else None
+
+
+def classify_from_ml(ml: torch.Tensor, lengths: torch.Tensor,
+                     bin_width: int, max_value_thr: int):
+    """Kernel 16a: the binned-maxima vote over ml int32 [W, lanes] with
+    the read lengths int32 [lanes].  Returns (found bool, above, below
+    int32), each [lanes]."""
+    dev = ml.device
+    if dev.type != "cuda":
+        raise ValueError("classify_from_ml launches on CUDA tensors only")
+    if ml.dim() != 2 or ml.shape[0] < 1:
+        raise ValueError("ml must be [W >= 1, lanes]")
+    _check(ml, "ml", torch.int32, dev)
+    W, lanes = ml.shape
+    _check(lengths, "lengths", torch.int32, dev, (lanes,))
+    if bin_width < 1:
+        raise ValueError(f"bin_width must be positive, got {bin_width}")
+    found = torch.empty(lanes, dtype=torch.bool, device=dev)
+    above, below = (torch.empty(lanes, dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    lib = _load()
+    code = lib.movi_classify_from_ml(
+        ml.data_ptr(), lengths.data_ptr(), W, lanes, bin_width,
+        int(max_value_thr), found.data_ptr(), above.data_ptr(),
+        below.data_ptr(), _stream(dev))
+    _raise_on(code, "classify_from_ml")
+    launches["classify_from_ml"] += 1
+    return found, above, below

@@ -1,12 +1,19 @@
 """Seeded synthetic indexes and reads shared by the parity tests and
-chip_smoke.py (numpy only, so both packages get identical inputs)."""
+chip_smoke.py (numpy only, so both packages get identical inputs), and
+the multi-rank runner of the parallel tests and the smoke: each rank is
+a fresh interpreter that imports this module, never a test module."""
 
 from __future__ import annotations
 
 import contextlib
 import io
 import os
-from typing import List, Sequence, Tuple
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -347,3 +354,265 @@ def genome_reads(genomes: Sequence[np.ndarray], lanes: int, read_len: int,
                       for gi, s in zip(g, starts)])
     flip = rng.random(reads.shape) < err
     return np.where(flip, rng.choice(ACGT, size=reads.shape), reads)
+
+
+# The multi-rank runner: ranks are fresh interpreters joined by a process
+# group at tcp://127.0.0.1:<a free port>.
+
+def free_port() -> int:
+    """A port no one listens on now (one per run: several test workers
+    start ranks at once)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(fn: str, world: int, timeout: float = 300, **kwargs) -> list:
+    """Run `fn` ("module:function") in `world` new processes; rank r gets
+    fn(rank=r, world=world, init_method=..., **kwargs) and its return
+    value (picklable) comes back in rank order.  Raises with a rank's
+    stderr if any rank fails or the run passes `timeout` seconds."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as d:
+        args = os.path.join(d, "args.pkl")
+        with open(args, "wb") as f:
+            pickle.dump((fn, world, f"tcp://127.0.0.1:{free_port()}",
+                         kwargs), f)
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(filter(None, [
+                       root, os.environ.get("PYTHONPATH")])))
+        procs = []
+        for rank in range(world):
+            err = open(os.path.join(d, f"err{rank}"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c",
+                 "from movi_tpu_torch.testing import _rank_main; "
+                 "_rank_main()", args, str(rank),
+                 os.path.join(d, f"out{rank}.pkl")],
+                cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err),
+                err))
+        failed = []
+        try:
+            for rank, (proc, err) in enumerate(procs):
+                rc = proc.wait(timeout=timeout)
+                if rc != 0:
+                    err.seek(0)
+                    failed.append(f"rank {rank} (rc {rc}):\n"
+                                  f"{err.read()[-4000:]}")
+        finally:
+            for proc, err in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                err.close()
+        if failed:
+            raise RuntimeError(f"{fn} on {world} ranks failed:\n"
+                               + "\n".join(failed))
+        out = []
+        for rank in range(world):
+            with open(os.path.join(d, f"out{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _rank_main():
+    """A rank of run_ranks: argv is (args file, rank, result file)."""
+    import importlib
+
+    import torch
+
+    torch.set_num_threads(1)
+    args, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    with open(args, "rb") as f:
+        fn, world, init_method, kwargs = pickle.load(f)
+    mod, name = fn.split(":")
+    res = getattr(importlib.import_module(mod), name)(
+        rank=rank, world=world, init_method=init_method, **kwargs)
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def _joined(rank: int, world: int, init_method: str, device: str,
+            backend: Optional[str]):
+    from .parallel import init_process_group
+
+    init_process_group(init_method, world, rank, device, backend)
+
+
+def _left():
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def right_aligned(rng: np.random.Generator, text: np.ndarray, lanes: int,
+                  W: int, min_len: int = 8, mutate: bool = False):
+    """A batch of `lanes` reads from the text, right-aligned in uint8
+    [lanes, W] (255 before each read), lengths in [min_len, W); with
+    mutate, about one base in six replaced from ACGTN (the recipe of
+    tests/test_parallel.py).  Returns (seqs, lengths int32, reads)."""
+    seqs = np.full((lanes, W), 255, dtype=np.uint8)
+    lengths = np.zeros(lanes, dtype=np.int32)
+    reads = []
+    for i in range(lanes):
+        L = int(rng.integers(min_len, W))
+        s = int(rng.integers(0, len(text) - L))
+        seq = text[s:s + L].copy()
+        if mutate:
+            pos = rng.integers(0, L, size=max(1, L // 6))
+            seq[pos] = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                                  size=len(pos))
+        seqs[i, W - L:] = seq
+        lengths[i] = L
+        reads.append(seq.tobytes())
+    return seqs, lengths, reads
+
+
+def scan_order_codes(rng: np.random.Generator, text: np.ndarray, amap,
+                     lanes: int, W: int, fill: int):
+    """[W, lanes] scan-order codes (amap of each byte, right to left) of
+    reads of 10..W-1 bases from the text, every third with one N (the
+    recipe of tests/test_sharded_index.py), `fill` past each read; and
+    the reads."""
+    alphas = np.full((lanes, W), fill, dtype=np.int32)
+    reads = []
+    for i in range(lanes):
+        L = int(rng.integers(10, W))
+        s = int(rng.integers(0, len(text) - L))
+        seq = text[s:s + L].copy()
+        if i % 3 == 0:
+            seq[int(rng.integers(0, L))] = ord("N")
+        reads.append(seq.tobytes())
+        alphas[i, :L] = amap[seq][::-1]
+    return np.ascontiguousarray(alphas.T), reads
+
+
+def kmer_window_columns(seqs: np.ndarray, lengths: np.ndarray, amap,
+                        k: int, multiple: int):
+    """Every k-mer window of a right-aligned batch as int32 [k, nk]
+    columns (padded with illegal -1 columns to a multiple of `multiple`)
+    and each window's owner lane."""
+    W = seqs.shape[1]
+    wins, owners = [], []
+    for i in range(seqs.shape[0]):
+        L = int(lengths[i])
+        if L < k:
+            continue
+        a = amap[seqs[i, W - L:]]
+        w = np.lib.stride_tricks.sliding_window_view(a, k)
+        wins.append(w)
+        owners.append(np.full(len(w), i))
+    wins = np.concatenate(wins).T.astype(np.int32)
+    pad = (-wins.shape[1]) % multiple
+    if pad:
+        wins = np.concatenate([wins, np.full((k, pad), -1, np.int32)],
+                              axis=1)
+    return wins, np.concatenate(owners)
+
+
+def mesh_results(mesh, text: np.ndarray, inputs: Dict) -> Dict:
+    """Every data-parallel engine of parallel/mesh.py on `mesh` over the
+    batches of `inputs`, gathered to whole batches as numpy arrays: PML
+    with classification one-step and paired ("pml", "pml_paired": ml,
+    found, above, below), count and ZML in both layouts on both search
+    batches, color (ml, color ids), k-mer counts (found, count) and the
+    MEM machines at L = inputs["mem_L"] and all-MEMs (ends, counts) on
+    the index of inputs["mem_text"] (closed under reverse complements, as
+    the machines assume)."""
+    from .build.suffix import build_bwt_runs
+    from .color import DocumentInfo, build_color_table
+    from .engine.fused import build_fused_index
+    from .engine.fused_color import build_fused_color_index
+    from .engine.fused_mem import build_fused_mem_index
+    from .engine.fused_search import build_fused_search_index
+    from .engine.fused_search2 import build_fused_search2_index
+    from .parallel.mesh import (ShardedColorEngine, ShardedKmerEngine,
+                                ShardedMemEngine, ShardedPMLEngine,
+                                ShardedSearchEngine)
+
+    def host(eng, *parts):
+        return tuple(eng.gather(t, dim).cpu().numpy() for t, dim in parts)
+
+    runs = build_bwt_runs(text)
+    ix = build_move_index(runs, "regular-thresholds", bound_ff=1)
+    fi = build_fused_index(ix)
+    res = {}
+    for key, paired in (("pml", False), ("pml_paired", True)):
+        eng = ShardedPMLEngine(fi, mesh, inputs["bin_width"], inputs["thr"],
+                               paired)
+        ml, found, above, below = eng.query_batch_device(*inputs[key])
+        res[key] = host(eng, (ml, 1), (found, 0), (above, 0), (below, 0))
+    layouts = {False: build_fused_search_index(ix),
+               True: build_fused_search2_index(ix, mesh.device)}
+    for key in ("search", "search_paired"):
+        for paired, idx in layouts.items():
+            se = ShardedSearchEngine(idx, mesh, paired)
+            matched, count = se.count_batch_device(*inputs[key])
+            zml = se.zml_batch_device(*inputs[key])
+            res[key, paired] = host(se, (matched, 0), (count, 0), (zml, 1))
+    ct = build_color_table(ix, runs.sa, DocumentInfo.create(
+        inputs["doc_ends"]))
+    ce = ShardedColorEngine(build_fused_color_index(ix, ct, fi), mesh)
+    res["color"] = host(ce, *[(t, 1) for t in ce.query_batch_device(
+        inputs["search"][0])])
+    ke = ShardedKmerEngine(layouts[False], inputs["k"], mesh)
+    res["kmer"] = host(ke, *[(t, 0) for t in ke.count_windows_device(
+        inputs["windows"])])
+    mi = build_fused_mem_index(index_from_text(inputs["mem_text"]),
+                               mesh.device)
+    for L in (inputs["mem_L"], 0):
+        me = ShardedMemEngine(mi, L, mesh)
+        st = me.query_batch_device(*inputs["kmer_batch"])
+        res["mem", L] = host(me, (st["ends"], 0), (st["counts"], 0))
+    return res
+
+
+def mesh_rank(rank: int, world: int, init_method: str, text, inputs,
+              device: str = "cpu", backend: Optional[str] = None):
+    """A rank of mesh_results on a `world`-rank 'data' mesh."""
+    from .parallel import make_mesh
+
+    _joined(rank, world, init_method, device, backend)
+    try:
+        return mesh_results(make_mesh(world, device, backend), text, inputs)
+    finally:
+        _left()
+
+
+def sharded_results(mesh, text: np.ndarray, pml_alphas, search_alphas
+                    ) -> Dict:
+    """The model-sharded scans of parallel/sharded_index.py on `mesh`,
+    gathered over 'data' as numpy: "pml" (ml), "count" (matched, count)
+    and "zml" (ml)."""
+    from .engine.fused import build_fused_index
+    from .engine.fused_search import build_fused_search_index
+    from .parallel.sharded_index import (sharded_fused_count,
+                                         sharded_fused_pml,
+                                         sharded_fused_zml)
+
+    ix = index_from_text(text)
+    fi = build_fused_index(ix)
+    si = build_fused_search_index(ix)
+    matched, count = sharded_fused_count(mesh, si, search_alphas)
+    return {"pml": mesh.gather(sharded_fused_pml(mesh, fi, pml_alphas), 1)
+            .cpu().numpy(),
+            "count": tuple(mesh.gather(t, 0).cpu().numpy()
+                           for t in (matched, count)),
+            "zml": mesh.gather(sharded_fused_zml(mesh, si, search_alphas),
+                               1).cpu().numpy()}
+
+
+def sharded_rank(rank: int, world: int, init_method: str, shapes, text,
+                 pml_alphas, search_alphas, device: str = "cpu",
+                 backend: Optional[str] = None):
+    """A rank of sharded_results on each (data, model) mesh of `shapes`
+    (each data * model = world), in order: [results per shape]."""
+    from .parallel import make_2d_mesh
+
+    _joined(rank, world, init_method, device, backend)
+    try:
+        return [sharded_results(make_2d_mesh(d, m, device, backend), text,
+                                pml_alphas, search_alphas)
+                for d, m in shapes]
+    finally:
+        _left()

@@ -68,6 +68,22 @@ def test_copied_builders_equal_jax(mode):
     _same(truns.sampled_sa(37), jruns.sampled_sa(37), "sampled_sa")
 
 
+def test_multihost_host_copies_equal_jax():
+    """parallel/multihost.py's host helpers are copies of movi_tpu's,
+    source line for source line (their behaviour:
+    tests/test_torch_multihost.py)."""
+    import inspect
+
+    from movi_tpu.parallel import multihost as jmh
+    from movi_tpu_torch.parallel import multihost as tmh
+
+    for name in ("_find_record_start", "byte_range_reads", "merge_parts",
+                 "bpf_header"):
+        assert inspect.getsource(getattr(tmh, name)) == \
+            inspect.getsource(getattr(jmh, name)), name
+    assert "movi_tpu/parallel/multihost.py" in tmh.__doc__
+
+
 def test_copied_color_table_equals_jax():
     docs = _docs()
     text = np.concatenate(docs)

@@ -11,6 +11,7 @@ import torch
 
 import movi_tpu_torch
 from movi_tpu_torch import device, kernels
+from movi_tpu_torch.engine import dense as td
 from movi_tpu_torch.engine import device_index as tdi
 from movi_tpu_torch.engine import fused as tf
 from movi_tpu_torch.engine import fused2 as tf2
@@ -24,6 +25,8 @@ from movi_tpu_torch.engine import fused_search as ts
 from movi_tpu_torch.engine import fused_search2 as ts2
 from movi_tpu_torch.engine import pml as tpml
 from movi_tpu_torch.engine import search as tsearch
+from movi_tpu_torch.parallel import mesh as tmesh
+from movi_tpu_torch.parallel import sharded_index as tsi
 from movi_tpu_torch.build.suffix import build_bwt_runs
 from movi_tpu_torch.index.structure import build_move_index
 from movi_tpu_torch.testing import (mixed_reads, small_color_index,
@@ -51,6 +54,12 @@ def test_port_imports_no_jax():
     assert "movi_tpu_torch.engine.fused_kmer2" in mods
     assert "movi_tpu_torch.engine.search" in mods
     assert "movi_tpu_torch.engine.fused_mem" in mods
+    # the multi-device runtime and the dense engine
+    assert {"movi_tpu_torch.engine.dense", "movi_tpu_torch.parallel",
+            "movi_tpu_torch.parallel.mesh",
+            "movi_tpu_torch.parallel.sharded_index",
+            "movi_tpu_torch.parallel.multihost",
+            "movi_tpu_torch.parallel.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,6 +77,7 @@ def test_port_imports_nothing_of_movi_tpu():
     interpreter loads no `movi_tpu` or `movi_tpu.*` module."""
     mods = _modules() + ["chip_smoke"]
     assert "movi_tpu_torch.logs" in mods
+    assert "movi_tpu_torch.parallel.dryrun" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -206,6 +216,23 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                   rr)
         tsearch.compact_count_scan(di, chars)
         tsearch.compact_zml_scan(di, chars)
+    dense = td.build_dense_index(ix)
+    td.dense_pml_scan(dense.table, slots, alphas,
+                      td.initial_state(dense, 4, "cpu"))
+    ml = torch.zeros((9, 4), dtype=torch.int32)
+    tmesh.classify_from_ml(ml, lengths, 3, 4)
+    state = torch.tensor([fi.start_idx, fi.start_offset, 0],
+                         dtype=torch.int32)[:, None].repeat(1, 4)
+    rec = tsi.sharded_pml_gather(fi.records[:7], 0, slots, fi.p_dollar,
+                                 alphas, 0, None, state, ml)
+    tsi.sharded_pml_gather(fi.records[:7], 0, slots, fi.p_dollar, alphas,
+                           1, rec, state, ml)
+    sst = torch.zeros((6, 4), dtype=torch.int32)
+    rec = tsi.sharded_search_gather(si.rec_all[5:], 5, si.r, si.sigma,
+                                    si.init_rec, chars, 0, True, None, sst,
+                                    ml)
+    tsi.sharded_search_gather(si.rec_all[5:], 5, si.r, si.sigma, si.init_rec,
+                              chars, 1, True, rec, sst, ml)
     assert all(v == 0 for v in kernels.launches.values())
     assert set(kernels.launches) == {"fused_pml_scan",
                                      "compose_paired_records",
@@ -223,7 +250,10 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "kmer2_right_scan", "kmer2_left_scan",
                                      "compact_pml_scan", "compact_count_scan",
                                      "compact_zml_scan", "pos2rba_build",
-                                     "mem1_scan", "all_mem1_scan"}
+                                     "mem1_scan", "all_mem1_scan",
+                                     "dense_pml_scan", "sharded_pml_gather",
+                                     "sharded_search_gather",
+                                     "classify_from_ml"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -362,6 +392,54 @@ def test_mem1_wrappers_refuse_cpu_tensors():
     st["ends"] = st["counts"] = torch.zeros((4, 9), dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.all_mem1_scan(*tabs, al8, st, 10)
+
+
+def test_dense_and_parallel_wrappers_refuse_cpu_tensors():
+    """The wrappers of kernels 14, 15a, 15b and 16a launch on CUDA
+    tensors only."""
+    codes = torch.zeros((3, 4), dtype=torch.uint8)
+    st = tuple(torch.zeros(4, dtype=torch.int32) for _ in range(2))
+    with pytest.raises(ValueError):
+        kernels.dense_pml_scan(torch.zeros(20, dtype=torch.int32), 5, codes,
+                               st)
+    ml = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.sharded_pml_gather(torch.zeros((6, 2), dtype=torch.int32), 0,
+                                   5, (0, 0), codes, 0, None,
+                                   torch.zeros((3, 4), dtype=torch.int32),
+                                   ml)
+    with pytest.raises(ValueError):
+        kernels.sharded_search_gather(
+            torch.zeros((6, 4), dtype=torch.int32), 0, 3, 4,
+            torch.zeros((5, 4), dtype=torch.int32),
+            torch.zeros((3, 4), dtype=torch.int8), 0, True, None,
+            torch.zeros((6, 4), dtype=torch.int32), ml)
+    with pytest.raises(ValueError):
+        kernels.classify_from_ml(ml, torch.zeros(4, dtype=torch.int32), 2, 4)
+
+
+def test_mesh_needs_its_ranks(monkeypatch):
+    """Without torch.distributed only the one-rank mesh exists: a larger
+    one raises instead of running unsharded; the default device is the
+    card, and without one the mesh raises rather than move to the CPU."""
+    from movi_tpu_torch import parallel
+
+    one = parallel.make_mesh(1, "cpu")
+    assert (one.data, one.model, one.d, one.m) == (1, 1, 0, 0)
+    assert one.device == torch.device("cpu") and one.backend is None
+    t = torch.arange(4)
+    assert one.gather(t, 0) is t
+    for shape in ((2, 1), (1, 2)):
+        with pytest.raises(RuntimeError, match="torch.distributed"):
+            parallel.make_2d_mesh(*shape, device="cpu")
+    assert parallel.backend_for(torch.device("cuda", 0)) == "nccl"
+    assert parallel.backend_for(torch.device("cpu")) == "gloo"
+    assert parallel.backend_for(torch.device("cuda", 0), "gloo") == "gloo"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.ShardedPMLEngine(tf.build_fused_index(small_index(n=600)[1]))
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
