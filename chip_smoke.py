@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from movi_tpu_torch/csrc (nineteen sources,
-thirty-one launch counters), checks each one against its plain PyTorch
+thirty-two launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
 `FusedSAEngine.query`, `query_kmers`, `query_mems` (on the MEM v2
@@ -131,11 +131,13 @@ the card's name and power limit.  Phases:
      small MEM v1  the same index, reads with N, '#', shorter than L and
               past 512 bases, and the first-run-longer-than-one index
               (tests/test_torch_mem1.py): kernel 13a equals its plain
-              version and np.repeat; 13b (L 2, 12) and 13c equal theirs
-              (every register, ends, counts, ticks and bytes) with
-              pos2rba and with the binary search over all_p; the v1
-              engines equal AdvancedEngine; a lane past its tick budget
-              raises
+              version and np.repeat, 13d its plain version and
+              searchsorted; 13b (L 2, 12) and 13c equal theirs (every
+              register, ends, counts, ticks, bytes and extensions) with
+              pos2rba and with the row -> run directory (the rule's shift
+              and b = 4); the v1 engines equal AdvancedEngine; a lane past
+              its tick budget raises, and a table with neither pos2rba
+              nor a directory too
      MEM      bench.py's reverse-complement closed index (3,000,000
               bases from default_rng(1) and their reverse complement,
               built by the port): the MEM v2 table with ftab-10 rows,
@@ -155,18 +157,20 @@ the card's name and power limit.  Phases:
               at L = 20, all-MEMs) with MEM2_MAX_N lowered below the
               index's length in this process (the route an index past
               2^28 positions takes), first with pos2rba (kernel 13a
-              builds it) and then with POS2RUN_MAX_N at 0 (the binary
-              search over all_p that the route past 2^28 always takes),
-              counted apart: both equal phase MEM's v2 answers on every
-              read, 256 sampled reads equal AdvancedEngine (numpy run
-              walks), kernels 13a-13c equal their plain versions in both
-              forms (13b/13c over the 150 bp batches and 8 long lanes cut
-              to 1,500 bases), timings per form, bounds from the bytes
-              really loaded, latency floors and warm breakdowns; then
-              `query --mem` (L = 20 and all-MEMs) through the CLI in this
-              process, counted apart again: it logs the v1 engine,
-              launches only 13b or 13c, and its .mems file equals the v2
-              answers' lines
+              builds it) and then with POS2RUN_MAX_N at 0 (the row ->
+              run directory that the route past 2^28 always takes, kernel
+              13d builds it), counted apart: both equal phase MEM's v2
+              answers on every read, 256 sampled reads equal
+              AdvancedEngine (numpy run walks), kernels 13a-13d equal
+              their plain versions in both forms (13b/13c over the 150 bp
+              batches and 8 long lanes cut to 1,500 bases), timings per
+              form, the longest lane's ticks and time a tick, bounds from
+              the table bytes the ticks need, latency floors and warm
+              breakdowns; 13d on a synthetic all_p of 2^25 runs past the L2
+              beside one searchsorted; then `query --mem` (L = 20 and
+              all-MEMs) through the CLI in this process, counted apart
+              again: it logs the v1 engine, launches only 13d and 13b or
+              13c, and its .mems file equals the v2 answers' lines
   6. small color  the three-document index of tests/test_fused_color.py:
               kernels A (3-word and two-load forms), B and C equal their
               plain versions with early stop off and on (ml, color ids,
@@ -285,6 +289,8 @@ CUDA_SOURCES = {
                          "movi_tpu/engine/search.py:161"),
     "pos2rba_build": ("movi_tpu_torch/csrc/fused_mem.cu",
                       "movi_tpu/engine/fused_mem.py:73"),
+    "run_dir_build": ("movi_tpu_torch/csrc/fused_mem.cu",
+                      "movi_tpu/engine/fused_mem.py:109"),
     "mem1_scan": ("movi_tpu_torch/csrc/fused_mem.cu",
                   "movi_tpu/engine/fused_mem.py:146"),
     "all_mem1_scan": ("movi_tpu_torch/csrc/fused_mem.cu",
@@ -325,7 +331,9 @@ KMER_LANES = 16384        # the screening reads of the k-mer phase
 KMER_SEED = 77
 MEM_KERNELS = ("mem2_scan", "all_mem2_scan", "kmer2_right_scan",
                "kmer2_left_scan")
-MEM1_KERNELS = ("pos2rba_build", "mem1_scan", "all_mem1_scan")
+MEM1_KERNELS = ("pos2rba_build", "run_dir_build", "mem1_scan",
+                "all_mem1_scan")
+SYN_RUNS = 1 << 25        # the synthetic all_p of kernel 13d's check
 MEM_RC_HALF = 3_000_000   # bench.py HBM_RC_HALF: half of the rc text
 MEM_L = 20                # bench.py MEM_L
 MEM_LANES = 16384         # bench.py MEM_LANES
@@ -2727,7 +2735,8 @@ def mem1_machine_pair(mi, al, state, ticks, what, errs, L=0):
 
 def mem1_tables(ix, dev):
     """The MEM v1 table of ix on dev in both reposition forms: with
-    pos2rba, and with POS2RUN_MAX_N at 0 (the binary search)."""
+    pos2rba, and with POS2RUN_MAX_N at 0 (the row -> run directory, at
+    the rule's shift and at b = 4, whose buckets take more halvings)."""
     from movi_tpu_torch.engine import fused_mem as tm1
 
     saved = tm1.POS2RUN_MAX_N
@@ -2735,9 +2744,70 @@ def mem1_tables(ix, dev):
         out = {"pos2rba": tm1.build_fused_mem_index(ix, dev)}
         tm1.POS2RUN_MAX_N = 0
         out["search"] = tm1.build_fused_mem_index(ix, dev)
+        out["search b=4"] = tm1.with_run_dir(out["search"], 4)
     finally:
         tm1.POS2RUN_MAX_N = saved
     return out
+
+
+def run_dir_pair(all_p, n, b, what, errs, table=None):
+    """Kernel 13d against its plain version, byte for byte, on all_p int32
+    [r+1] at shift b (and, given, against the table's directory).
+    Returns (the kernel's (fn, args), the plain version's milliseconds,
+    the library call's milliseconds: one torch.searchsorted of the
+    buckets' first rows, made before it is timed)."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_mem as tm1
+
+    args = (all_p, n, b)
+    got = kernels.run_dir_build(*args)
+    want, plain_ms = timed_ms(lambda: tm1.run_dir_plain(*args))
+    require_equal(f"{what} run_dir", got, want, errs, "run_dir_build")
+    rows = torch.arange(got.numel() - 1, dtype=torch.int32,
+                        device=all_p.device) << b
+
+    def library():
+        return torch.searchsorted(all_p, rows, right=True, out_int32=True)
+
+    if not torch.equal(library() - 1, got[:-1]):
+        raise AssertionError(f"{what}: kernel 13d differs from searchsorted")
+    if table is not None and not torch.equal(table, got):
+        raise AssertionError(f"{what}: the table's directory differs from "
+                             f"kernel 13d's")
+    return (kernels.run_dir_build, args), plain_ms, cuda_ms(library, reps=3)
+
+
+def phase_synthetic_run_dir(dev, card, errs, runs=SYN_RUNS):
+    """Kernel 13d on a synthetic all_p past the L2, made on the card:
+    `runs` runs of 1-14 rows (seeded), n just under 2^28, b by the rule;
+    byte for byte against its plain version, timed beside one
+    torch.searchsorted and its bytes bound."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused_mem as tm1
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    lengths = torch.randint(1, 15, (runs,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    all_p = torch.cat([lengths.new_zeros(1),
+                       torch.cumsum(lengths, 0, dtype=torch.int32)])
+    n = int(all_p[-1])
+    b = tm1.run_dir_shift(n, runs)
+    (fn, args), plain_ms, lib_ms = run_dir_pair(all_p, n, b,
+                                                "synthetic all_p", errs)
+    k_ms = cuda_ms(lambda: fn(*args), reps=5)
+    size = kernels.run_dir_size(n, b)
+    bound_ms, _ = bound(4 * (runs + 1) + 4 * size, 0)
+    say("MEM v1", f"kernel 13d on a synthetic all_p of {runs} runs "
+                  f"(n = {n}, b = {b}: {size} entries, {4 * size} B beside "
+                  f"all_p's {4 * (runs + 1)} B): kernel {k_ms:.6f} ms, "
+                  f"bytes bound {bound_ms:.6f} ms, library (one "
+                  f"searchsorted) {lib_ms:.6f} ms, plain {plain_ms:.6f} ms; "
+                  f"equal byte for byte  ({card})")
 
 
 def pos2rba_pair(ix, mi, what, errs):
@@ -2779,10 +2849,15 @@ def pos2rba_pair(ix, mi, what, errs):
 
 def phase_small_mem1(dev, errs):
     """The MEM v1 kernels on the index of tests/test_fused_mem.py: 13a
-    equals its plain version and np.repeat; 13b (L 2, 12) and 13c equal
-    theirs in both reposition forms on reads with N, '#', shorter than L
-    and past 512 bases, and on the first-run-longer-than-one index; the
-    engines equal AdvancedEngine; a lane past its tick budget raises."""
+    equals its plain version and np.repeat, 13d its plain version and
+    searchsorted; 13b (L 2, 12) and 13c equal theirs in both reposition
+    forms (the directory at the rule's shift and at b = 4) on reads with
+    N, '#', shorter than L and past 512 bases, and on the
+    first-run-longer-than-one index; the engines equal AdvancedEngine; a
+    lane past its tick budget raises, and so does a table with neither
+    pos2rba nor a directory."""
+    import dataclasses
+
     from movi_tpu_torch.cpu_ref.advanced import AdvancedEngine
     from movi_tpu_torch.engine import fused_mem as tm1
     from movi_tpu_torch.io.fastx import make_batches
@@ -2813,6 +2888,9 @@ def phase_small_mem1(dev, errs):
         for form, mi in mem1_tables(cix, dev).items():
             if form == "pos2rba":
                 pos2rba_pair(cix, mi, f"small r={cix.r}", errs)
+            else:
+                run_dir_pair(mi.all_p64, mi.n, mi.dir_shift,
+                             f"small r={cix.r} {form}", errs, mi.run_dir)
             for L in (12, 2, 0):
                 eng = (tm1.FusedMemEngine(mi, L, dev) if L
                        else tm1.FusedAllMemEngine(mi, dev))
@@ -2836,16 +2914,30 @@ def phase_small_mem1(dev, errs):
                 else:
                     raise AssertionError(f"{what}: no error past the tick "
                                          f"budget")
-    say("small MEM v1", f"kernel 13a equals plain and np.repeat; kernels "
-                        f"13b (L 2, 12) and 13c equal plain (every "
-                        f"register, ends, counts, ticks and bytes) with "
-                        f"pos2rba and with the binary search, on "
+                # no fallback: neither pos2rba nor a directory raises
+                bare = dataclasses.replace(mi, pos2rba=None, run_dir=None)
+                fn, args = mem1_kernel_run(bare, al, state, cap, L)
+                try:
+                    fn(*args)
+                except ValueError as e:
+                    if "neither pos2rba nor" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"{what}: a table without pos2rba "
+                                         f"and directory ran")
+    say("small MEM v1", f"kernel 13a equals plain and np.repeat, 13d plain "
+                        f"and searchsorted; kernels 13b (L 2, 12) and 13c "
+                        f"equal plain (every register, ends, counts, "
+                        f"ticks, bytes and extensions) with pos2rba and "
+                        f"with the row -> run directory (the rule's b and "
+                        f"b = 4), on "
                         f"{len(cases[0][1])} reads (width {batch.width} "
                         f"last, with N, '#', shorter than L, past 512 "
                         f"bases) and on the first-run-longer-than-one "
                         f"index; the engines equal AdvancedEngine ('#' "
                         f"reads and a lone N included); a lane past its "
-                        f"budget raises; longest lanes {ticks} ticks")
+                        f"budget raises, a table with neither pos2rba nor "
+                        f"a directory too; longest lanes {ticks} ticks")
 
 
 def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
@@ -2853,9 +2945,10 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
     """MEMs on the v1 machines: phase MEM's index and reads through
     Index.query_mems (BML at L = 20, all-MEMs) with MEM2_MAX_N lowered
     below the index's length, as on an index past 2^28 positions; first
-    with pos2rba, then with POS2RUN_MAX_N at 0 (the binary search that
-    the route past 2^28 always takes), counted apart; then `query --mem`
-    through the CLI, counted apart again."""
+    with pos2rba, then with POS2RUN_MAX_N at 0 (the row -> run directory
+    that the route past 2^28 always takes), counted apart; kernel 13d on
+    a synthetic all_p past the L2; then `query --mem` through the CLI,
+    counted apart again."""
     import torch
 
     from movi_tpu_torch import cli as tcli
@@ -2900,12 +2993,15 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
         for form in forms:
             mi = indexes[form]._mem1
             if (mi is None or indexes[form]._mem2 is not None
-                    or (mi.pos2rba is None) != (form == "search")):
+                    or (mi.pos2rba is None) != (form == "search")
+                    or (mi.run_dir is None) != (form == "pos2rba")):
                 raise AssertionError(f"{form}: Index.query_mems did not "
                                      f"take the v1 machines in this form")
         say("MEM v1", f"rc text n={n}, r={ix.r}, MEM2_MAX_N lowered to "
                       f"{n - 1}: v1 table {mem1_table_bytes(mi)} B without "
-                      f"pos2rba, + {8 * n} B of pos2rba; cold end to end "
+                      f"pos2rba, + {8 * n} B of pos2rba, or + "
+                      f"{4 * mi.run_dir.numel()} B of directory (b = "
+                      f"{mi.dir_shift}); cold end to end "
                       f"(host clock, the table build included): "
                       + "; ".join(f"{f} {k} {w:.3f} s"
                                   for (f, k), w in walls.items())
@@ -2950,6 +3046,7 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
         longest = {key: [] for key in runs}
         works = {key: [] for key in runs}
         nbytes = dict.fromkeys(runs, 0)
+        form_work = {}
         for form in forms:
             mi = indexes[form]._mem1
             if form == "pos2rba":
@@ -2959,6 +3056,13 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                 plain_ms["pos2rba_build", form] += ms
                 add_work(work, "pos2rba_build", 4 * (2 * ix.r + 1) + 8 * n,
                          0)
+            else:
+                run, ms, timings["run_dir_build.library"] = run_dir_pair(
+                    mi.all_p64, n, mi.dir_shift, "MEM v1", errs, mi.run_dir)
+                runs["run_dir_build", form].append(run)
+                plain_ms["run_dir_build", form] += ms
+                add_work(work, "run_dir_build",
+                         4 * (ix.r + 1) + 4 * mi.run_dir.numel(), 0)
             for L in (MEM_L, 0):
                 e = indexes[form].mem_engine(L, dev)
                 name = "mem1_scan" if L else "all_mem1_scan"
@@ -2976,28 +3080,33 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                         w = run[0](*run[1])[1]
                     runs[name, form].append(run)
                     works[name, form].append(w)
-                    ticks_sum, table = (int(x) for x in
-                                        w.to(torch.int64).sum(dim=1))
+                    ticks_sum, table, _ = (int(x) for x in
+                                           w.to(torch.int64).sum(dim=1))
                     longest[name, form].append(int(w[0].max()))
                     nbytes[name, form] += table
                     # slots and the state read once, the table bytes each
-                    # tick loads, ends and counts written once
-                    add_work(work, name, al.numel() + table
-                             + 2 * 48 * b.lanes + 8 * b.lanes * b.width,
+                    # tick needs, ends and counts written once
+                    moved = (al.numel() + table + 2 * 48 * b.lanes
+                             + 8 * b.lanes * b.width)
+                    add_work(work, name, moved, ticks_sum * 2 * OPS_PER_ROW)
+                    add_work(form_work, (name, form), moved,
                              ticks_sum * 2 * OPS_PER_ROW)
-        say("MEM v1", f"kernels 13a, 13b and 13c equal their plain versions "
-                      f"in both forms (13a and np.repeat byte for byte; "
-                      f"13b/13c over all lanes of the 150 bp batches and "
-                      f"{cut_lanes} long lanes cut to {cut_len} bases: every "
-                      f"register, ends, counts, ticks and bytes); the "
+        say("MEM v1", f"kernels 13a-13d equal their plain versions in "
+                      f"both forms (13a and np.repeat, 13d and searchsorted "
+                      f"byte for byte; 13b/13c over all lanes of the 150 bp "
+                      f"batches and {cut_lanes} long lanes cut to {cut_len} "
+                      f"bases: every register, ends, counts, ticks, bytes "
+                      f"and extensions); the "
                       f"longest lane per batch: "
                       + "; ".join(f"{nm} {f} {longest[nm, f]} ticks"
                                   for nm, f in runs if longest[nm, f])
-                      + "; table bytes loaded: "
+                      + "; table bytes needed: "
                       + "; ".join(f"{nm} {f} {nbytes[nm, f]}"
                                   for nm, f in runs if nbytes[nm, f]))
         shapes = [tuple(b.seqs.shape) for b in batches]
-        floors = mem1_floors(works, tm1.find_run_loads(ix.r), lat_us)
+        floors = mem1_floors(works, lat_us)
+        library = {"pos2rba_build": "one repeat_interleave",
+                   "run_dir_build": "one searchsorted"}
         for name in MEM1_KERNELS:
             both = [run for form in forms for run in runs[name, form]]
             k_ms = cuda_ms(lambda: [fn(*a) for fn, a in both], reps=3)
@@ -3009,19 +3118,26 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                     continue
                 f_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
                 timings[f"{name}.{form}"] = f_ms
-                per.append(f"{form} {f_ms:.6f} ms"
-                           + ("" if name == "pos2rba_build" else " [" + ", ".join(
-                               f"{lb} lanes x {wb}: "
-                               f"{cuda_ms(lambda: fn(*a), reps=3):.6f} ms"
-                               for (lb, wb), (fn, a) in zip(shapes, rs))
-                               + "]"))
-            if name == "pos2rba_build":
-                tail = (f"library (one repeat_interleave) "
+                if name in library:
+                    per.append(f"{form} {f_ms:.6f} ms")
+                    continue
+                b_ms = [cuda_ms(lambda: fn(*a), reps=3) for fn, a in rs]
+                i = int(np.argmax(longest[name, form]))
+                per.append(f"{form} {f_ms:.6f} ms [" + ", ".join(
+                    f"{lb} lanes x {wb}: {ms:.6f} ms"
+                    for (lb, wb), ms in zip(shapes, b_ms))
+                    + f"; longest lane {longest[name, form][i]} ticks, "
+                    f"{b_ms[i] * 1e3 / longest[name, form][i]:.3f} us a "
+                    f"tick; {nbytes[name, form]} table bytes, bound "
+                    f"{bound(*form_work[name, form])[0]:.6f} ms]")
+            if name in library:
+                tail = (f"library ({library[name]}) "
                         f"{timings[name + '.library']:.6f} ms; no chain")
             else:
                 tail = "latency floors " + "; ".join(
                     f"{form} {ms:.6f} ms ({t} ticks x {TICK_US} us + {x} "
-                    f"extensions x {k} loads x {lat_us * 1e3:.3f} ns)"
+                    f"extensions, {k} loads past a tick's first x "
+                    f"{lat_us * 1e3:.3f} ns)"
                     for form, (ms, t, x, k) in floors[name].items())
             say("MEM v1", f"{name} over the main path's {len(both)} "
                           f"launches: kernel {k_ms:.6f} ms ("
@@ -3029,6 +3145,7 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                           + f"), plain {timings[name][1]:.6f} ms (over the "
                           f"inputs compared above), {tail}  ({card})")
         del runs
+        phase_synthetic_run_dir(dev, card, errs, SYN_RUNS)
 
         for form, index in indexes.items():
             mem_breakdown(index, reads, {"L": MEM_L}, dev,
@@ -3065,7 +3182,7 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                 name = "mem1_scan" if key == "bml" else "all_mem1_scan"
                 used = {k: v for k, v in kernels.launches.items() if v}
                 if ("using the fused MEM engine (v1, large-n)" not in err
-                        or set(used) != {name}):
+                        or set(used) != {name, "run_dir_build"}):
                     raise AssertionError(f"CLI query --mem {key} did not "
                                          f"take the v1 route: launches "
                                          f"{used}")
@@ -3084,37 +3201,47 @@ def phase_mem1(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
     return counts
 
 
-def mem1_floors(works, find_loads, lat_us):
+def mem1_floors(works, lat_us):
     """Kernels 13b and 13c's latency floors in each reposition form: the
     most, over every lane of every batch, of the lane's ticks x TICK_US
-    and its successful extensions x the reposition's dependent loads x
-    lat_us (one pos2rba row; find_loads for the binary search).  Both
-    forms run the same ticks on the same reads, and a search extension
-    loads 8 * find_loads - 16 bytes more than a pos2rba one, so a lane's
-    extensions are its byte difference over that.  works[name, form]:
-    the kernel's work per batch.  Returns {name: {form: (ms, ticks,
-    extensions, loads)}} of each form's longest chain."""
+    (a tick's first round trip, the step's records) and the dependent
+    loads past it on its successful extensions x lat_us: the count's
+    all_p rows and the pos2rba row (2 an extension); or the count, the
+    directory pair and all_p[dir[k]] with the first halving, and the
+    further halvings of the longer of its two searches (at least 2 +
+    max(1, half its two searches' halvings) an extension).  Both forms
+    run the same ticks and extensions on the same reads, and a directory
+    reposition pair loads 8 + 4 x its halvings bytes more than a pos2rba
+    pair, so a lane's halvings are its byte difference less 8 an
+    extension, over 4.  works[name, form]: the kernel's work per batch.
+    Returns {name: {form: (ms, ticks, extensions, loads)}} of each form's
+    longest chain."""
     import torch
 
-    extra = 8 * find_loads - 16
-    loads = {"pos2rba": 1, "search": find_loads}
     out = {}
     for name in ("mem1_scan", "all_mem1_scan"):
-        out[name] = dict.fromkeys(loads, (0.0, 0, 0, 0))
+        out[name] = dict.fromkeys(("pos2rba", "search"), (0.0, 0, 0, 0))
         for wp, ws in zip(works[name, "pos2rba"], works[name, "search"],
                           strict=True):
-            diff = (ws[1] - wp[1]).to(torch.int64)
-            if not torch.equal(wp[0], ws[0]) or bool((diff % extra).any()):
+            wp, ws = wp.to(torch.int64), ws.to(torch.int64)
+            ext = wp[2]
+            halvings = ws[1] - wp[1] - 8 * ext
+            if (not torch.equal(wp[0], ws[0]) or not torch.equal(ext, ws[2])
+                    or bool((halvings % 4).any())
+                    or bool((halvings < 0).any())):
                 raise AssertionError(f"{name}: the reposition forms differ "
                                      f"in more than their repositions")
-            ext = diff // extra
+            halvings = halvings // 4
+            loads = {"pos2rba": 2 * ext,
+                     "search": 2 * ext + torch.maximum(
+                         ext, (halvings + 1) // 2)}
             for form, k in loads.items():
                 chain = (wp[0].to(torch.float64) * TICK_US
-                         + ext.to(torch.float64) * (k * lat_us))
+                         + k.to(torch.float64) * lat_us)
                 i = int(chain.argmax())
                 if float(chain[i]) / 1e3 > out[name][form][0]:
                     out[name][form] = (float(chain[i]) / 1e3, int(wp[0][i]),
-                                       int(ext[i]), k)
+                                       int(ext[i]), int(k[i]))
     return out
 
 
@@ -4349,8 +4476,8 @@ def main() -> int:
                      f"path's inputs -> bound {bound_ms:.6f} ms "
                      f"({bound_by}); kernel {ms:.6f} ms, "
                      f"{bound_ms / ms:.6f} of the bound  ({card})")
-        # one PyTorch call computes 13a (repeat_interleave); none
-        # computes any of the scans or composes
+        # one PyTorch call computes 13a (repeat_interleave) and one 13d
+        # (searchsorted); none computes any of the scans or composes
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=counts[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

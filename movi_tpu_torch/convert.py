@@ -27,7 +27,7 @@ from .engine.device_index import DeviceIndex
 from .engine.fused import FusedIndex, load_fused_index
 from .engine.fused2 import Fused2ColorIndex, Fused2Index, load_fused2_index
 from .engine.fused_color import FusedColorIndex
-from .engine.fused_mem import FusedMemIndex
+from .engine.fused_mem import FusedMemIndex, with_run_dir
 from .engine.fused_search import FusedSearchIndex
 from .engine.fused_sa import FusedSAIndex
 from .engine.fused_search2 import FusedSearch2Index, load_fused_search2_index
@@ -107,12 +107,16 @@ def fused_search_index_from_jax(si) -> FusedSearchIndex:
 
 def fused_mem_index_from_jax(mi) -> FusedMemIndex:
     """A movi_tpu FusedMemIndex -> the port's (host tensors): its search
-    records, skip rows and pos2rba (or None); all_p64 is the search
-    records' all_p in both."""
-    pos2rba = None if mi.pos2rba is None else _tensor(mi.pos2rba)
-    return FusedMemIndex(si=fused_search_index_from_jax(mi.si),
-                         skip_rec=_tensor(mi.skip_rec),
-                         n=int(np.asarray(mi.all_p64)[-1]), pos2rba=pos2rba)
+    records, skip rows and pos2rba; where it has no pos2rba, the port's
+    row -> run directory at the rule's shift (fused_mem.run_dir_shift)
+    built here, since the JAX table searches all_p instead.  all_p64 is the
+    search records' all_p in both."""
+    out = FusedMemIndex(si=fused_search_index_from_jax(mi.si),
+                        skip_rec=_tensor(mi.skip_rec),
+                        n=int(np.asarray(mi.all_p64)[-1]))
+    if mi.pos2rba is None:
+        return with_run_dir(out)
+    return dataclasses.replace(out, pos2rba=_tensor(mi.pos2rba))
 
 
 def fused_search2_index_from_jax(s2) -> FusedSearch2Index:

@@ -1,7 +1,8 @@
 // LF with the unbounded fast-forward and the backward-search interval
 // update on the compact run tables (movi_tpu_torch/engine/device_index.py),
-// shared by the compact PML, count and ZML scans; the run search over
-// all_p also serves the MEM v1 machines (csrc/fused_mem.cu).
+// shared by the compact PML, count and ZML scans; the run search through
+// the row -> run directory (find_run_dir2) serves the MEM v1 machines
+// (csrc/fused_mem.cu).
 //
 // Tables: n, lf_abs, c_search int32 [r]; all_p int32 [r+1] (all_p[r] = n,
 // the text length); ch_up_s/ch_down_s int32 [sigma, r] (r: none).
@@ -15,7 +16,7 @@ namespace compact {
 // The run holding absolute row x: the last i in [0, r] with all_p[i] <= x
 // (searchsorted(all_p, x, side="right") - 1 for 0 <= x), by a branch-free
 // binary search over all_p (a fixed number of dependent loads for a given
-// r).  Shared by the compact scans and the MEM v1 machines' reposition.
+// r).
 __device__ __forceinline__ int find_run(const int* __restrict__ all_p, int r,
                                         int x) {
     int base = 0;
@@ -42,12 +43,60 @@ __device__ __forceinline__ void find_run2(const int* __restrict__ all_p,
     }
 }
 
-// The dependent loads of one find_run: its halvings and the final all_p
-// row of the offset.
-__device__ __forceinline__ int find_run_loads(int r) {
-    int loads = 1;
-    for (int len = r + 1; len > 1; len -= len >> 1) ++loads;
-    return loads;
+// The row -> run directory (csrc/fused_mem.cu, kernel 13d): dir[k] =
+// find_run(k << b) for k < K = ((n-1) >> b) + 1, and dir[K] = r.  The run
+// holding row x lies in [dir[k], dir[k+1]] for k = x >> b (clamped to
+// [0, K-1]), and the runs starting in a bucket of 2^b rows number at most
+// 2^b, so a branch-free search of that span takes ceil(log2(dir[k+1] -
+// dir[k] + 1)) <= b + 1 halvings: the same for every row of the bucket.
+// On the all_p of non-empty runs (all_p[0] = 0, strictly increasing, as
+// every move index has) the result is find_run's for every int32 x: run 0
+// for x < 0 and run r for x >= n.
+struct RunDir {
+    const int* __restrict__ dir;  // [K+1]
+    int K, b;
+};
+
+__device__ __forceinline__ int dir_bucket(const RunDir& d, int x) {
+    const int k = x >> d.b;
+    return k < 0 ? 0 : (k > d.K - 1 ? d.K - 1 : k);
+}
+
+// find_run of two rows xs and xe through the directory, the two searches
+// interleaved so that their loads issue together: bs = find_run(xs), ps =
+// all_p[bs] (be, pe for xe).  One dependent load of each row's directory
+// pair, then all_p[dir[k]] issued with the first halving and carried
+// through the search (a halving that moves takes the row it compared), so
+// no load follows the last halving; a search that is done loads nothing
+// more.  h counts the halvings of both.
+__device__ __forceinline__ void find_run_dir2(const int* __restrict__ all_p,
+                                              const RunDir& d, int xs,
+                                              int xe, int& bs, int& ps,
+                                              int& be, int& pe, int& h) {
+    const int ks = dir_bucket(d, xs);
+    const int ke = dir_bucket(d, xe);
+    bs = __ldg(d.dir + ks);
+    be = __ldg(d.dir + ke);
+    int ls = __ldg(d.dir + ks + 1) - bs + 1;
+    int le = __ldg(d.dir + ke + 1) - be + 1;
+    ps = __ldg(all_p + bs);
+    pe = __ldg(all_p + be);
+    while (ls > 1 || le > 1) {
+        const int hs = ls >> 1, he = le >> 1;  // 0 once a search is done
+        const int vs = hs > 0 ? __ldg(all_p + bs + hs) : ps;
+        const int ve = he > 0 ? __ldg(all_p + be + he) : pe;
+        h += (hs > 0 ? 1 : 0) + (he > 0 ? 1 : 0);
+        if (vs <= xs) {
+            bs += hs;
+            ps = vs;
+        }
+        if (ve <= xe) {
+            be += he;
+            pe = ve;
+        }
+        ls -= hs;
+        le -= he;
+    }
 }
 
 // LF_move + fast_forward for one (run, offset): the absolute destination

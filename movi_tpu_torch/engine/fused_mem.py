@@ -5,8 +5,14 @@ Port of movi_tpu/engine/fused_mem.py.  The table (FusedMemIndex) is the
 one-step search records of engine/fused_search.py, the bidirectional skip
 rows (P, U) per (threshold char, run), all_p, and, up to POS2RUN_MAX_N
 BWT rows, pos2rba: each row's (run, all_p[run]), built on the device from
-n_arr and all_p (kernel 13a, csrc/fused_mem.cu).  Past that size the
-companion interval's reposition is a binary search over all_p.
+n_arr and all_p (kernel 13a, csrc/fused_mem.cu).  Past that size (so on
+every index the v1 machines serve past MEM2_MAX_N) the companion
+interval's reposition goes through the row -> run directory, built on the
+device from all_p (kernel 13d): dir[k] is the run holding row k << b, so
+a row's run lies between dir[k] and dir[k+1] for k = row >> b, and a
+binary search of that span (at most b + 1 halvings, one or two on most
+buckets) replaces JAX's searchsorted over all of all_p.  b is the
+smallest shift that keeps the directory no larger than all_p (4(r+1) B).
 
 The machines (AdvancedEngine.query_mems for L >= 2, query_all_mems
 otherwise):
@@ -64,7 +70,7 @@ AM_RIGHT, AM_LEFT, AM_DONE = 0, 1, 2
 MEM1_STATE_KEYS = kernels.MEM1_STATE_KEYS
 AM1_STATE_KEYS = kernels.AM1_STATE_KEYS
 
-POS2RUN_MAX_N = 1 << 27   # 1 GB of pos2rba; past this, the binary search
+POS2RUN_MAX_N = 1 << 27   # 1 GB of pos2rba; past this, the directory
 
 
 @dataclass
@@ -77,6 +83,10 @@ class FusedMemIndex:
     # pos2rba[row] = (the run holding BWT row `row`, all_p[run]); None
     # past POS2RUN_MAX_N rows
     pos2rba: Optional[torch.Tensor] = None   # int32 [n, 2]
+    # the row -> run directory where pos2rba is None: run_dir[k] = the run
+    # holding row k << dir_shift, run_dir[K] = r
+    run_dir: Optional[torch.Tensor] = None   # int32 [K+1]
+    dir_shift: int = 0
 
     @property
     def all_p64(self) -> torch.Tensor:
@@ -87,7 +97,9 @@ class FusedMemIndex:
         return replace(self, si=self.si.to(device),
                        skip_rec=self.skip_rec.to(device),
                        pos2rba=None if self.pos2rba is None
-                       else self.pos2rba.to(device))
+                       else self.pos2rba.to(device),
+                       run_dir=None if self.run_dir is None
+                       else self.run_dir.to(device))
 
 
 def pos2rba_plain(n_arr: torch.Tensor, all_p: torch.Tensor,
@@ -112,11 +124,51 @@ def build_pos2rba(n_arr: torch.Tensor, all_p: torch.Tensor,
     return pos2rba_plain(n_arr, all_p, n)
 
 
+def run_dir_shift(n: int, r: int) -> int:
+    """b of the row -> run directory: the smallest b >= 0 with ((n-1) >>
+    b) + 2 <= r + 1, so that its K+1 entries (K = ((n-1) >> b) + 1) take
+    no more than all_p's r+1."""
+    b = 0
+    while ((n - 1) >> b) + 2 > r + 1:
+        b += 1
+    return b
+
+
+def run_dir_plain(all_p: torch.Tensor, n: int, b: int) -> torch.Tensor:
+    """Plain PyTorch directory: searchsorted(all_p, arange(K) << b,
+    right) - 1 with r appended, int32 [K+1]."""
+    r = all_p.shape[0] - 1
+    rows = torch.arange(kernels.run_dir_size(n, b) - 1, dtype=torch.int32,
+                        device=all_p.device) << b
+    runs = torch.searchsorted(all_p, rows, right=True, out_int32=True) - 1
+    return torch.cat([runs, runs.new_tensor([r])])
+
+
+def build_run_dir(all_p: torch.Tensor, n: int, b: int) -> torch.Tensor:
+    """The directory on all_p's device: kernel 13d on CUDA, the plain
+    version on the CPU."""
+    if all_p.device.type == "cuda":
+        return kernels.run_dir_build(all_p, n, b)
+    if all_p.device.type != "cpu":
+        raise ValueError(f"no directory build for device {all_p.device}")
+    return run_dir_plain(all_p, n, b)
+
+
+def with_run_dir(mi: FusedMemIndex, b: Optional[int] = None
+                 ) -> FusedMemIndex:
+    """mi with its row -> run directory at shift b (by default
+    run_dir_shift's), built on mi's device; pos2rba dropped."""
+    if b is None:
+        b = run_dir_shift(mi.n, mi.si.r)
+    return replace(mi, pos2rba=None, dir_shift=b,
+                   run_dir=build_run_dir(mi.all_p64, mi.n, b))
+
+
 def build_fused_mem_index(ix: MoveIndex,
                           device: DeviceLike = None) -> FusedMemIndex:
     """The v1 table on `device`: the search records and skip rows built
-    on the host and moved there, pos2rba built there (up to
-    POS2RUN_MAX_N rows)."""
+    on the host and moved there, pos2rba built there up to POS2RUN_MAX_N
+    rows, else the row -> run directory at run_dir_shift's shift."""
     dev = resolve_device(device)
     r, sigma = ix.r, ix.sigma
     assert bytes(ix.alphabet) == b"ACGT", (
@@ -129,42 +181,50 @@ def build_fused_mem_index(ix: MoveIndex,
     si = build_fused_search_index(ix).to(dev)
     P_tab, U_tab = build_skip_tables(ix)
     skip = np.stack([P_tab, U_tab.astype(np.int64)], axis=2)
-    pos2rba = None
-    if n <= POS2RUN_MAX_N:
-        n_arr = torch.from_numpy(ix.n_arr.astype(np.int32)).to(dev)
-        pos2rba = build_pos2rba(n_arr, si.all_p, n)
-    return FusedMemIndex(
-        si=si, n=n, pos2rba=pos2rba,
+    mi = FusedMemIndex(
+        si=si, n=n,
         skip_rec=torch.from_numpy(skip.reshape(sigma * r, 2)
                                   .astype(np.int32)).to(dev))
+    if n > POS2RUN_MAX_N:
+        return with_run_dir(mi)
+    n_arr = torch.from_numpy(ix.n_arr.astype(np.int32)).to(dev)
+    return replace(mi, pos2rba=build_pos2rba(n_arr, si.all_p, n))
 
 
-def _resolve(all_p: torch.Tensor, abs_pos: torch.Tensor):
-    """(run, offset) of absolute BWT rows: searchsorted over all_p."""
-    r = all_p.shape[0] - 1
-    run = torch.searchsorted(all_p, abs_pos, right=True).to(torch.int32) - 1
-    return run, abs_pos - all_p[run.clamp(0, r).to(torch.int64)]
+def resolve_dir(all_p: torch.Tensor, run_dir: torch.Tensor, b: int,
+                x: torch.Tensor):
+    """The directory search of csrc/compact.cuh find_run_dir2, lane by
+    lane: the run holding each row of x (int32; find_run's answer, so 0
+    for x < 0 and r for x >= n), all_p[run], and the halvings each lane
+    took (ceil(log2(dir[k+1] - dir[k] + 1)) for its bucket k)."""
+    k = (x >> b).clamp(0, run_dir.shape[0] - 2).to(torch.int64)
+    base = run_dir[k]
+    length = run_dir[k + 1] - base + 1
+    halvings = torch.zeros_like(x)
+    while True:
+        live = length > 1
+        if not bool(live.any()):
+            break
+        half = length >> 1
+        v = all_p[(base + half).to(torch.int64)]
+        base = torch.where(live & (v <= x), base + half, base)
+        length = length - half
+        halvings += live.to(halvings.dtype)
+    return base, all_p[base.to(torch.int64)], halvings
 
 
 def _resolve_mi(mi: FusedMemIndex, abs_pos: torch.Tensor):
     """The reposition: one pos2rba row where the table exists (rows
     clipped: lanes that do not use the result carry any position), else
-    the binary search.  Returns (run, offset, bytes loaded per lane)."""
+    the directory search.  Returns (run, offset, bytes loaded per lane:
+    the pos2rba row, or the directory pair, all_p[dir[k]] and the
+    halvings)."""
     if mi.pos2rba is not None:
         row = mi.pos2rba[abs_pos.clamp(0, mi.n - 1).to(torch.int64)]
         return row[:, 0], abs_pos - row[:, 1], 8
-    run, off = _resolve(mi.all_p64, abs_pos)
-    return run, off, 4 * find_run_loads(mi.si.r)
-
-
-def find_run_loads(r: int) -> int:
-    """The dependent loads of a binary search over all_p [r+1]: its
-    halvings and the offset's row (csrc/compact.cuh find_run)."""
-    loads, length = 1, r + 1
-    while length > 1:
-        length -= length >> 1
-        loads += 1
-    return loads
+    run, start, halvings = resolve_dir(mi.all_p64, mi.run_dir, mi.dir_shift,
+                                       abs_pos)
+    return run, abs_pos - start, 8 + 4 + 4 * halvings
 
 
 def _count(all_p: torch.Tensor, rs, os_, re, oe):
@@ -177,8 +237,10 @@ def _extend_bidir(mi: FusedMemIndex, s, o, a):
     """One extend_bidirectional per lane (fused_mem.py _extend_bidir):
     backward-step the interval s with char a, advance the interval o by
     the skip count.  Returns (ok, new s, new o, table bytes a kernel
-    loads: the step's two records where a is legal, and on success the
-    two skip rows, three all_p rows and two repositions)."""
+    needs: where a is legal the step's two records, and on success the
+    two skip rows, all_p[o.rs], the count's two all_p rows and the two
+    repositions; a kernel loads the skip rows and all_p[o.rs] with the
+    records, and those of a failed step are not counted)."""
     si = mi.si
     sigma, r = si.sigma, si.r
     srs, sos, sre, soe = s
@@ -193,10 +255,10 @@ def _extend_bidir(mi: FusedMemIndex, s, o, a):
             - sr_s[:, 0] - sr_s[:, 1] * sos)
     new_cnt = _count(mi.all_p64, nrs, nos, nre, noe)
     start = mi.all_p64[ors.clamp(0, r).to(torch.int64)] + oos + skip
-    n_ors, n_oos, res_bytes = _resolve_mi(mi, start)
-    n_ore, n_ooe, _ = _resolve_mi(mi, start + new_cnt - 1)
+    n_ors, n_oos, s_bytes = _resolve_mi(mi, start)
+    n_ore, n_ooe, e_bytes = _resolve_mi(mi, start + new_cnt - 1)
     nbytes = (torch.where(a >= 0, 32, 0)
-              + torch.where(ok, 16 + 12 + 2 * res_bytes, 0))
+              + torch.where(ok, 16 + 4 + 8 + s_bytes + e_bytes, 0))
     return ok, (nrs, nos, nre, noe), (n_ors, n_oos, n_ore, n_ooe), nbytes
 
 
@@ -244,8 +306,8 @@ def _mem_tick(mi: FusedMemIndex, alphas, m, st, L: int, lane_idx, ends,
               counts):
     """One lockstep BML tick of every lane (fused_mem.py _mem_scan's
     tick, in its order); adds the emissions into ends and counts and
-    returns the new registers and the table bytes each lane's kernel
-    thread loads."""
+    returns the new registers and, per lane, the table bytes its kernel
+    thread's tick needs and its successful bidirectional extensions."""
     si = mi.si
     sigma, r = si.sigma, si.r
     W = alphas.shape[1]
@@ -337,12 +399,13 @@ def _mem_tick(mi: FusedMemIndex, alphas, m, st, L: int, lane_idx, ends,
 
     regs = (phase2, pos2, jc2, end2) + f2 + rc2
     return ({key: v.to(torch.int32) for key, v in zip(MEM1_STATE_KEYS, regs)},
-            nbytes)
+            torch.stack([nbytes, back_ok.to(nbytes.dtype)]))
 
 
 def _all_mem_tick(mi: FusedMemIndex, alphas, m, st, lane_idx, ends, counts):
     """One lockstep all-MEMs tick of every lane (fused_mem.py
-    _all_mem_scan's tick, in its order)."""
+    _all_mem_scan's tick, in its order); returns the new registers and
+    the per-lane tallies of _mem_tick."""
     sigma = mi.si.sigma
     W = alphas.shape[1]
     where = torch.where
@@ -395,7 +458,7 @@ def _all_mem_tick(mi: FusedMemIndex, alphas, m, st, lane_idx, ends, counts):
     phase2 = where(left_stop, AM_RIGHT, phase2)
     regs = (phase2, s2, ml2, e2) + f2 + rc2
     return ({key: v.to(torch.int32) for key, v in zip(AM1_STATE_KEYS, regs)},
-            nbytes)
+            torch.stack([nbytes, (right_ok | left_ok).to(nbytes.dtype)]))
 
 
 def mem_tick_cap(W: int) -> int:
@@ -415,15 +478,16 @@ def mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state, L: int,
     """Plain PyTorch BML machine: the start state of each ENTRY lane, then
     up to `ticks` lockstep ticks from state (MEM1_STATE_KEYS, ends and
     counts) over alphas [lanes, W] read-order slots (-1 illegal, -3 '#',
-    -2 past the read).  Returns (state, work int32 [2, lanes]: each
-    lane's ticks and table bytes)."""
+    -2 past the read).  Returns (state, work int32 [3, lanes]: each
+    lane's ticks, table bytes and successful bidirectional
+    extensions)."""
     al = alphas.to(torch.int32)
     m = _read_lengths(al)
     lane_idx = torch.arange(al.shape[0], device=al.device)
     return _lockstep(
         lambda st, ends, counts: _mem_tick(mi, al, m, st, L, lane_idx, ends,
                                            counts),
-        _enter_mem(state, m, L), DONE, ticks, al.device)
+        _enter_mem(state, m, L), DONE, ticks, al.device, tallies=2)
 
 
 def all_mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state,
@@ -437,7 +501,8 @@ def all_mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state,
     return _lockstep(
         lambda st, ends, counts: _all_mem_tick(mi, al, m, st, lane_idx,
                                                ends, counts),
-        _enter_all_mem(mi, al, m, state), AM_DONE, ticks, al.device)
+        _enter_all_mem(mi, al, m, state), AM_DONE, ticks, al.device,
+        tallies=2)
 
 
 def mem_scan_plain(mi: FusedMemIndex, alphas: torch.Tensor, state, L: int,
@@ -462,7 +527,7 @@ def kernel_tables(mi: FusedMemIndex):
     """The table arguments of kernels 13b and 13c."""
     si = mi.si
     return (si.rec_all, si.init_rec, mi.all_p64, mi.skip_rec, mi.pos2rba,
-            si.r, si.sigma, mi.n)
+            mi.run_dir, mi.dir_shift, si.r, si.sigma, mi.n)
 
 
 def mem_scan(mi: FusedMemIndex, alphas: torch.Tensor, state, L: int,

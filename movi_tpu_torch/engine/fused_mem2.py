@@ -648,21 +648,25 @@ def _all_mem2_tick(m2: FusedMem2Index, alphas, m, st, lane_idx, ends,
             rows)
 
 
-def _lockstep(tick, state, done: int, ticks: int, device):
+def _lockstep(tick, state, done: int, ticks: int, device, tallies=1):
     """Run `tick(st, ends, counts)` up to `ticks` times, stopping early
     once every lane is done (later ticks change nothing).  Returns the
-    state and work int32 [2, lanes]: each lane's ticks before it was done
-    and the 32 B rows it loaded."""
+    state and work int32 [1 + tallies, lanes]: each lane's ticks before it
+    was done and the sums of the per-lane tallies each tick returns beside
+    the state ([lanes] or [tallies, lanes]; the v2 machines: the 32 B rows
+    loaded)."""
     st = {key: v.clone() for key, v in state.items()}
     ends, counts = st.pop("ends"), st.pop("counts")
-    work = torch.zeros((2, ends.shape[0]), dtype=torch.int32, device=device)
+    lanes = ends.shape[0]
+    work = torch.zeros((1 + tallies, lanes), dtype=torch.int32,
+                       device=device)
     for t in range(ticks):
         if t % 64 == 0 and bool((st["phase"] == done).all()):
             break
         live = st["phase"] != done
-        st, rows = tick(st, ends, counts)
+        st, add = tick(st, ends, counts)
         work[0] += live.to(torch.int32)
-        work[1] += torch.where(live, rows, 0).to(torch.int32)
+        work[1:] += torch.where(live, add, 0).to(torch.int32).view(-1, lanes)
     st["ends"], st["counts"] = ends, counts
     return st, work
 

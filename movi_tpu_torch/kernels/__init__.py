@@ -43,7 +43,8 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "all_mem2_scan": 0, "kmer2_right_scan": 0,
             "kmer2_left_scan": 0, "compact_pml_scan": 0,
             "compact_count_scan": 0, "compact_zml_scan": 0,
-            "pos2rba_build": 0, "mem1_scan": 0, "all_mem1_scan": 0,
+            "pos2rba_build": 0, "run_dir_build": 0, "mem1_scan": 0,
+            "all_mem1_scan": 0,
             "dense_pml_scan": 0, "sharded_pml_gather": 0,
             "sharded_search_gather": 0, "classify_from_ml": 0}
 
@@ -119,13 +120,15 @@ _SIGNATURES = {
     "movi_compact_zml_scan": _COMPACT_SEARCH,
     # (n_arr, all_p, r, n, out, stream)
     "movi_pos2rba_build": [_P, _P, _I, _I, _P, _P],
-    # (rec_all, init_rec, all_p, skip_rec, pos2rba or NULL, r, sigma, n,
-    # alphas, W, lanes, L, ticks, state in, state out, ends, counts, work,
-    # stream)
-    "movi_mem1_scan": [*[_P] * 5, _I, _I, _I, _P, _I, _I, _I, _LL,
+    # (all_p, r, K, b, out, stream)
+    "movi_run_dir_build": [_P, _I, _I, _I, _P, _P],
+    # (rec_all, init_rec, all_p, skip_rec, pos2rba or NULL, run_dir or
+    # NULL, dir_shift, r, sigma, n, alphas, W, lanes, L, ticks, state in,
+    # state out, ends, counts, work, stream)
+    "movi_mem1_scan": [*[_P] * 6, _I, _I, _I, _I, _P, _I, _I, _I, _LL,
                        *[_P] * 6],
     # the same without L
-    "movi_all_mem1_scan": [*[_P] * 5, _I, _I, _I, _P, _I, _I, _LL,
+    "movi_all_mem1_scan": [*[_P] * 6, _I, _I, _I, _I, _P, _I, _I, _LL,
                            *[_P] * 6],
     # (table, codes, W, lanes, slots, p in, ml in, p out, ml out, ml,
     # stream)
@@ -1065,9 +1068,38 @@ def pos2rba_build(n_arr: torch.Tensor, all_p: torch.Tensor, n: int):
     return out
 
 
+def run_dir_size(n: int, b: int) -> int:
+    """K + 1: the directory's entries for n rows at shift b."""
+    return ((n - 1) >> b) + 2
+
+
+def run_dir_build(all_p: torch.Tensor, n: int, b: int):
+    """Kernel 13d: the row -> run directory int32 [K+1] of all_p int32
+    [r+1] (non-empty runs, all_p[r] = n): dir[k] = the run holding row k
+    << b for k < K = ((n-1) >> b) + 1, dir[K] = r."""
+    dev = all_p.device
+    if dev.type != "cuda":
+        raise ValueError("run_dir_build launches on CUDA tensors only")
+    if all_p.dim() != 1 or all_p.shape[0] < 2:
+        raise ValueError("all_p must be [r+1] with r >= 1")
+    _check(all_p, "all_p", torch.int32, dev)
+    _check_positions(n)
+    if not 0 <= b <= 31:
+        raise ValueError(f"directory shift {b} outside [0, 31]")
+    r = all_p.shape[0] - 1
+    size = run_dir_size(n, b)
+    out = torch.empty(size, dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_run_dir_build(all_p.data_ptr(), r, size - 1, b,
+                                  out.data_ptr(), _stream(dev))
+    _raise_on(code, "run_dir_build")
+    launches["run_dir_build"] += 1
+    return out
+
+
 def _mem1_machine(counter: str, keys, rec_all, init_rec, all_p, skip_rec,
-                  pos2rba, r: int, sigma: int, n: int, alphas, state,
-                  ticks: int, L=()):
+                  pos2rba, run_dir, dir_shift: int, r: int, sigma: int,
+                  n: int, alphas, state, ticks: int, L=()):
     """Shared launch of the two MEM v1 machines: check, allocate, launch,
     and raise where a lane is still running after `ticks` ticks."""
     dev = alphas.device
@@ -1080,6 +1112,14 @@ def _mem1_machine(counter: str, keys, rec_all, init_rec, all_p, skip_rec,
     _check(skip_rec, "skip_rec", torch.int32, dev, (sigma * r, 2))
     if pos2rba is not None:
         _check(pos2rba, "pos2rba", torch.int32, dev, (n, 2))
+    elif run_dir is None:
+        raise ValueError(f"{counter}: the table has neither pos2rba nor a "
+                         f"row -> run directory")
+    else:
+        if not 0 <= dir_shift <= 31:
+            raise ValueError(f"directory shift {dir_shift} outside [0, 31]")
+        _check(run_dir, "run_dir", torch.int32, dev,
+               (run_dir_size(n, dir_shift),))
     if alphas.dim() != 2:
         raise ValueError("alphas must be [lanes, W]")
     _check(alphas, "alphas", torch.int8, dev)
@@ -1092,11 +1132,12 @@ def _mem1_machine(counter: str, keys, rec_all, init_rec, all_p, skip_rec,
         _check(state[key], key, torch.int32, dev, (lanes, W))
     ends, counts = state["ends"].clone(), state["counts"].clone()
     st_out = torch.empty_like(st_in)
-    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    work = torch.empty((3, lanes), dtype=torch.int32, device=dev)
     lib = _load()
     code = getattr(lib, "movi_" + counter)(
         rec_all.data_ptr(), init_rec.data_ptr(), all_p.data_ptr(),
         skip_rec.data_ptr(), None if pos2rba is None else pos2rba.data_ptr(),
+        None if pos2rba is not None else run_dir.data_ptr(), dir_shift,
         r, sigma, n, alphas.data_ptr(), W, lanes, *L, int(ticks),
         st_in.data_ptr(), st_out.data_ptr(), ends.data_ptr(),
         counts.data_ptr(), work.data_ptr(), _stream(dev))
@@ -1109,35 +1150,36 @@ def _mem1_machine(counter: str, keys, rec_all, init_rec, all_p, skip_rec,
     return new_state, work
 
 
-def mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, r: int,
-              sigma: int, n: int, alphas: torch.Tensor, state, L: int,
-              ticks: int):
+def mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, run_dir,
+              dir_shift: int, r: int, sigma: int, n: int,
+              alphas: torch.Tensor, state, L: int, ticks: int):
     """Kernel 13b: the BML machine over alphas int8 [lanes, W] (read-order
     slots: -1 illegal, -3 '#', -2 past the read) on the MEM v1 table (the
     one-step search records int32 [2*sigma*r, 4] and init_rec [sigma+1,
-    4], all_p [r+1], skip_rec [sigma*r, 2], pos2rba [n, 2] or None for
-    the binary search).  state: the int32 [lanes] registers of
-    MEM1_STATE_KEYS (a lane at phase -1, ENTRY, starts from its slots),
-    ends and counts int32 [lanes, W].  Each lane runs
-    until it is done; one still running after `ticks` ticks raises.
-    Returns (state, work int32 [2, lanes]: each lane's ticks and table
-    bytes)."""
+    4], all_p [r+1], skip_rec [sigma*r, 2], and for the reposition either
+    pos2rba [n, 2] or, with pos2rba None, the row -> run directory run_dir
+    int32 [K+1] at shift dir_shift; neither raises).  state: the int32
+    [lanes] registers of MEM1_STATE_KEYS (a lane at phase -1, ENTRY,
+    starts from its slots), ends and counts int32 [lanes, W].  Each lane
+    runs until it is done; one still running after `ticks` ticks raises.
+    Returns (state, work int32 [3, lanes]: each lane's ticks, table bytes
+    and successful bidirectional extensions)."""
     if L < 2:
         raise ValueError(f"BML needs L >= 2, got {L}")
     return _mem1_machine("mem1_scan", MEM1_STATE_KEYS, rec_all, init_rec,
-                         all_p, skip_rec, pos2rba, r, sigma, n, alphas,
-                         state, ticks, (L,))
+                         all_p, skip_rec, pos2rba, run_dir, dir_shift, r,
+                         sigma, n, alphas, state, ticks, (L,))
 
 
-def all_mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, r: int,
-                  sigma: int, n: int, alphas: torch.Tensor, state,
-                  ticks: int):
+def all_mem1_scan(rec_all, init_rec, all_p, skip_rec, pos2rba, run_dir,
+                  dir_shift: int, r: int, sigma: int, n: int,
+                  alphas: torch.Tensor, state, ticks: int):
     """Kernel 13c: the all-MEMs machine over alphas int8 [lanes, W] from
     the registers of AM1_STATE_KEYS, on kernel 13b's tables.  Returns
     (state, work) as kernel 13b."""
     return _mem1_machine("all_mem1_scan", AM1_STATE_KEYS, rec_all, init_rec,
-                         all_p, skip_rec, pos2rba, r, sigma, n, alphas,
-                         state, ticks)
+                         all_p, skip_rec, pos2rba, run_dir, dir_shift, r,
+                         sigma, n, alphas, state, ticks)
 
 
 def dense_pml_scan(table: torch.Tensor, slots: int, codes: torch.Tensor,

@@ -197,10 +197,10 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     anchor = torch.tensor([0, 3, 1], dtype=torch.int32)
     right = tk2.kmer2_right_scan(m2, al8, own, anchor, 5)
     tk2.kmer2_left_scan(m2, s2, *right, al8, own, anchor, 5, 2)
-    for cap in (1 << 27, 0):  # pos2rba (kernel 13a), then the search
+    for cap in (1 << 27, 0):  # pos2rba (kernel 13a), then the directory
         monkeypatch.setattr(tm1, "POS2RUN_MAX_N", cap)
-        m1 = tm1.build_fused_mem_index(ix, "cpu")
-        assert (m1.pos2rba is None) == (cap == 0)
+        m1 = tm1.build_fused_mem_index(ix, "cpu")  # kernel 13d past the cap
+        assert (m1.pos2rba is None) == (cap == 0) == (m1.run_dir is not None)
         tm1.mem_scan(m1, al8,
                      tm2.entry_state(tm1.MEM1_STATE_KEYS, 4, 9, "cpu"), 5,
                      tm1.mem_tick_cap(9))
@@ -250,7 +250,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "kmer2_right_scan", "kmer2_left_scan",
                                      "compact_pml_scan", "compact_count_scan",
                                      "compact_zml_scan", "pos2rba_build",
-                                     "mem1_scan", "all_mem1_scan",
+                                     "run_dir_build", "mem1_scan",
+                                     "all_mem1_scan",
                                      "dense_pml_scan", "sharded_pml_gather",
                                      "sharded_search_gather",
                                      "classify_from_ml"}
@@ -372,16 +373,18 @@ def test_mem2_wrappers_refuse_cpu_tensors():
 
 
 def test_mem1_wrappers_refuse_cpu_tensors():
-    """The three MEM v1 wrappers launch on CUDA tensors only."""
+    """The four MEM v1 wrappers launch on CUDA tensors only."""
     r, sigma, n = 3, 4, 10
     n_arr = torch.zeros(r, dtype=torch.int32)
     all_p = torch.zeros(r + 1, dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.pos2rba_build(n_arr, all_p, n)
+    with pytest.raises(ValueError):
+        kernels.run_dir_build(all_p, n, 0)
     tabs = (torch.zeros((2 * sigma * r, 4), dtype=torch.int32),
             torch.zeros((sigma + 1, 4), dtype=torch.int32), all_p,
             torch.zeros((sigma * r, 2), dtype=torch.int32),
-            torch.zeros((n, 2), dtype=torch.int32), r, sigma, n)
+            torch.zeros((n, 2), dtype=torch.int32), None, 0, r, sigma, n)
     al8 = torch.zeros((4, 9), dtype=torch.int8)
     with pytest.raises(ValueError):
         kernels.mem1_scan(*tabs, al8,

@@ -113,14 +113,15 @@ def test_mem_ticks_equal_jax(setup, monkeypatch, form, L, ticks):
                                 jnp.asarray(batch.lengths, jnp.int32), L)
     want, _ = jfm._mem_scan(jmi, jnp.asarray(al8.numpy(), jnp.int32),
                             jstate, L, ticks)
-    got, (nticks, nbytes) = tfm.mem_ticks_plain(tmi, al8, state, L, ticks)
+    got, (nticks, nbytes, _) = tfm.mem_ticks_plain(tmi, al8, state, L,
+                                                   ticks)
     _equal_states(got, want, tfm.MEM1_STATE_KEYS)
     assert int(nticks.max()) <= ticks
     assert bool((nticks[got["phase"] != tfm.DONE] == ticks).all())
-    # a tick loads at most a step, an extension's rows and repositions,
+    # a tick loads at most a step, an extension's rows and repositions
+    # (a directory pair, all_p[dir[k]] and at most b + 1 halvings each),
     # and an emission's count
-    reposition = 8 if form == "pos2rba" else 4 * tfm.find_run_loads(
-        setup["ix"].r)
+    reposition = 8 if form == "pos2rba" else 12 + 4 * (tmi.dir_shift + 1)
     assert bool((nbytes <= nticks * (32 + 28 + 2 * reposition + 8)).all())
     assert int(nbytes.sum()) > 0
 
@@ -148,7 +149,8 @@ def test_all_mem_ticks_equal_jax(setup, monkeypatch, form, ticks):
     jstate = {key: jnp.asarray(v.numpy()) for key, v in start.items()}
     want, _ = jfm._all_mem_scan(jmi, jnp.asarray(al8.numpy(), jnp.int32),
                                 ticks, jstate)
-    got, (nticks, nbytes) = tfm.all_mem_ticks_plain(tmi, al8, state, ticks)
+    got, (nticks, nbytes, _) = tfm.all_mem_ticks_plain(tmi, al8, state,
+                                                       ticks)
     _equal_states(got, want, tfm.AM1_STATE_KEYS)
     assert int(nticks.max()) <= ticks and int(nbytes.sum()) > 0
 
