@@ -33,7 +33,9 @@ the card's name and power limit.  Phases:
               compact engines equal ScalarEngine on reads with N's and of
               lengths 1-2049; a reposition that finds no run raises from
               the kernel; the dependent-load latency with the tables in
-              the cache (for the latency floors)
+              the cache, from a chain of LF steps that search all_p and
+              load nothing else (a Triton kernel, for the latency floors),
+              and kernel 12a's µs a step on one long lane
      small SA the 5,000-base index of tests/test_fused_sa.py with its
               sampled SA at rates 100, 37 and 1,000 (long walks), reads
               with N's and of lengths 1-4097: kernels 8a and 8b equal
@@ -65,9 +67,12 @@ the card's name and power limit.  Phases:
               and by --rpml's rule, count, ZML; --rpml PML on the regular
               index), counted apart: threshold PML, count and ZML equal
               phases 4-5's answers over all reads, 256 sampled reads equal
-              ScalarEngine, kernels 12a-12c equal their plain versions over
-              the 150 bp batches and 8 long lanes cut to 1,500 bases, table
-              bytes, timings, latency floors and warm breakdowns
+              ScalarEngine, kernels 12a-12c (every LF through the row ->
+              run directory that kernel 13d builds from all_p) equal their
+              plain versions over the 150 bp batches and 8 long lanes cut
+              to 1,500 bases, table bytes, the halvings a LF, timings,
+              latency floors (the longest chain of dependent loads) and
+              warm breakdowns
      SA       the same index with its sampled SA at rate 100 and the same
               reads through FusedSAEngine.query, counted apart: kernels
               8a and 8b equal their plain versions over all lanes, 256
@@ -340,6 +345,11 @@ MEM_LANES = 16384         # bench.py MEM_LANES
 MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
 TICK_US = 0.9             # a dependent step's latency (PERF.md §2)
+# the latency probe's ns a load when it timed kernel 12a's chain while 12a's
+# LF searched all of all_p (15 loads a step on the probe's index; PERF.md
+# §6); load_latency times that search-form chain alone
+SEARCH_FORM_LOAD_NS = 60.561
+LATENCY_STEPS = 20_000    # the LF steps of load_latency's one chain
 COMPACT_KERNELS = ("compact_pml_scan", "compact_count_scan",
                    "compact_zml_scan")
 COMPACT_KINDS = {"pml": "compact_pml_scan", "rpml": "compact_pml_scan",
@@ -349,6 +359,70 @@ SHARDED_KERNELS = ("sharded_pml_gather", "sharded_search_gather")
 BIN_WIDTH = 150           # query --bin-width's default
 NULL_PERCENTILE = 59      # the null statistics of the mesh phase: thr 60
 CLASSIFY_OPS = 4          # integer operations per ml element of 16a
+
+
+tl = None  # triton.language, imported by load_latency on the card
+
+
+def _lf_search_chain(lf_abs, all_p, out, r, levels, steps):
+    """load_latency's kernel (Triton): one chain of LF steps, each the
+    lf_abs row, a branch-free search of all of all_p[0:r] (levels
+    halvings) and all_p at the run found, as kernel 12a's LF was before
+    the row -> run directory; no char and no mismatch.  out gets the last
+    (run, offset)."""
+    idx = r * 0
+    off = r * 0
+    for _t in range(steps):
+        x = tl.load(lf_abs + idx) + off
+        base = r * 0
+        size = r
+        for _h in range(levels):
+            half = size // 2
+            below = tl.load(all_p + base + half) <= x
+            base = tl.where(below, base + half, base)
+            size = size - half
+        off = x - tl.load(all_p + base)
+        idx = base
+    tl.store(out, idx)
+    tl.store(out + 1, off)
+
+
+def load_latency(di, steps=LATENCY_STEPS):
+    """Microseconds a dependent load, from one chain of steps LF steps
+    over the compact tables di (on the card, small enough to sit in the
+    cache), each levels + 2 loads and nothing else (_lf_search_chain).  It
+    is the yardstick of every latency floor, so it times no kernel of the
+    port: the floors do not move when one of those is redesigned.  The
+    chain's last (run, offset) must equal bisect's."""
+    import bisect
+
+    import torch
+    import triton
+
+    global tl
+    import triton.language as tl
+
+    r = di.r
+    levels = (r - 1).bit_length()  # halvings from r candidates down to 1
+    lf_abs, all_p = di.lf_abs.tolist(), di.all_p.tolist()
+    idx = off = 0
+    for _ in range(steps):
+        x = lf_abs[idx] + off
+        idx = bisect.bisect_right(all_p, x, 0, r) - 1
+        off = x - all_p[idx]
+    out = torch.zeros(2, dtype=torch.int32, device=di.all_p.device)
+    kernel = triton.jit(_lf_search_chain)
+
+    def run():
+        kernel[(1,)](di.lf_abs, di.all_p, out, r, levels, steps,
+                     num_warps=1)
+
+    ms = cuda_ms(run, reps=10)
+    if out.tolist() != [idx, off]:
+        raise AssertionError(f"latency probe: last (run, offset) "
+                             f"{out.tolist()} != bisect's {[idx, off]}")
+    loads = steps * (levels + 2)
+    return ms * 1e3 / loads, loads, levels
 
 
 def say(phase, msg):
@@ -680,16 +754,6 @@ def phase_small_search(dev, errs):
                  f"reads; count and ZML in both layouts equal ScalarEngine")
 
 
-def halvings(r):
-    """The all_p loads of one fast-forward search over r runs:
-    ceil(log2(r + 1)) halvings (csrc/compact.cuh)."""
-    steps, n = 0, r + 1
-    while n > 1:
-        n -= n >> 1
-        steps += 1
-    return steps
-
-
 def compact_run(kind, di, codes, state=None):
     """(kernel, args) of one compact scan: kind "pml"/"rpml" (state: the
     PML state), "count" or "zml" (state: None or the [6, lanes] one)."""
@@ -698,12 +762,14 @@ def compact_run(kind, di, codes, state=None):
     if kind in ("pml", "rpml"):
         return kernels.compact_pml_scan, (
             di.n, di.lf_abs, di.all_p, di.c, di.thr_full, di.rep_up,
-            di.rep_down, di.r, di.sigma, codes, state, kind == "rpml")
+            di.rep_down, di.run_dir, di.dir_shift, di.length, di.r,
+            di.sigma, codes, state, kind == "rpml")
     fn = (kernels.compact_count_scan if kind == "count"
           else kernels.compact_zml_scan)
     return fn, (di.n, di.lf_abs, di.all_p, di.c_search, di.ch_up_s,
                 di.ch_down_s, di.first_runs, di.first_offsets, di.last_runs,
-                di.last_offsets, di.r, di.sigma, codes, state)
+                di.last_offsets, di.run_dir, di.dir_shift, di.length, di.r,
+                di.sigma, codes, state)
 
 
 def compact_pair(kind, di, codes, state, what, errs, split=None):
@@ -773,52 +839,62 @@ def compact_steps(kind, codes, out):
 
 
 def compact_tally(kind, di, codes, state):
-    """The loads of one compact scan that depend on the data, counted by
-    its plain version on the same inputs: PML, the mismatches that
-    repositioned upward and those that tried the other direction; count
-    and ZML, the steps whose start and whose end moved to a nearest run."""
+    """The work of one compact scan that depends on the data, per lane,
+    counted by its plain version on the same inputs (int64
+    [pml.TALLY_ROWS, lanes]): PML, the mismatches that repositioned upward
+    and those that tried the other direction; count and ZML, the steps
+    whose start and whose end moved to a nearest run; then the halvings of
+    the LF searches through the directory, and the dependent loads the
+    steps add to the lane's chain past their first load and directory
+    pairs."""
     import torch
 
     from movi_tpu_torch.engine import pml as tpml
     from movi_tpu_torch.engine import search as tsearch
 
-    tally = torch.zeros(2, dtype=torch.int64, device=codes.device)
+    tally = torch.zeros((tpml.TALLY_ROWS, codes.shape[1]), dtype=torch.int64,
+                        device=codes.device)
     if kind in ("pml", "rpml"):
         tpml.compact_pml_scan_plain(di, codes, state, kind == "rpml", tally)
     elif kind == "count":
         tsearch.compact_count_scan_plain(di, codes, state, tally)
     else:
         tsearch.compact_zml_scan_plain(di, codes, state, tally)
-    return [int(v) for v in tally]
+    return tally
 
 
 def compact_work(kind, di, codes, got, tally):
-    """(bytes, ops) of one compact scan from the rows it loads.  PML: per
-    step its char, lf_abs and the S all_p rows of the fast-forward, the
-    row's char where the char is legal and ml; per mismatch the threshold
-    (or the length, --rpml) and the reposition row; the destination's
-    length where it went up and the other reposition row where it tried
-    the other direction (tally); the state in and out.  Count/ZML: per step
-    (two ends) the char rows of c_search, lf_abs and S all_p rows each; the
-    nearest-run row where an end moved, and the end's length (tally); the
-    chars read, the first/last run tables once, the outputs and the state
-    out (a scan from the first char reads none in); count also reads the
-    two all_p rows of its last interval."""
+    """(bytes, ops) of one compact scan from the rows it needs, each once.
+    PML: per step its char, the lf_abs row its LF starts from, the
+    directory pair and all_p[dir[k]] of the LF, and ml; the row's char
+    where the char is legal; per mismatch the threshold (or the length,
+    --rpml) and the reposition row (the destination's lf_abs row takes the
+    place of the row's, which the kernel issued early and drops); the
+    destination's length where it went up and the other reposition row
+    where it tried the other direction (tally rows 0-1); 4 B a halving
+    (row 2); the state in and out.  Count/ZML: per step (two ends) the
+    c_search row and the LF's lf_abs row, directory pair and all_p[dir[k]]
+    each; where an end moved, its nearest-run row (the new run's lf_abs
+    row takes the early one's place), and the end's length (rows 0-1); 4 B
+    a halving; the chars read, the first/last run tables once, the outputs
+    and the state out (a scan from the first char reads none in); count
+    also reads the two all_p rows of its last interval."""
     import torch
 
-    S = halvings(di.r) + 1
     lanes = codes.shape[1]
     n = int(compact_steps(kind, codes, got).sum())
+    t0, t1, halvings = (int(v) for v in tally[:3].sum(1))
+    lf = 4 + 8 + 4  # lf_abs, the directory pair, all_p[dir[k]]
+    ends = 1 if kind in ("pml", "rpml") else 2
+    ops = n * ends * (OPS_PER_ROW + 2) + 2 * halvings
     if kind in ("pml", "rpml"):
-        up, other = tally
         ml = got[1]
         legal = int((codes >= 0).sum())
         mism = int(((ml == 0) & (codes >= 0)).sum())
-        nbytes = (n * (1 + 4 + 4 * S + 4) + legal + mism * 8
-                  + (up + other) * 4 + 2 * 12 * lanes)
-        return nbytes, n * (OPS_PER_ROW + 2 * S)
-    moves_s, moves_e = tally
-    nbytes = (n * 2 * (4 + 4 + 4 * S) + moves_s * 4 + moves_e * 8
+        nbytes = (n * (1 + 4 + lf) + legal + mism * 8 + (t0 + t1) * 4
+                  + 4 * halvings + 2 * 12 * lanes)
+        return nbytes, ops
+    nbytes = (n * 2 * (4 + lf) + t0 * 4 + t1 * 8 + 4 * halvings
               + (di.sigma + 1) * 16 + 24 * lanes)
     if kind == "zml":
         nbytes += codes.numel() * (1 + 4)
@@ -826,7 +902,20 @@ def compact_work(kind, di, codes, got, tally):
         x, y = got[0][4].to(torch.int64), got[0][5]
         chars = int(torch.where(y == 1, x + 1, codes.shape[0]).sum())
         nbytes += chars + lanes * (4 + 8)
-    return nbytes, n * 2 * (OPS_PER_ROW + 2 * S)
+    return nbytes, ops
+
+
+def compact_chain(kind, codes, got, tally):
+    """Per lane, the dependent loads of its kernel's chain: 2 a step (the
+    row's char with its lf_abs row, or both ends'; the directory pairs),
+    the loads past them (tally row 3: max(1, halvings), and 2 where an end
+    of an interval moved), and PML's mismatches: the threshold or length,
+    the reposition row (the other direction's too) and the destination's
+    rows, 3 each, and one more a try of the other direction."""
+    loads = 2 * compact_steps(kind, codes, got) + tally[3]
+    if kind in ("pml", "rpml"):
+        loads = loads + 3 * ((got[1] == 0) & (codes >= 0)).sum(0) + tally[1]
+    return loads
 
 
 def check_compact_oracle(what, reads, res, oracle, rr_pml=None):
@@ -850,7 +939,8 @@ def phase_small_compact(dev, errs):
     against ScalarEngine, on an unsplit thresholds index, a regular index
     and a separators index; the not-found reposition raises from the
     kernel; and the latency of a dependent load whose tables sit in the
-    cache (one long lane repeated), for the latency floors."""
+    cache (load_latency), for the latency floors, beside kernel 12a's
+    time a step (one long lane repeated)."""
     import dataclasses
 
     import torch
@@ -922,25 +1012,35 @@ def phase_small_compact(dev, errs):
                          f"{kernels.NOT_FOUND!r} from kernel 12a (both "
                          f"rules)")
 
-    # the dependent-load latency with the tables in the cache: one 2,049-
-    # base read repeated over 128 lanes walks one chain per warp
+    # the dependent-load latency with the tables in the cache, from a
+    # chain of loads alone (load_latency); beside it kernel 12a's own
+    # chain: one 2,049-base read repeated over 128 lanes walks one chain
+    # per warp, its loads counted from the plain tally
+    lat_us, lat_loads, levels = load_latency(di)
     read = length_reads(text, lengths=(2049,))
     eng = Index(ix).compact_engine("pml", device=dev)
     codes, st = compact_codes("pml", eng, next(make_batches(
         read, 1, bucket_widths=False)))
+    tally = compact_tally("pml", eng.di, codes, st)
+    fn, args = compact_run("pml", eng.di, codes, st)
+    loads = int(compact_chain("pml", codes, fn(*args), tally)[0])
     codes = codes.repeat(1, 128).contiguous()
     st = tuple(s.repeat(128) for s in st)
     fn, args = compact_run("pml", eng.di, codes, st)
     ms = cuda_ms(lambda: fn(*args), reps=10)
-    ml = fn(*args)[1]
-    S = halvings(ix.r) + 1
-    mism = int(((ml[:, 0] == 0) & (codes[:, 0] >= 0)).sum())
-    loads = codes.shape[0] * (S + 2) + 3 * mism
-    lat_us = ms * 1e3 / loads
     say("small compact", f"dependent-load latency, tables in the cache "
-                         f"(r={ix.r}, {codes.shape[0]} steps of {loads} "
-                         f"chained loads, {S} all_p rows a step): "
-                         f"{ms:.6f} ms = {lat_us * 1e3:.3f} ns a load")
+                         f"(r={ix.r}): a chain of {lat_loads} loads "
+                         f"({LATENCY_STEPS} LF steps of the search form, "
+                         f"{levels} halvings each) {lat_us * 1e3:.3f} ns a "
+                         f"load (the probe over kernel 12a's search form: "
+                         f"{SEARCH_FORM_LOAD_NS} ns, ratio "
+                         f"{lat_us * 1e3 / SEARCH_FORM_LOAD_NS:.3f}); "
+                         f"kernel 12a's chain (directory shift "
+                         f"{eng.di.dir_shift}, {codes.shape[0]} steps, "
+                         f"{loads} chained loads, {int(tally[2, 0])} "
+                         f"halvings) {ms:.6f} ms = "
+                         f"{ms * 1e3 / codes.shape[0]:.6f} us a step, "
+                         f"{ms * 1e6 / loads:.3f} ns a load")
     return lat_us
 
 
@@ -1274,7 +1374,10 @@ def phase_compact(dev, card, errs, timings, work, ctx, lat_us,
                             reads[lanes:lanes + cut_lanes]], QUERY_LANES))
     runs_of = {k: [] for k in COMPACT_KINDS}
     plain_ms = dict.fromkeys(COMPACT_KINDS, 0.0)
-    steps_of = {k: [] for k in COMPACT_KINDS}  # the longest lane a batch
+    # a batch's longest chain: (its dependent loads, its lane's steps),
+    # and the batch's halvings over its LF searches
+    chain_of = {k: [] for k in COMPACT_KINDS}
+    halving_of = {k: [0, 0] for k in COMPACT_KINDS}
     for kind, eng in engines.items():
         for b in batches + [cut]:
             codes, st = compact_codes(kind, eng, b)
@@ -1288,40 +1391,49 @@ def phase_compact(dev, card, errs, timings, work, ctx, lat_us,
                 run = compact_run(kind, eng.di, codes, st)
                 got = run[0](*run[1])
             runs_of[kind].append(run)
-            steps_of[kind].append(int(compact_steps(kind, codes, got).max()))
+            tally = compact_tally(kind, eng.di, codes, st)
+            chain = compact_chain(kind, codes, got, tally)
+            steps = compact_steps(kind, codes, got)
+            i = int(chain.argmax())
+            chain_of[kind].append((int(chain[i]), int(steps[i])))
+            halving_of[kind][0] += int(tally[2].sum())
+            halving_of[kind][1] += int(steps.sum()) * (
+                1 if "pml" in kind else 2)
             if kind != "rpml":
                 add_work(work, COMPACT_KINDS[kind], *compact_work(
-                    kind, eng.di, codes, got,
-                    compact_tally(kind, eng.di, codes, st)))
-    S = halvings(ix.r)
-    longest = {k: max(v) for k, v in steps_of.items()}
+                    kind, eng.di, codes, got, tally))
     say("compact", f"kernels 12a (both rules), 12b and 12c equal their "
                    f"plain versions over all lanes of the 150 bp batches "
                    f"and {cut_lanes} long lanes cut to {cut_len} bases; "
-                   f"the longest lane's steps: " + ", ".join(
-                       f"{k} {v}" for k, v in longest.items())
-        + f"; {S} halvings of all_p a fast-forward")
+                   f"directory shift {di.dir_shift} "
+                   f"({di.run_dir.numel()} entries); halvings a LF: "
+                   + ", ".join(f"{k} {h / n:.6f}" for k, (h, n)
+                               in halving_of.items()))
     shapes = [tuple(b.seqs.shape) for b in batches]
     for kind in COMPACT_KINDS:
         rs = runs_of[kind]
         k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
         per = [cuda_ms(lambda: fn(*a), reps=3) for fn, a in rs]
-        # the chain of one step: the row's char, lf_abs, the halvings and
-        # the final all_p row, at the latency measured with the tables in
-        # the cache (phase small compact)
-        floor_ms = longest[kind] * (S + 3) * lat_us / 1e3
+        # the longest chain of dependent loads over the batches (the row's
+        # char with its lf_abs row, the directory pair, all_p[dir[k]] with
+        # the halvings, a mismatch's or a moved end's rows), at the latency
+        # measured with the tables in the cache (phase small compact)
+        loads, steps = max(chain_of[kind])
+        floor_ms = loads * lat_us / 1e3
         timings[f"compact {kind}"] = (k_ms, plain_ms[kind], floor_ms)
         if kind != "rpml":
             timings[COMPACT_KINDS[kind]] = (k_ms, plain_ms[kind])
+        last_loads, last_steps = chain_of[kind][-1]
         say("compact", f"{kind} over the main path's {len(rs)} batches "
                        f"({n_bases} bases): kernel {k_ms:.6f} ms = "
                        f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
                        f"{plain_ms[kind]:.6f} ms (over the inputs compared "
                        f"above), latency floor {floor_ms:.6f} ms "
-                       f"({longest[kind]} steps x {S + 3} loads x "
+                       f"({loads} dependent loads over {steps} steps x "
                        f"{lat_us * 1e3:.3f} ns); the 10 kb batch "
-                       f"{per[-1] / steps_of[kind][-1] * 1e3:.6f} us a step "
-                       f"of its longest lane; kernel "
+                       f"{per[-1] / last_steps * 1e3:.6f} us a step and "
+                       f"{last_loads / last_steps:.6f} dependent loads a "
+                       f"step of its longest chain; kernel "
                        f"per batch [" + ", ".join(
                            f"{lb} lanes x {wb}: {ms:.6f} ms"
                            for (lb, wb), ms in zip(shapes, per))

@@ -97,8 +97,9 @@ def _color_needs_thresholds(ix):
 
 
 class Index:
-    def __init__(self, ix: MoveIndex):
+    def __init__(self, ix: MoveIndex, bwt_runs=None):
         self.ix = ix
+        self._runs = bwt_runs  # kept, as movi_tpu keeps them; unread
         self._fused = None    # FusedIndex (host or device tensors)
         self._paired = None   # Fused2Index
         self._search = None   # FusedSearchIndex
@@ -119,9 +120,10 @@ class Index:
               separators: bool = False, bound_ff: Optional[int] = 1,
               ) -> "Index":
         ref = prepare_ref(fasta, rc=rc, separators=separators)
-        ix = build_move_index(build_bwt_runs(ref.text), mode,
-                              separators=separators, bound_ff=bound_ff)
-        return cls(ix)
+        runs = build_bwt_runs(ref.text)
+        ix = build_move_index(runs, mode, separators=separators,
+                              bound_ff=bound_ff)
+        return cls(ix, bwt_runs=runs)
 
     def save(self, index_dir: str, engine_caches: bool = True):
         """index.npz plus the record caches, in the JAX package's formats

@@ -149,14 +149,17 @@ def dense_index_from_jax(di) -> DenseIndex:
 
 def device_index_from_jax(di) -> DeviceIndex:
     """A movi_tpu DeviceIndex -> the port's (host tensors of the JAX
-    arrays' own types)."""
+    arrays' own types), with the row -> run directory the JAX index has
+    not, built on the host from all_p at run_dir_shift's shift."""
     meta = ("r", "length", "end_bwt_idx", "sigma")
     kw = {f.name: getattr(di, f.name) for f in dataclasses.fields(DeviceIndex)
-          if f.name not in meta + ("mode", "alphamap_query")}
+          if f.name not in meta + ("mode", "alphamap_query", "run_dir",
+                                   "dir_shift")}
     kw = {k: None if v is None else torch.from_numpy(np.array(v))
           for k, v in kw.items()}
-    return DeviceIndex(mode=di.mode, **{k: int(getattr(di, k)) for k in meta},
-                       alphamap_query=np.asarray(di.alphamap_query), **kw)
+    return DeviceIndex(
+        mode=di.mode, **{k: int(getattr(di, k)) for k in meta},
+        alphamap_query=np.asarray(di.alphamap_query), **kw).with_run_dir()
 
 
 def load_engine_caches(index_dir: str) -> Tuple[

@@ -4,19 +4,24 @@
 // _bs_step, _interval_update and _init_interval).
 //
 // Bound on this card: the latency of a chain of dependent loads per base
-// per lane.  A step loads the two ends' chars, where they differ from the
-// read's char a nearest-run row (and the end's run length), then lf_abs and
-// about log2(r+1) all_p rows of each end's fast-forward search: two chains
-// of some 25-28 loads each at five million runs.  Design: one thread per
-// read lane with the interval in registers and the loop over the bases
-// inside the kernel, so a batch is one launch.  The two ends are
+// per lane.  A step (csrc/compact.cuh bs_step) loads the two ends' chars
+// with their lf_abs rows; where an end's char differs from the read's, a
+// nearest-run row, then that run's lf_abs row (and the end's run length);
+// then each end's LF through the row -> run directory: the bucket's
+// directory pair, all_p[dir[k]] with the first halving, and one load per
+// further halving (at most b + 1, one or two on most buckets).  An end
+// that keeps its run is a chain of three or four loads, in place of the
+// 25-28 of a search of all of all_p at five million runs.  Design: one
+// thread per read lane with the interval in registers and the loop over
+// the bases inside the kernel, so a batch is one launch.  The two ends are
 // independent, and their loads are issued side by side so both chains are
-// in flight together (csrc/compact.cuh lf2).  The sigma+1 rows of the
-// first/last run tables sit in shared memory.  A count lane stops once its
-// interval is empty; a char of -2 (past the read's start) changes nothing.
-// ZML emits every step and runs to the end.  `first` starts from the first
-// row of chars; otherwise the scan continues from the state passed in, so a
-// scan split into pieces equals one pass.
+// in flight together (csrc/compact.cuh lf2_dir, find_run_dir2).  The
+// sigma+1 rows of the first/last run tables sit in shared memory.  A count
+// lane stops once its interval is empty; a char of -2 (past the read's
+// start) changes nothing.  ZML emits every step and runs to the end.
+// `first` starts from the first row of chars; otherwise the scan
+// continues from the state passed in, so a scan split into pieces equals
+// one pass.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +57,7 @@ __global__ void compact_search_kernel(
     // (x, y) = (matched, done) for count, (have, ml) for ZML
     int rs, os, re, oe, x, y;
     int t0 = 0;
+    int h = 0;  // the halvings (unused: the plain versions count them)
     if (first) {
         const int a0 = codes[lane];
         const int4 v = init_of(a0);
@@ -74,7 +80,8 @@ __global__ void compact_search_kernel(
         const int a = codes[at];
         if (!ZML && a == -2) continue;  // past the read: not alive
         int nrs = rs, nos = os, nre = re, noe = oe;
-        const bool empty = movi::compact::bs_step(T, a, nrs, nos, nre, noe);
+        const bool empty =
+            movi::compact::bs_step(T, a, nrs, nos, nre, noe, h);
         if (ZML) {
             const bool ext_ok = x && !empty;
             if (ext_ok) {
@@ -113,13 +120,16 @@ template <bool ZML>
 int launch(const void* n, const void* lf_abs, const void* all_p,
            const void* c_search, const void* ch_up_s, const void* ch_down_s,
            const void* first_runs, const void* first_offsets,
-           const void* last_runs, const void* last_offsets, int r, int sigma,
+           const void* last_runs, const void* last_offsets,
+           const void* run_dir, int K, int b, int r, int sigma,
            const void* codes, int W, int lanes, int first, const void* st_in,
            void* st_out, void* out, void* stream) {
-    const movi::compact::Tables T{(const int*)n,        (const int*)lf_abs,
-                                  (const int*)all_p,    (const int*)c_search,
-                                  (const int*)ch_up_s,  (const int*)ch_down_s,
-                                  r,                    sigma};
+    const movi::compact::Tables T{
+        (const int*)n,        (const int*)lf_abs,
+        (const int*)all_p,    (const int*)c_search,
+        (const int*)ch_up_s,  (const int*)ch_down_s,
+        movi::compact::RunDir{(const int*)run_dir, K, b},
+        r,                    sigma};
     const int block = 256;
     const int grid = (lanes + block - 1) / block;
     const size_t smem = (size_t)(sigma + 1) * sizeof(int4);
@@ -137,30 +147,31 @@ int launch(const void* n, const void* lf_abs, const void* all_p,
 }  // namespace
 
 // (n, lf_abs, all_p, c_search, ch_up_s, ch_down_s, first_runs,
-// first_offsets, last_runs, last_offsets, r, sigma, codes, W, lanes, first,
-// state in, state out, count [lanes] or ml [W, lanes], stream)
+// first_offsets, last_runs, last_offsets, run_dir, K, b, r, sigma, codes,
+// W, lanes, first, state in, state out, count [lanes] or ml [W, lanes],
+// stream)
 extern "C" int movi_compact_count_scan(
     const void* n, const void* lf_abs, const void* all_p,
     const void* c_search, const void* ch_up_s, const void* ch_down_s,
     const void* first_runs, const void* first_offsets, const void* last_runs,
-    const void* last_offsets, int r, int sigma, const void* codes, int W,
-    int lanes, int first, const void* st_in, void* st_out, void* count,
-    void* stream) {
+    const void* last_offsets, const void* run_dir, int K, int b, int r,
+    int sigma, const void* codes, int W, int lanes, int first,
+    const void* st_in, void* st_out, void* count, void* stream) {
     return launch<false>(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                          first_runs, first_offsets, last_runs, last_offsets,
-                         r, sigma, codes, W, lanes, first, st_in, st_out,
-                         count, stream);
+                         run_dir, K, b, r, sigma, codes, W, lanes, first,
+                         st_in, st_out, count, stream);
 }
 
 extern "C" int movi_compact_zml_scan(
     const void* n, const void* lf_abs, const void* all_p,
     const void* c_search, const void* ch_up_s, const void* ch_down_s,
     const void* first_runs, const void* first_offsets, const void* last_runs,
-    const void* last_offsets, int r, int sigma, const void* codes, int W,
-    int lanes, int first, const void* st_in, void* st_out, void* ml,
-    void* stream) {
+    const void* last_offsets, const void* run_dir, int K, int b, int r,
+    int sigma, const void* codes, int W, int lanes, int first,
+    const void* st_in, void* st_out, void* ml, void* stream) {
     return launch<true>(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                         first_runs, first_offsets, last_runs, last_offsets,
-                        r, sigma, codes, W, lanes, first, st_in, st_out, ml,
-                        stream);
+                        run_dir, K, b, r, sigma, codes, W, lanes, first,
+                        st_in, st_out, ml, stream);
 }

@@ -57,6 +57,8 @@ from ..cpu_ref.native_search import build_skip_tables
 from ..device import DeviceLike, resolve_device
 from ..index.structure import MoveIndex
 from ..io.fastx import ReadBatch, left_aligned_slots
+from .device_index import (build_run_dir, resolve_dir,  # noqa: F401
+                           run_dir_plain, run_dir_shift)
 from .fused_mem2 import (_lockstep, _read_lengths, enter, entry_state,
                          mem_lists)
 from .fused_search import (FusedSearchIndex, build_fused_search_index,
@@ -124,36 +126,6 @@ def build_pos2rba(n_arr: torch.Tensor, all_p: torch.Tensor,
     return pos2rba_plain(n_arr, all_p, n)
 
 
-def run_dir_shift(n: int, r: int) -> int:
-    """b of the row -> run directory: the smallest b >= 0 with ((n-1) >>
-    b) + 2 <= r + 1, so that its K+1 entries (K = ((n-1) >> b) + 1) take
-    no more than all_p's r+1."""
-    b = 0
-    while ((n - 1) >> b) + 2 > r + 1:
-        b += 1
-    return b
-
-
-def run_dir_plain(all_p: torch.Tensor, n: int, b: int) -> torch.Tensor:
-    """Plain PyTorch directory: searchsorted(all_p, arange(K) << b,
-    right) - 1 with r appended, int32 [K+1]."""
-    r = all_p.shape[0] - 1
-    rows = torch.arange(kernels.run_dir_size(n, b) - 1, dtype=torch.int32,
-                        device=all_p.device) << b
-    runs = torch.searchsorted(all_p, rows, right=True, out_int32=True) - 1
-    return torch.cat([runs, runs.new_tensor([r])])
-
-
-def build_run_dir(all_p: torch.Tensor, n: int, b: int) -> torch.Tensor:
-    """The directory on all_p's device: kernel 13d on CUDA, the plain
-    version on the CPU."""
-    if all_p.device.type == "cuda":
-        return kernels.run_dir_build(all_p, n, b)
-    if all_p.device.type != "cpu":
-        raise ValueError(f"no directory build for device {all_p.device}")
-    return run_dir_plain(all_p, n, b)
-
-
 def with_run_dir(mi: FusedMemIndex, b: Optional[int] = None
                  ) -> FusedMemIndex:
     """mi with its row -> run directory at shift b (by default
@@ -189,28 +161,6 @@ def build_fused_mem_index(ix: MoveIndex,
         return with_run_dir(mi)
     n_arr = torch.from_numpy(ix.n_arr.astype(np.int32)).to(dev)
     return replace(mi, pos2rba=build_pos2rba(n_arr, si.all_p, n))
-
-
-def resolve_dir(all_p: torch.Tensor, run_dir: torch.Tensor, b: int,
-                x: torch.Tensor):
-    """The directory search of csrc/compact.cuh find_run_dir2, lane by
-    lane: the run holding each row of x (int32; find_run's answer, so 0
-    for x < 0 and r for x >= n), all_p[run], and the halvings each lane
-    took (ceil(log2(dir[k+1] - dir[k] + 1)) for its bucket k)."""
-    k = (x >> b).clamp(0, run_dir.shape[0] - 2).to(torch.int64)
-    base = run_dir[k]
-    length = run_dir[k + 1] - base + 1
-    halvings = torch.zeros_like(x)
-    while True:
-        live = length > 1
-        if not bool(live.any()):
-            break
-        half = length >> 1
-        v = all_p[(base + half).to(torch.int64)]
-        base = torch.where(live & (v <= x), base + half, base)
-        length = length - half
-        halvings += live.to(halvings.dtype)
-    return base, all_p[base.to(torch.int64)], halvings
 
 
 def _resolve_mi(mi: FusedMemIndex, abs_pos: torch.Tensor):

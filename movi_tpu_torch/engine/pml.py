@@ -4,9 +4,11 @@ Port of movi_tpu/engine/pml.py.  Each base loads the row's char; on a
 mismatch it repositions by threshold (or, with random_repositioning, by
 the reference's offset rule, query --rpml) through rep_up/rep_down; then
 LF with an unbounded fast-forward: the absolute destination lf_abs[idx] +
-off mapped back to (run, offset) by a binary search over all_p.  The scan
-runs the hand-written CUDA kernel (csrc/compact_pml.cu) on a CUDA tensor
-and the plain PyTorch version below on a CPU tensor.
+off mapped back to (run, offset) through the row -> run directory
+(engine/device_index.py resolve_dir), which gives JAX's searchsorted over
+all_p for every row.  The scan runs the hand-written CUDA kernel
+(csrc/compact_pml.cu) on a CUDA tensor and the plain PyTorch version below
+on a CPU tensor.
 
 Scan state (idx, off, ml) int32 [lanes] comes in and goes out, so a scan
 split into pieces equals one pass.  Chars are int8 [W, lanes] in scan
@@ -24,18 +26,23 @@ from ..io.fastx import ReadBatch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device
-from .device_index import PML_TABLES, DeviceIndex
+from .device_index import PML_TABLES, DeviceIndex, resolve_dir
 from .fused import trim
 
 NOT_FOUND = kernels.NOT_FOUND  # ScalarEngine's message, both directions r
+TALLY_ROWS = 4  # the rows of a scan's tally (compact_pml_scan_plain)
 
 
 def lf_step(di: DeviceIndex, idx: torch.Tensor, off: torch.Tensor):
     """LF_move with the unbounded fast-forward: (run, offset) of
-    lf_abs[idx] + off, found in all_p."""
+    lf_abs[idx] + off, found through the row -> run directory, and the
+    halvings each lane's search took."""
+    if di.run_dir is None:
+        raise ValueError("the compact tables have no row -> run directory")
     abs_dest = di.lf_abs[idx.to(torch.int64)] + off
-    new_idx = torch.searchsorted(di.all_p, abs_dest, right=True) - 1
-    return new_idx.to(torch.int32), abs_dest - di.all_p[new_idx]
+    run, start, halvings = resolve_dir(di.all_p, di.run_dir, di.dir_shift,
+                                       abs_dest)
+    return run, abs_dest - start, halvings
 
 
 def pml_step(di: DeviceIndex, state, a: torch.Tensor,
@@ -63,9 +70,9 @@ def pml_step(di: DeviceIndex, state, a: torch.Tensor,
     else:
         go_up = off < di.thr_full.reshape(-1)[i64 * sigma + a_s]
     if tally is not None:
-        tally[0] += (case2 & go_up).sum()
+        tally[0] += case2 & go_up
         if random_repositioning:
-            tally[1] += (case2 & (torch.where(first_up, up, down) >= r)).sum()
+            tally[1] += case2 & (torch.where(first_up, up, down) >= r)
     dest = torch.where(go_up, up, down)
     missing = case2 & (dest >= r)
     dest = dest.clamp(max=r - 1)  # a missing lane raises after the scan
@@ -76,7 +83,10 @@ def pml_step(di: DeviceIndex, state, a: torch.Tensor,
     # a mismatch or an illegal char zeroes ml; an illegal one keeps the
     # position, and LF runs either way
     new_ml = torch.where(case1, ml + 1, 0)
-    lf_idx, lf_off = lf_step(di, new_idx, new_off)
+    lf_idx, lf_off, halvings = lf_step(di, new_idx, new_off)
+    if tally is not None:
+        tally[2] += halvings
+        tally[3] += halvings.clamp(min=1)
     return (lf_idx, lf_off, new_ml), new_ml, missing
 
 
@@ -84,9 +94,12 @@ def compact_pml_scan_plain(di: DeviceIndex, codes: torch.Tensor, state,
                            random_repositioning: bool = False, tally=None):
     """Plain PyTorch scan over codes [W, lanes].  Returns (state, ml [W,
     lanes]); raises where a reposition finds no run.  tally, where given
-    (int64 [2]), gains the mismatches that repositioned upward and those
-    that tried the other direction: the kernel's loads that depend on the
-    data besides a mismatch's own two."""
+    (int64 [TALLY_ROWS, lanes]), gains per lane the kernel's loads that
+    depend on the data besides a mismatch's own: the mismatches that
+    repositioned upward and those that tried the other direction, the
+    halvings of the LF searches, and the dependent loads each LF adds to
+    the lane's chain past its directory pair (max(1, halvings), since
+    all_p[dir[k]] issues with the first halving)."""
     if not random_repositioning and di.thr_full is None:
         raise ValueError("threshold repositioning needs an index with "
                          "thresholds")
@@ -109,7 +122,8 @@ def compact_pml_scan(di: DeviceIndex, codes: torch.Tensor, state,
     if di.lf_abs.device.type == "cuda":
         return kernels.compact_pml_scan(
             di.n, di.lf_abs, di.all_p, di.c, di.thr_full, di.rep_up,
-            di.rep_down, di.r, di.sigma, codes, state, random_repositioning)
+            di.rep_down, di.run_dir, di.dir_shift, di.length, di.r, di.sigma,
+            codes, state, random_repositioning)
     if di.lf_abs.device.type != "cpu":
         raise ValueError(f"no scan for device {di.lf_abs.device}")
     return compact_pml_scan_plain(di, codes, state, random_repositioning)

@@ -4,9 +4,10 @@ engine/device_index.py.
 Port of movi_tpu/engine/search.py.  Each lane carries an interval (rs:os,
 re:oe); a step moves its ends to the nearest runs with the char through
 ch_down_s/ch_up_s (update_interval), then takes LF on both ends with the
-unbounded fast-forward of engine/pml.py.  The scans run the hand-written
-CUDA kernel (csrc/compact_search.cu) on CUDA tensors and the plain PyTorch
-versions below on CPU tensors.
+unbounded fast-forward of engine/pml.py, through the row -> run
+directory.  The scans run the hand-written CUDA kernel
+(csrc/compact_search.cu) on CUDA tensors and the plain PyTorch versions
+below on CPU tensors.
 
 Chars are int8 [W, lanes] in scan order: 0..sigma-1, -1 illegal, -2 past a
 read's start (count).  Scan state, int32 [6, lanes]: rows (rs, os, re, oe)
@@ -56,13 +57,20 @@ def _interval_update(di: DeviceIndex, rs, os_, re, oe, a):
 def _bs_step(di: DeviceIndex, rs, os_, re, oe, a):
     """backward_search_step: the interval update and LF on both ends.
     Lanes with an illegal char or an empty result report empty; their
-    interval is then unspecified.  Also returns the ends' moves of
-    _interval_update."""
+    interval is then unspecified.  Also returns the work of a kernel's
+    step, int64 [pml.TALLY_ROWS, lanes]: whether the start and whether the
+    end moved to a nearest run (_interval_update), the halvings of the two
+    LF searches, and the dependent loads the step adds to its lane's chain
+    past its first load and its directory pairs: the two searches run
+    interleaved (max(1, the longer's halvings)), and an end that moves
+    loads its nearest-run row, then its new run's rows (2 more)."""
     rs1, os1, re1, oe1, empty, moves = _interval_update(
         di, rs, os_, re, oe, a.clamp(min=0))
-    rs2, os2 = lf_step(di, rs1.clamp(max=di.r - 1), os1)
-    re2, oe2 = lf_step(di, re1, oe1)
-    return rs2, os2, re2, oe2, empty | (a < 0), moves
+    rs2, os2, hs = lf_step(di, rs1.clamp(max=di.r - 1), os1)
+    re2, oe2, he = lf_step(di, re1, oe1)
+    chain = torch.maximum(hs, he).clamp(min=1) + 2 * (moves[0] | moves[1])
+    work = torch.cat([moves, torch.stack([hs + he, chain])]).to(torch.int64)
+    return rs2, os2, re2, oe2, empty | (a < 0), work
 
 
 def _init_interval(di: DeviceIndex, a):
@@ -83,9 +91,10 @@ def compact_count_scan_plain(di: DeviceIndex, codes: torch.Tensor,
                              state: Optional[torch.Tensor] = None,
                              tally: Optional[torch.Tensor] = None):
     """Plain PyTorch count scan over codes [W, lanes].  Returns (state,
-    count [lanes]); matched is state[4].  tally, where given (int64 [2]),
-    gains the steps whose start and whose end moved to a nearest run: the
-    kernel's loads that depend on the data."""
+    count [lanes]); matched is state[4].  tally, where given (int64
+    [pml.TALLY_ROWS, lanes]), gains per lane the work of _bs_step over the
+    steps its kernel takes (a lane's, until it is done, past the read
+    none): the kernel's loads that depend on the data."""
     a = codes.to(torch.int32)
     t0 = 0
     if state is None:
@@ -98,10 +107,10 @@ def compact_count_scan_plain(di: DeviceIndex, codes: torch.Tensor,
     done = done == 1
     for t in range(t0, a.shape[0]):
         alive = ~done & (a[t] != -2)
-        nrs, nos, nre, noe, empty, moves = _bs_step(di, rs, os_, re, oe,
-                                                    a[t])
+        nrs, nos, nre, noe, empty, work = _bs_step(di, rs, os_, re, oe,
+                                                   a[t])
         if tally is not None:
-            tally += (moves & alive).sum(1)
+            tally += work * alive
         ok = alive & ~empty
         rs = torch.where(ok, nrs, rs)
         os_ = torch.where(ok, nos, os_)
@@ -136,10 +145,10 @@ def compact_zml_scan_plain(di: DeviceIndex, codes: torch.Tensor,
     rs, os_, re, oe, have, ml = state.unbind(0)
     have = have == 1
     for t in range(t0, W):
-        nrs, nos, nre, noe, empty, moves = _bs_step(di, rs, os_, re, oe,
-                                                    a[t])
+        nrs, nos, nre, noe, empty, work = _bs_step(di, rs, os_, re, oe,
+                                                   a[t])
         if tally is not None:
-            tally += moves.sum(1)
+            tally += work
         ext_ok = have & ~empty
         irs, ios, ire, ioe = _init_interval(di, a[t])
         rs = torch.where(ext_ok, nrs, irs)
@@ -156,8 +165,8 @@ def _dispatch(kernel, plain, di: DeviceIndex, codes, state):
     if di.lf_abs.device.type == "cuda":
         return kernel(di.n, di.lf_abs, di.all_p, di.c_search, di.ch_up_s,
                       di.ch_down_s, di.first_runs, di.first_offsets,
-                      di.last_runs, di.last_offsets, di.r, di.sigma, codes,
-                      state)
+                      di.last_runs, di.last_offsets, di.run_dir,
+                      di.dir_shift, di.length, di.r, di.sigma, codes, state)
     if di.lf_abs.device.type != "cpu":
         raise ValueError(f"no scan for device {di.lf_abs.device}")
     return plain(di, codes, state)

@@ -16,10 +16,13 @@ Past both tables, pick_backend names the 'sharded' rung when a
 .py; no query route takes it, as in movi_tpu), and otherwise PML, count
 and ZML take the compact engines
 (engine/pml.py, engine/search.py) on the run tables, whose bytes
-compact_pml_table_bytes and compact_search_table_bytes give.  For PML
-these cost 13 + 12*sigma B per run (61 for DNA), more than the one-step
+compact_pml_table_bytes and compact_search_table_bytes give, the row ->
+run directory included (at most 4 B per run beside all_p's).  For PML
+these cost 17 + 12*sigma B per run (65 for DNA), more than the one-step
 records' 8*(sigma+1) (40): the rung adds no capacity for PML.  For count
-and ZML they cost 16 + 8*sigma B per run (48) against 32*sigma (128).
+and ZML they cost 20 + 8*sigma B per run (52) against 32*sigma (128).
+The compact rung is the last one, so the directory's bytes change no
+route.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from __future__ import annotations
 from typing import Optional
 
 from ..device import DeviceLike, memory_budget_bytes
+from ..kernels import run_dir_size
+from .device_index import run_dir_shift
 from .fused2 import MAX_RUNS
 from .fused_color import MAX_PACKED_COLORS
 from .fused_search2 import MAX_RUNS as SEARCH2_MAX_RUNS
@@ -60,15 +65,24 @@ def one_step_color_table_bytes(r: int, sigma: int) -> int:
     return 12 * (sigma + 1) * r
 
 
-def compact_pml_table_bytes(r: int, sigma: int) -> int:
-    """n, lf_abs, c, thr_full, rep_up and rep_down per run, and all_p."""
-    return (4 + 4 + 1 + 3 * 4 * sigma) * r + 4 * (r + 1)
+def run_dir_bytes(r: int, length: int) -> int:
+    """The row -> run directory of a text's length BWT rows over r runs at
+    run_dir_shift's shift: at most all_p's 4(r+1) B."""
+    return 4 * run_dir_size(length, run_dir_shift(length, r))
 
 
-def compact_search_table_bytes(r: int, sigma: int) -> int:
-    """n, lf_abs, c_search, ch_up_s and ch_down_s per run, all_p, and the
-    first/last run tables."""
-    return (4 + 4 + 4 + 2 * 4 * sigma) * r + 4 * (r + 1) + 16 * (sigma + 1)
+def compact_pml_table_bytes(r: int, sigma: int, length: int) -> int:
+    """n, lf_abs, c, thr_full, rep_up and rep_down per run, all_p, and the
+    directory (run_dir_bytes)."""
+    return ((4 + 4 + 1 + 3 * 4 * sigma) * r + 4 * (r + 1)
+            + run_dir_bytes(r, length))
+
+
+def compact_search_table_bytes(r: int, sigma: int, length: int) -> int:
+    """n, lf_abs, c_search, ch_up_s and ch_down_s per run, all_p, the
+    first/last run tables and the directory (run_dir_bytes)."""
+    return ((4 + 4 + 4 + 2 * 4 * sigma) * r + 4 * (r + 1)
+            + 16 * (sigma + 1) + run_dir_bytes(r, length))
 
 
 def _fits(nbytes: int, device: DeviceLike) -> bool:

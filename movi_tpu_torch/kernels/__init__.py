@@ -61,9 +61,10 @@ _LL = ctypes.c_longlong
 _SEARCH = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _KMER_COUNT = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 # the compact count and ZML scans: (n, lf_abs, all_p, c_search, ch_up_s,
-# ch_down_s, first_runs, first_offsets, last_runs, last_offsets, r, sigma,
-# codes, W, lanes, first, state in, state out, out, stream)
-_COMPACT_SEARCH = [*[_P] * 10, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]
+# ch_down_s, first_runs, first_offsets, last_runs, last_offsets, run_dir,
+# K, b, r, sigma, codes, W, lanes, first, state in, state out, out, stream)
+_COMPACT_SEARCH = [*[_P] * 11, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                   _P]
 _SIGNATURES = {
     "movi_fused_pml_scan": [_P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P],
@@ -113,9 +114,10 @@ _SIGNATURES = {
     # anchor, G, k, p, alive, fs, fe, found, count, stream)
     "movi_kmer2_left_scan": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                              _I, _I, *[_P] * 6],
-    # (n, lf_abs, all_p, c, thr_full, rep_up, rep_down, codes, W, lanes, r,
-    # sigma, rpml, 3 state in, 3 state out, ml, err, stream)
-    "movi_compact_pml_scan": [*[_P] * 8, *[_I] * 5, *[_P] * 9],
+    # (n, lf_abs, all_p, c, thr_full, rep_up, rep_down, run_dir, K, b,
+    # codes, W, lanes, r, sigma, rpml, 3 state in, 3 state out, ml, err,
+    # stream)
+    "movi_compact_pml_scan": [*[_P] * 8, _I, _I, _P, *[_I] * 5, *[_P] * 9],
     "movi_compact_count_scan": _COMPACT_SEARCH,
     "movi_compact_zml_scan": _COMPACT_SEARCH,
     # (n_arr, all_p, r, n, out, stream)
@@ -917,14 +919,30 @@ def _check_runs(tables, dev):
         _check(t, name, dtype, dev, shape)
 
 
+def _check_run_dir(run_dir, dir_shift: int, n_rows: int, dev):
+    """The row -> run directory of n_rows BWT rows at shift dir_shift, as
+    run_dir_build gives it: int32 [run_dir_size(n_rows, dir_shift)] on
+    dev.  Returns K."""
+    if run_dir is None:
+        raise ValueError("the compact scans need the row -> run directory")
+    _check_positions(n_rows)
+    if not 0 <= dir_shift <= 31:
+        raise ValueError(f"directory shift {dir_shift} outside [0, 31]")
+    size = run_dir_size(n_rows, dir_shift)
+    _check(run_dir, "run_dir", torch.int32, dev, (size,))
+    return size - 1
+
+
 def compact_pml_scan(n, lf_abs, all_p, c, thr_full, rep_up, rep_down,
-                     r: int, sigma: int, codes: torch.Tensor, state,
+                     run_dir, dir_shift: int, n_rows: int, r: int,
+                     sigma: int, codes: torch.Tensor, state,
                      random_repositioning: bool):
     """Kernel 12a: compact PML over codes [W, lanes] (int8 chars, -1
     illegal) from state (idx, off, ml) int32 [lanes] on the run tables of
-    engine/device_index.py; thr_full may be None with
-    random_repositioning.  Returns (state, ml [W, lanes]); raises
-    AssertionError(NOT_FOUND) where a reposition finds no run."""
+    engine/device_index.py, every LF through the row -> run directory
+    run_dir of the n_rows BWT rows at shift dir_shift; thr_full may be
+    None with random_repositioning.  Returns (state, ml [W, lanes]);
+    raises AssertionError(NOT_FOUND) where a reposition finds no run."""
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError("compact_pml_scan launches on CUDA tensors only")
@@ -939,6 +957,7 @@ def compact_pml_scan(n, lf_abs, all_p, c, thr_full, rep_up, rep_down,
     if thr_full is not None:
         tables.append(("thr_full", thr_full, torch.int32, (r, sigma)))
     _check_runs(tables, dev)
+    K = _check_run_dir(run_dir, dir_shift, n_rows, dev)
     if codes.dim() != 2:
         raise ValueError("codes must be [steps, lanes]")
     _check(codes, "codes", torch.int8, dev)
@@ -952,10 +971,10 @@ def compact_pml_scan(n, lf_abs, all_p, c, thr_full, rep_up, rep_down,
     code = lib.movi_compact_pml_scan(
         n.data_ptr(), lf_abs.data_ptr(), all_p.data_ptr(), c.data_ptr(),
         None if thr_full is None else thr_full.data_ptr(), rep_up.data_ptr(),
-        rep_down.data_ptr(), codes.data_ptr(), steps, lanes, r, sigma,
-        int(random_repositioning), *[s.data_ptr() for s in state],
-        *[s.data_ptr() for s in new_state], ml.data_ptr(), err.data_ptr(),
-        _stream(dev))
+        rep_down.data_ptr(), run_dir.data_ptr(), K, dir_shift,
+        codes.data_ptr(), steps, lanes, r, sigma, int(random_repositioning),
+        *[s.data_ptr() for s in state], *[s.data_ptr() for s in new_state],
+        ml.data_ptr(), err.data_ptr(), _stream(dev))
     _raise_on(code, "compact_pml_scan")
     launches["compact_pml_scan"] += 1
     if int(err.item()):
@@ -965,8 +984,8 @@ def compact_pml_scan(n, lf_abs, all_p, c, thr_full, rep_up, rep_down,
 
 def _compact_search(entry: str, counter: str, n, lf_abs, all_p, c_search,
                     ch_up_s, ch_down_s, first_runs, first_offsets, last_runs,
-                    last_offsets, r: int, sigma: int, codes, state,
-                    out_rows: int):
+                    last_offsets, run_dir, dir_shift: int, n_rows: int,
+                    r: int, sigma: int, codes, state, out_rows: int):
     """Shared launch of the compact count and ZML scans: check, allocate,
     launch.  state None starts from the first row of codes.  out_rows 0
     gives count [lanes], else ml [out_rows, lanes]."""
@@ -984,6 +1003,7 @@ def _compact_search(entry: str, counter: str, n, lf_abs, all_p, c_search,
                      ("first_offsets", first_offsets),
                      ("last_runs", last_runs),
                      ("last_offsets", last_offsets))]], dev)
+    K = _check_run_dir(run_dir, dir_shift, n_rows, dev)
     if codes.dim() != 2:
         raise ValueError("codes must be [steps, lanes]")
     _check(codes, "codes", torch.int8, dev)
@@ -1002,10 +1022,10 @@ def _compact_search(entry: str, counter: str, n, lf_abs, all_p, c_search,
         n.data_ptr(), lf_abs.data_ptr(), all_p.data_ptr(),
         c_search.data_ptr(), ch_up_s.data_ptr(), ch_down_s.data_ptr(),
         first_runs.data_ptr(), first_offsets.data_ptr(),
-        last_runs.data_ptr(), last_offsets.data_ptr(), r, sigma,
-        codes.data_ptr(), steps, lanes, int(state is None),
-        None if state is None else state.data_ptr(), new_state.data_ptr(),
-        out.data_ptr(), _stream(dev))
+        last_runs.data_ptr(), last_offsets.data_ptr(), run_dir.data_ptr(), K,
+        dir_shift, r, sigma, codes.data_ptr(), steps, lanes,
+        int(state is None), None if state is None else state.data_ptr(),
+        new_state.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(code, counter)
     launches[counter] += 1
     return new_state, out
@@ -1013,25 +1033,30 @@ def _compact_search(entry: str, counter: str, n, lf_abs, all_p, c_search,
 
 def compact_count_scan(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                        first_runs, first_offsets, last_runs, last_offsets,
-                       r: int, sigma: int, codes: torch.Tensor, state=None):
+                       run_dir, dir_shift: int, n_rows: int, r: int,
+                       sigma: int, codes: torch.Tensor, state=None):
     """Kernel 12b: the compact count scan over codes [W, lanes] (int8
-    chars, -1 illegal, -2 past the read).  Returns (state [6, lanes],
-    count [lanes])."""
+    chars, -1 illegal, -2 past the read), every LF through the row -> run
+    directory as in compact_pml_scan.  Returns (state [6, lanes], count
+    [lanes])."""
     return _compact_search("movi_compact_count_scan", "compact_count_scan",
                            n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                            first_runs, first_offsets, last_runs, last_offsets,
-                           r, sigma, codes, state, 0)
+                           run_dir, dir_shift, n_rows, r, sigma, codes, state,
+                           0)
 
 
 def compact_zml_scan(n, lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                      first_runs, first_offsets, last_runs, last_offsets,
-                     r: int, sigma: int, codes: torch.Tensor, state=None):
-    """Kernel 12c: the compact ZML scan.  Returns (state [6, lanes], ml
-    [W, lanes])."""
+                     run_dir, dir_shift: int, n_rows: int, r: int, sigma: int,
+                     codes: torch.Tensor, state=None):
+    """Kernel 12c: the compact ZML scan, on kernel 12b's tables.  Returns
+    (state [6, lanes], ml [W, lanes])."""
     return _compact_search("movi_compact_zml_scan", "compact_zml_scan", n,
                            lf_abs, all_p, c_search, ch_up_s, ch_down_s,
                            first_runs, first_offsets, last_runs, last_offsets,
-                           r, sigma, codes, state, codes.shape[0])
+                           run_dir, dir_shift, n_rows, r, sigma, codes, state,
+                           codes.shape[0])
 
 
 # the MEM v1 machines' registers, in the rows of their [12, lanes] states
@@ -1043,8 +1068,8 @@ _MEM1_DONE = {"mem1_scan": 4, "all_mem1_scan": 2}  # the machines' DONE
 
 def _check_positions(n: int):
     if not 0 < n < (1 << 31):
-        raise ValueError(f"n = {n} BWT rows: the MEM v1 kernels take "
-                         f"0 < n < 2^31 (int32 positions)")
+        raise ValueError(f"n = {n} BWT rows: the kernels take 0 < n < "
+                         f"2^31 (int32 positions)")
 
 
 def pos2rba_build(n_arr: torch.Tensor, all_p: torch.Tensor, n: int):

@@ -24,6 +24,7 @@ from movi_tpu_torch.engine import search as tsearch
 from movi_tpu_torch.engine import select
 from movi_tpu_torch.index.structure import build_move_index
 from movi_tpu_torch.io.fastx import make_batches
+from movi_tpu_torch.kernels import run_dir_size
 from movi_tpu_torch.testing import (length_reads, mixed_reads, random_text,
                                     separator_text)
 
@@ -62,14 +63,20 @@ def case(request, texts):
 
 def test_device_index_byte_identical(case):
     """build_device_index and device_index_from_jax give the JAX arrays,
-    dtype and bytes."""
+    dtype and bytes, and beside them the port's row -> run directory (the
+    JAX index has none): run_dir_plain of all_p at the rule's shift."""
     jd, td = case["jdi"], case["tdi"]
     conv = device_index_from_jax(jd)
+    n = int(case["ix"].all_p[-1])
+    b = tdi.run_dir_shift(n, jd.r)
     for d in (td, conv):
         for f in ("mode", "r", "length", "end_bwt_idx", "sigma"):
             assert getattr(d, f) == getattr(jd, f), f
         assert np.array_equal(d.alphamap_query, np.asarray(jd.alphamap_query))
-        for f in tdi.PML_TABLES + tdi.SEARCH_TABLES:
+        assert d.dir_shift == b and d.length == n
+        assert torch.equal(d.run_dir, tdi.run_dir_plain(d.all_p, n, b))
+        assert d.run_dir.dtype == torch.int32
+        for f in set(tdi.PML_TABLES + tdi.SEARCH_TABLES) - {"run_dir"}:
             want, got = getattr(jd, f), getattr(d, f)
             if want is None:
                 assert got is None, f
@@ -78,7 +85,8 @@ def test_device_index_byte_identical(case):
             assert got.numpy().dtype == want.dtype, f
             assert got.numpy().tobytes() == want.tobytes(), f
     assert (td.thr_full is None) == (case["ix"].thr is None)
-    assert td.hbm_bytes() == jd.hbm_bytes() + td.first_runs.numel() * 16
+    assert td.hbm_bytes() == (jd.hbm_bytes() + td.first_runs.numel() * 16
+                              + td.run_dir.numel() * 4)
 
 
 def _rules(ix):
@@ -198,22 +206,32 @@ def test_threshold_rule_needs_thresholds(texts):
 
 def test_compact_table_bytes():
     """The compact tables a PML step reads cost 13 + 12*sigma B per run (61
-    at sigma = 4) against the one-step records' 8*(sigma+1) (40); count/
-    ZML's cost 16 + 8*sigma (48) against 32*sigma (128)."""
+    at sigma = 4) and the directory at most all_p's 4 B per run, against
+    the one-step records' 8*(sigma+1) (40); count/ZML's cost 16 + 8*sigma
+    (48) and the directory against 32*sigma (128).  The directory of n
+    rows at the rule's shift holds run_dir_size(n, b) <= r + 1 entries."""
     r, sigma = 1000, 4
-    assert select.compact_pml_table_bytes(r, sigma) == 61 * r + 4
     assert select.one_step_pml_table_bytes(r, sigma) == 40 * r
-    assert select.compact_search_table_bytes(r, sigma) \
-        == 48 * r + 4 + 16 * (sigma + 1)
     assert select.one_step_search_table_bytes(r, sigma) == 128 * r
+    for n, entries in ((1000, 1001), (1001, 502), (5000, 626)):
+        assert run_dir_size(n, tdi.run_dir_shift(n, r)) == entries
+        assert select.run_dir_bytes(r, n) == 4 * entries <= 4 * (r + 1)
+        assert select.compact_pml_table_bytes(r, sigma, n) \
+            == 61 * r + 4 + 4 * entries
+        assert select.compact_search_table_bytes(r, sigma, n) \
+            == 48 * r + 4 + 16 * (sigma + 1) + 4 * entries
 
 
 def test_table_bytes_match_the_tables(unbounded):
+    """The tables' bytes, the directory's included, equal the formulas
+    given the text length."""
     ix, di, _ = unbounded
+    n = int(ix.all_p[-1])
     assert di.hbm_bytes(tdi.PML_TABLES) \
-        == select.compact_pml_table_bytes(ix.r, ix.sigma)
+        == select.compact_pml_table_bytes(ix.r, ix.sigma, n)
     assert di.hbm_bytes(tdi.SEARCH_TABLES) \
-        == select.compact_search_table_bytes(ix.r, ix.sigma)
+        == select.compact_search_table_bytes(ix.r, ix.sigma, n)
+    assert di.run_dir.numel() * 4 == select.run_dir_bytes(ix.r, n)
 
 
 def test_compact_rung_takes_the_compact_engines(monkeypatch, texts):

@@ -1,8 +1,10 @@
 """The bytes behind the compact kernels' bound in chip_smoke.py
 (compact_work over compact_tally) against a lane-by-lane emulation of
 csrc/compact_pml.cu and csrc/compact_search.cu that counts every byte the
-kernels load or store, on the CPU.  The counts must be equal: a bound that
-counted rows the kernels never load would flatter them."""
+kernels need to load or store, every LF through the row -> run directory,
+on the CPU.  The counts must be equal: a bound that counted rows the
+kernels never load, or rows they load early and then drop, would flatter
+them."""
 
 import pytest
 
@@ -14,19 +16,25 @@ from movi_tpu_torch.io.fastx import make_batches
 from movi_tpu_torch.testing import length_reads, mixed_reads, random_text
 
 
-def _lf(t, idx, off, cnt):
-    """compact.cuh lf: lf_abs, the halvings over all_p and the final row."""
-    x = int(t["lf_abs"][idx]) + off
-    cnt[0] += 4
-    base, ln = 0, t["r"] + 1
+def _lf(t, la, idx, off, cnt):
+    """compact.cuh lf_dir from the loaded lf_abs row la: that row, the
+    directory pair, all_p[dir[k]] and the halvings of the bucket's span.
+    The row counts here, once a LF: a row the kernel issued early and then
+    dropped for another (a mismatch's or a moved end's) is not needed."""
+    x = la + off
+    k = max(0, min(x >> t["dir_shift"], len(t["run_dir"]) - 2))
+    base = int(t["run_dir"][k])
+    ln = int(t["run_dir"][k + 1]) - base + 1
+    start = int(t["all_p"][base])
+    cnt[0] += 4 + 8 + 4
     while ln > 1:
         half = ln >> 1
         cnt[0] += 4
         if t["all_p"][base + half] <= x:
             base += half
+            start = int(t["all_p"][base])
         ln -= half
-    cnt[0] += 4
-    return base, x - int(t["all_p"][base])
+    return base, x - start
 
 
 def _tables(di):
@@ -34,10 +42,10 @@ def _tables(di):
                                      "rep_up", "rep_down", "c_search",
                                      "ch_up_s", "ch_down_s", "first_runs",
                                      "first_offsets", "last_runs",
-                                     "last_offsets")}
+                                     "last_offsets", "run_dir")}
     t = {k: None if v is None else v.numpy().reshape(-1)
          for k, v in t.items()}
-    t.update(r=di.r, sigma=di.sigma)
+    t.update(r=di.r, sigma=di.sigma, dir_shift=di.dir_shift)
     return t
 
 
@@ -50,6 +58,7 @@ def emulate_pml(t, codes, state, rpml):
         for step in range(W):
             a = int(codes[step, lane])
             cnt[0] += 1 + 4  # the char; ml
+            la = int(t["lf_abs"][idx])  # issued with the row's char
             if a >= 0:
                 cnt[0] += 1  # the row's char
                 if int(t["c"][idx]) == a:
@@ -69,12 +78,13 @@ def emulate_pml(t, codes, state, rpml):
                         dest = int(t["rep_up" if up else "rep_down"][rep])
                         cnt[0] += 4
                     idx, off, m = dest, 0, 0
+                    la = int(t["lf_abs"][dest])  # in the early row's place
                     if up:
                         off = int(t["n"][dest]) - 1
                         cnt[0] += 4
             else:
                 m = 0
-            idx, off = _lf(t, idx, off, cnt)
+            idx, off = _lf(t, la, idx, off, cnt)
         cnt[0] += 12  # state out
     return cnt[0]
 
@@ -104,19 +114,22 @@ def emulate_search(t, codes, zml):
             if not zml and a == -2:
                 continue
             a_s, re_safe = max(a, 0), min(re, r - 1)
-            cnt[0] += 8  # both ends' chars
+            cnt[0] += 8  # both ends' chars (their lf_abs rows issued too)
+            las, lae = int(t["lf_abs"][rs]), int(t["lf_abs"][re_safe])
             rs1, os1, re1, oe1 = rs, os_, re_safe, oe
             if int(t["c_search"][rs]) != a_s:
                 rs1, os1 = int(t["ch_down_s"][min(a_s * r + rs, last)]), 0
+                las = int(t["lf_abs"][min(rs1, r - 1)])
                 cnt[0] += 4
             if int(t["c_search"][re_safe]) != a_s:
                 re1 = min(int(t["ch_up_s"][min(a_s * r + re_safe, last)]),
                           r - 1)
                 oe1 = int(t["n"][re1]) - 1
+                lae = int(t["lf_abs"][re1])
                 cnt[0] += 8
             empty = a < 0 or rs1 >= r or rs1 > re
-            rs1, os1 = _lf(t, min(rs1, r - 1), os1, cnt)
-            re1, oe1 = _lf(t, re1, oe1, cnt)
+            rs1, os1 = _lf(t, las, min(rs1, r - 1), os1, cnt)
+            re1, oe1 = _lf(t, lae, re1, oe1, cnt)
             if zml:
                 ok = x and not empty
                 if ok:
@@ -169,5 +182,5 @@ def test_compact_work_counts_the_loaded_bytes(indexes, mode, kind):
     else:
         want = emulate_search(t, codes.numpy(), kind == "zml")
     assert nbytes == want
-    # the data-dependent rows are there to count
-    assert tally[0] > 0
+    # the data-dependent rows and the halvings are there to count
+    assert int(tally[0].sum()) > 0 and int(tally[2].sum()) > 0

@@ -334,10 +334,12 @@ def test_compact_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError):
             kernels.compact_pml_scan(di.n, di.lf_abs, di.all_p, di.c,
                                      di.thr_full, di.rep_up, di.rep_down,
+                                     di.run_dir, di.dir_shift, di.length,
                                      di.r, di.sigma, codes, st, rr)
     search = (di.n, di.lf_abs, di.all_p, di.c_search, di.ch_up_s,
               di.ch_down_s, di.first_runs, di.first_offsets, di.last_runs,
-              di.last_offsets, di.r, di.sigma, codes)
+              di.last_offsets, di.run_dir, di.dir_shift, di.length, di.r,
+              di.sigma, codes)
     with pytest.raises(ValueError):
         kernels.compact_count_scan(*search)
     with pytest.raises(ValueError):
