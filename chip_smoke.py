@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from movi_tpu_torch/csrc (nineteen sources,
-thirty-two launch counters), checks each one against its plain PyTorch
+thirty-four launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
 `FusedSAEngine.query`, `query_kmers`, `query_mems` (on the MEM v2
@@ -37,12 +37,17 @@ the card's name and power limit.  Phases:
               load nothing else (a Triton kernel, for the latency floors),
               and kernel 12a's µs a step on one long lane
      small SA the 5,000-base index of tests/test_fused_sa.py with its
-              sampled SA at rates 100, 37 and 1,000 (long walks), reads
-              with N's and of lengths 1-4097: kernels 8a and 8b equal
-              their plain versions (ml, pre-LF run and offset, carried
-              state, a scan split in two equal to one pass, the SA values
-              over every element, padding included); FusedSAEngine
-              equals ScalarEngine.query_pml(collect_sa=True)
+              sampled SA at rates 100, 37, 1,000 (long walks) and 1 (every
+              row sampled), reads with N's and of lengths 1-4097: kernel 8a
+              equals its plain version (ml, pre-LF run and offset, carried
+              state, a scan split in two equal to one pass; it reads no
+              sampled SA, so at the other rates it equals the first's
+              outputs); kernel 8b's SA pass (sa_mark, sa_walk over the
+              anchor list, sa_fill) launch by launch equals its plain
+              versions, and the pass equals the plain flat walk on every
+              element, padding included, also at max_steps 40 (-1 past
+              it); FusedSAEngine equals ScalarEngine.query_pml(
+              collect_sa=True)
   4. full     bench.py's synthetic index (6 Mb random ACGT, seed 0,
               regular thresholds, bound_ff=1): 32,768 reads x 150 bp with
               1% substitutions (seed 42) plus 64 reads of 10 kb, through
@@ -74,12 +79,16 @@ the card's name and power limit.  Phases:
               latency floors (the longest chain of dependent loads) and
               warm breakdowns
      SA       the same index with its sampled SA at rate 100 and the same
-              reads through FusedSAEngine.query, counted apart: kernels
-              8a and 8b equal their plain versions over all lanes, 256
-              sampled reads equal ScalarEngine(collect_sa=True), the
-              walk's mean and longest steps per element, timings and a
-              warm breakdown (batching, prepare, pre-scan, walk, D2H,
-              tolist)
+              reads through FusedSAEngine.query, counted apart: kernel 8a
+              and kernel 8b's three launches equal their plain versions
+              over all lanes, the SA pass equals the flat walk on every
+              element, 256 sampled reads equal ScalarEngine(
+              collect_sa=True); the sampled, link and anchor counts, the
+              anchor steps against the flat walk's, each batch's longest
+              anchor walk and the latency floors (dependent loads at
+              phase small compact's latency); timings per launch and per
+              batch, and a warm breakdown (batching, prepare, pre-scan, SA
+              pass, D2H, tolist)
      small k-mer  the 2,500-base rc index (seed 9) and the forward-only
               index (seed 31) of tests/test_fused_kmer.py, probe-heavy
               reads with N's, shorter than k and past 512 bases: kernel 10a
@@ -268,7 +277,11 @@ CUDA_SOURCES = {
                           "movi_tpu/engine/fused2.py:482"),
     "fused_sa_pre_scan": ("movi_tpu_torch/csrc/fused_sa.cu",
                           "movi_tpu/engine/fused_sa.py:83"),
+    "sa_mark": ("movi_tpu_torch/csrc/fused_sa.cu",
+                "movi_tpu/engine/fused_sa.py:119"),
     "sa_walk": ("movi_tpu_torch/csrc/fused_sa.cu",
+                "movi_tpu/engine/fused_sa.py:119"),
+    "sa_fill": ("movi_tpu_torch/csrc/fused_sa.cu",
                 "movi_tpu/engine/fused_sa.py:119"),
     "kmer_member_scan": ("movi_tpu_torch/csrc/fused_kmer.cu",
                          "movi_tpu/engine/fused_kmer.py:52"),
@@ -310,9 +323,9 @@ CUDA_SOURCES = {
                               "movi_tpu/parallel/sharded_index.py:91"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
-SA_KERNELS = ("fused_sa_pre_scan", "sa_walk")
+SA_KERNELS = ("fused_sa_pre_scan", "sa_mark", "sa_walk", "sa_fill")
 SA_RATE = 100             # build --sa-sample-rate's default
-SMALL_SA_RATES = (100, 37, 1000)
+SMALL_SA_RATES = (100, 37, 1000, 1)
 # the bound: NVIDIA's published H100 SXM peaks (HBM3, and float32 outside
 # the tensor cores, the table's rate for scalar work), and an upper
 # estimate of the integer operations of one record step or composed record
@@ -1620,23 +1633,78 @@ def sa_scan_pair(sx, codes, state, what, errs):
     return got, plain_ms, args
 
 
-def sa_walk_pair(sx, pre_idx, pre_off, what, errs):
-    """Kernel 8b and the plain walk over the same flat elements, every one
-    of the [W, lanes] batch (padding included): the SA values agree
-    exactly and no walk is cut at max_steps.  Returns the plain walk's
-    steps per element, its milliseconds and the kernel's arguments."""
+def sa_flat_plain(sx, pre_idx, pre_off, what, max_steps=None):
+    """The plain flat walk (sa_walk_steps_plain) of every element of the
+    [W, lanes] batch, padding included: the definition the SA pass is
+    held to.  Returns its (values, steps per element) and its
+    milliseconds; without a cap below the text length no walk may pass
+    it."""
+    from movi_tpu_torch.engine import fused_sa as tsa
+
+    fi = sx.fi
+    cap = sx.n if max_steps is None else max_steps
+    (vals, steps), ms = timed_ms(lambda: tsa.sa_walk_steps_plain(
+        fi.records, fi.sigma + 1, sx.all_p, sx.sampled, sx.rate, cap,
+        pre_idx.reshape(-1), pre_off.reshape(-1)))
+    if max_steps is None and bool((vals < 0).any()):
+        raise AssertionError(f"{what}: a walk passed max_steps")
+    return (vals, steps), ms
+
+
+def sa_pass_pair(sx, scan, codes, flat, what, errs, max_steps=None):
+    """Kernel 8b's three launches (mark, the walk over the anchor list,
+    fill) on kernel 8a's outputs `scan` and the codes, each against its
+    plain version on the same inputs, and the whole pass (as
+    tsa.sa_entries runs it) against the flat plain walk's values `flat` on
+    every element.  Returns (tally of sa_entries_plain, plain ms per
+    launch, the launches' arguments)."""
+    import torch
+
     from movi_tpu_torch import kernels
     from movi_tpu_torch.engine import fused_sa as tsa
 
     fi = sx.fi
-    args = (fi.records, fi.sigma + 1, sx.all_p, sx.sampled, sx.rate, sx.n,
-            pre_idx.reshape(-1), pre_off.reshape(-1))
-    got = kernels.sa_walk(*args)
-    (want, steps), plain_ms = timed_ms(lambda: tsa.sa_walk_steps_plain(*args))
-    require_equal(f"{what} SA values", got, want, errs, "sa_walk")
-    if bool((got < 0).any()):
-        raise AssertionError(f"{what}: a walk passed max_steps")
-    return steps, plain_ms, args
+    slots = fi.sigma + 1
+    steps_cap = sx.n if max_steps is None else max_steps
+    _, ml, pre_idx, pre_off = scan
+    margs = (sx.all_p, sx.sampled, sx.rate, pre_idx, pre_off, ml, codes,
+             fi.sigma)
+    marked = kernels.sa_mark(*margs)
+    out_k, dist_k, anchors_k, count_k = marked
+    (out_p, dist_p, anchors_p), mark_ms = timed_ms(
+        lambda: tsa.sa_mark_plain(*margs))
+    n_anchor = int(count_k[0])
+    require_equal(f"{what} mark steps", dist_k, dist_p, errs, "sa_mark")
+    hit = dist_p == 0
+    require_equal(f"{what} mark samples", out_k[hit], out_p[hit], errs,
+                  "sa_mark")
+    require_equal(f"{what} anchor list",
+                  torch.sort(anchors_k[:n_anchor]).values, anchors_p, errs,
+                  "sa_mark")
+    wargs = (fi.records, slots, sx.all_p, sx.sampled, sx.rate, steps_cap,
+             pre_idx, pre_off, marked)
+    kernels.sa_walk(*wargs)
+    (vals, steps), walk_ms = timed_ms(lambda: tsa.sa_walk_steps_plain(
+        fi.records, slots, sx.all_p, sx.sampled, sx.rate, steps_cap,
+        pre_idx.reshape(-1)[anchors_p], pre_off.reshape(-1)[anchors_p]))
+    require_equal(f"{what} anchor values", out_k.view(-1)[anchors_p], vals,
+                  errs, "sa_walk")
+    out_p.view(-1)[anchors_p] = vals
+    dist_p.view(-1)[anchors_p] = torch.where(vals == -1, -1, steps)
+    require_equal(f"{what} anchor steps", dist_k, dist_p, errs, "sa_walk")
+    fargs = (out_k, dist_k, steps_cap)
+    got = kernels.sa_fill(*fargs).clone()
+    want, fill_ms = timed_ms(lambda: tsa.sa_fill_plain(out_p, dist_p,
+                                                       steps_cap))
+    require_equal(f"{what} fill", got, want, errs, "sa_fill")
+    require_equal(f"{what} SA pass against the flat walk", got.reshape(-1),
+                  flat, errs, "sa_fill")
+    tally = {"elements": dist_p.numel(), "sampled": int(hit.sum()),
+             "links": int((dist_p == tsa.SA_LINK).sum()),
+             "anchors": n_anchor, "anchor_steps": int(steps.sum()),
+             "longest": int(steps.max()) if n_anchor else 0}
+    return tally, {"sa_mark": mark_ms, "sa_walk": walk_ms,
+                   "sa_fill": fill_ms}, (margs, wargs, fargs)
 
 
 def check_sa_oracle(what, reads, got, oracle):
@@ -1649,46 +1717,84 @@ def check_sa_oracle(what, reads, got, oracle):
 def phase_small_sa(dev, errs):
     import torch
 
+    from movi_tpu_torch import kernels
     from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch.engine import fused as tf
     from movi_tpu_torch.engine import fused_sa as tsa
     from movi_tpu_torch.io.fastx import make_batches
     from movi_tpu_torch.testing import length_reads, small_sa_index
 
+    # kernel 8a reads no sampled SA: its plain checks run at the first
+    # rate; at the others the index's records and pre_tab, and the
+    # kernel's outputs, equal the first rate's exactly
+    first_rate = None
     for rate in SMALL_SA_RATES:
         text, ix, reads = small_sa_index(rate)
         reads = reads + length_reads(text)
         eng = tsa.FusedSAEngine(tf.build_fused_index(ix), ix, dev)
         sx = eng.sx
+        fi = sx.fi
         batch = next(make_batches(reads, lanes=len(reads),
                                   bucket_widths=False))
         codes = eng.pml.prepare(batch)
-        st0 = tf.initial_state(sx.fi, codes.shape[1], dev)
+        st0 = tf.initial_state(fi, codes.shape[1], dev)
         what = f"small SA rate {rate}"
-        whole, _, _ = sa_scan_pair(sx, codes, st0, what, errs)
-        cut = codes.shape[0] // 2 | 1
-        first, _, _ = sa_scan_pair(sx, codes[:cut], st0, f"{what} piece 1",
-                                   errs)
-        second, _, _ = sa_scan_pair(sx, codes[cut:], first[0],
-                                    f"{what} piece 2", errs)
-        joined = [torch.cat([a, b]) for a, b in zip(first[1:], second[1:])]
-        require_sa_scan_equal(f"{what} split", (second[0], *joined), whole,
-                              errs)
-        steps, _, _ = sa_walk_pair(sx, whole[2], whole[3], what, errs)
+        if first_rate is None:
+            whole, _, _ = sa_scan_pair(sx, codes, st0, what, errs)
+            cut = codes.shape[0] // 2 | 1
+            first, _, _ = sa_scan_pair(sx, codes[:cut], st0,
+                                       f"{what} piece 1", errs)
+            second, _, _ = sa_scan_pair(sx, codes[cut:], first[0],
+                                        f"{what} piece 2", errs)
+            joined = [torch.cat([a, b])
+                      for a, b in zip(first[1:], second[1:])]
+            require_sa_scan_equal(f"{what} split", (second[0], *joined),
+                                  whole, errs)
+            first_rate = (rate, fi.records, sx.pre_tab, codes, whole)
+        else:
+            rate0, records0, pre_tab0, codes0, whole0 = first_rate
+            for name, x, y in (("records", fi.records, records0),
+                               ("pre_tab", sx.pre_tab, pre_tab0),
+                               ("codes", codes, codes0)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{what}: {name} differ from rate "
+                                         f"{rate0}'s")
+            whole = kernels.fused_sa_pre_scan(
+                fi.records, sx.pre_tab, fi.sigma + 1, fi.p_dollar, codes,
+                st0)
+            require_sa_scan_equal(f"{what} against rate {rate0}'s", whole,
+                                  whole0, errs)
+        (flat, steps), _ = sa_flat_plain(sx, whole[2], whole[3], what)
+        tally, _, _ = sa_pass_pair(sx, whole, codes, flat, what, errs)
+        # a cap of 40 steps: the links past it give -1 where the flat walk
+        # does
+        (flat40, _), _ = sa_flat_plain(sx, whole[2], whole[3], what, 40)
+        sa_pass_pair(sx, whole, codes, flat40, f"{what} max_steps 40", errs,
+                     max_steps=40)
         check_sa_oracle(what, reads, eng.query(reads, lanes=16),
                         ScalarEngine(ix))
-        say("small SA", f"rate {rate}, r={ix.r}, n={sx.n}: kernels 8a and "
-                        f"8b equal plain on {len(reads)} reads (lengths "
-                        f"1-4097, with N; a scan split in two, "
-                        f"{steps.numel()} walks, mean "
+        say("small SA", f"rate {rate}, r={ix.r}, n={sx.n}: kernels 8a (its "
+                        f"plain checks at rate {first_rate[0]}, a scan "
+                        f"split in two; the same outputs here), sa_mark, "
+                        f"sa_walk and sa_fill equal plain on {len(reads)} "
+                        f"reads (lengths 1-4097, with N; "
+                        f"{steps.numel()} elements, flat walks mean "
                         f"{float(steps.double().mean()):.3f} and at most "
-                        f"{int(steps.max())} steps); FusedSAEngine equals "
+                        f"{int(steps.max())} steps); {tally['sampled']} "
+                        f"sampled, {tally['links']} links, "
+                        f"{tally['anchors']} anchors walking "
+                        f"{tally['anchor_steps']} steps (flat "
+                        f"{int(steps.sum())}), the longest "
+                        f"{tally['longest']}; the pass equals the flat walk "
+                        f"(and at max_steps 40, {int((flat40 < 0).sum())} "
+                        f"-1s); FusedSAEngine equals "
                         f"ScalarEngine(collect_sa=True)")
 
 
-def phase_sa(dev, card, errs, timings, work, ctx):
+def phase_sa(dev, card, errs, timings, work, ctx, lat_us):
     """SA entries on phase 4's index (its sampled SA at rate 100) and
-    reads, counted apart."""
+    reads, counted apart; lat_us: the dependent-load latency of phase
+    small compact, the yardstick of the latency floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -1736,61 +1842,121 @@ def phase_sa(dev, card, errs, timings, work, ctx):
               f"ScalarEngine(collect_sa=True)  ({card})")
     del res
 
-    # both kernels against their plain versions over all lanes of the main
-    # path's batches; the plain versions are timed in this pass
+    # every launch against its plain version over all lanes of the main
+    # path's batches, and the SA pass against the flat walk on every
+    # element; the plain versions are timed in this pass
     batches = list(make_batches(list(reads), lanes=QUERY_LANES,
                                 bucket_widths=False))
-    scans, walks, steps_all = [], [], []
+    runs = {k: [] for k in SA_KERNELS}
+    flat_steps, tallies = [], []
     plain_ms = dict.fromkeys(SA_KERNELS, 0.0)
+    flat_plain_ms = 0.0
     for b in batches:
         codes = eng.pml.prepare(b)
         got, ms, a = sa_scan_pair(sx, codes, tf.initial_state(
             fi, codes.shape[1], dev), "full SA", errs)
         plain_ms["fused_sa_pre_scan"] += ms
-        scans.append(a)
-        # a record and a pre_tab row per code; ml, pre_idx, pre_off out
+        runs["fused_sa_pre_scan"].append(a)
+        # a record and the three words of the pre_tab row per code; ml,
+        # pre_idx, pre_off out
         add_work(work, "fused_sa_pre_scan", *scan_work(codes, 20, 12, 12))
-        steps, ms, a = sa_walk_pair(sx, got[2], got[3], "full SA", errs)
-        plain_ms["sa_walk"] += ms
-        walks.append(a)
-        # each step: the run's start and its record (8 B each); each
-        # element: its (run, offset) in, the last start, the sample, out
-        s = int(steps.sum())
-        add_work(work, "sa_walk", 16 * s + 24 * steps.numel(),
-                 s * OPS_PER_ROW)
-        steps_all.append(steps)
-    steps = torch.cat(steps_all)
-    say("SA", f"kernels 8a and 8b equal their plain versions over all "
-              f"lanes ({steps.numel()} walks, padding included): walk steps "
-              f"per element mean {float(steps.double().mean()):.6f}, max "
-              f"{int(steps.max())}, total {int(steps.sum())}; per batch "
-              f"max {[int(s.max()) for s in steps_all]}")
+        (flat, steps), ms = sa_flat_plain(sx, got[2], got[3], "full SA")
+        flat_plain_ms += ms
+        flat_steps.append(steps)
+        tally, ms, (margs, wargs, fargs) = sa_pass_pair(
+            sx, got, codes, flat, "full SA", errs)
+        for k, v in ms.items():
+            plain_ms[k] += v
+        runs["sa_mark"].append(margs)
+        runs["sa_walk"].append(wargs)
+        runs["sa_fill"].append(fargs)
+        tallies.append(tally)
+        # bytes: each element's pre-LF state (8 B), its successor's ml and
+        # code (5 B), its run's first position (8 B); a sampled element's
+        # sample and value (16 B); an anchor step's first position and
+        # record (16 B), an anchor's value (8 B); a link's value (8 B)
+        n_el, n_anchor = tally["elements"], tally["anchors"]
+        add_work(work, "sa_mark", 21 * n_el + 16 * tally["sampled"],
+                 n_el * OPS_PER_ROW)
+        add_work(work, "sa_walk", 16 * tally["anchor_steps"] + 8 * n_anchor,
+                 tally["anchor_steps"] * OPS_PER_ROW)
+        add_work(work, "sa_fill", 8 * tally["links"],
+                 tally["links"] * OPS_PER_ROW)
+    steps = torch.cat(flat_steps)
+    total = {k: sum(t[k] for t in tallies) for k in tallies[0]}
+    flat_total = int(steps.sum())
+    # the per-element walk's bound: 16 B a step, 24 B an element
+    flat_bound = (16 * flat_total + 24 * steps.numel()) / HBM_BYTES_PER_S * 1e3
+    longest = [t["longest"] for t in tallies]
+    flat_longest = [int(s.max()) for s in flat_steps]
+    # latency floors at lat_us a dependent load, summed over the batches
+    # (each launch waits for the one before): 8a, one record load a step;
+    # 8b, each batch's longest anchor walk (a step's two loads depend on
+    # the step before and issue together) and 7 more (mark: the pre-LF
+    # state, the run start, the sample; walk: the count, the list entry,
+    # the pre-LF state, the sample at its end); the fill has no chain of
+    # random loads.  The per-element walk's floor, alike: 4 + the longest
+    # walk a batch
+    widths = [b.seqs.shape[1] for b in batches]
+    floor_8a = sum(widths) * lat_us / 1e3
+    floor_8b = sum(n + 7 for n in longest) * lat_us / 1e3
+    floor_flat = sum(n + 4 for n in flat_longest) * lat_us / 1e3
+    say("SA", f"kernels 8a, sa_mark, sa_walk and sa_fill equal their plain "
+              f"versions over all lanes, and the SA pass equals the flat "
+              f"walk on all {total['elements']} elements (padding "
+              f"included): {total['sampled']} sampled, {total['links']} "
+              f"links, {total['anchors']} anchors (a share of "
+              f"{total['anchors'] / total['elements']:.6f}) walking "
+              f"{total['anchor_steps']} steps against the flat walk's "
+              f"{flat_total} (a share of "
+              f"{total['anchor_steps'] / flat_total:.6f}; flat steps per "
+              f"element mean {float(steps.double().mean()):.6f}, max "
+              f"{int(steps.max())}); the longest anchor walk per batch "
+              f"{longest} (flat {flat_longest}); latency floors (dependent "
+              f"loads summed over the batches x {lat_us * 1e3:.3f} ns): 8a "
+              f"{floor_8a:.6f} ms ({sum(widths)} record loads), 8b "
+              f"{floor_8b:.6f} ms ({sum(n + 7 for n in longest)} loads), "
+              f"the per-element walk {floor_flat:.6f} ms; the per-element "
+              f"walk's bound {flat_bound:.6f} ms, plain {flat_plain_ms:.6f} "
+              f"ms")
 
     shapes = [tuple(b.seqs.shape) for b in batches]
-    for name, fn, runs, reps in (
-            ("fused_sa_pre_scan", kernels.fused_sa_pre_scan, scans, 5),
-            ("sa_walk", kernels.sa_walk, walks, 3)):
-        k_ms = cuda_ms(lambda: [fn(*a) for a in runs], reps=reps)
+    fns = {"fused_sa_pre_scan": kernels.fused_sa_pre_scan,
+           "sa_mark": kernels.sa_mark, "sa_walk": kernels.sa_walk,
+           "sa_fill": kernels.sa_fill}
+    for name in SA_KERNELS:
+        fn, args = fns[name], runs[name]
+        k_ms = cuda_ms(lambda: [fn(*a) for a in args], reps=5)
         timings[name] = (k_ms, plain_ms[name])
-        per = ", ".join(f"{lb} lanes x {wb}: "
-                        f"{cuda_ms(lambda: fn(*a), reps=reps):.6f} ms"
-                        for (lb, wb), a in zip(shapes, runs))
+        per = [cuda_ms(lambda: fn(*a), reps=5) for a in args]
+        note = ""
+        if name == "fused_sa_pre_scan":
+            note = (f"; the 10 kb batch {per[-1] / widths[-1] * 1e3:.6f} "
+                    f"us a step")
         say("SA", f"{name} over the main path's {len(batches)} batches "
                   f"({n_bases} bases): kernel {k_ms:.6f} ms = "
                   f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
-                  f"{plain_ms[name]:.6f} ms; kernel per batch [{per}]  "
-                  f"({card})")
-    del scans, walks
+                  f"{plain_ms[name]:.6f} ms; kernel per batch ["
+                  + ", ".join(f"{lb} lanes x {wb}: {ms:.6f} ms"
+                              for (lb, wb), ms in zip(shapes, per))
+                  + f"]{note}  ({card})")
+    pass_ms = sum(timings[k][0] for k in SA_KERNELS[1:])
+    say("SA", f"kernel 8b's SA pass (mark + anchor walk + fill) "
+              f"{pass_ms:.6f} ms, floor {floor_8b:.6f} ms; kernel 8a "
+              f"{timings['fused_sa_pre_scan'][0]:.6f} ms, floor "
+              f"{floor_8a:.6f} ms  ({card})")
+    del runs
 
     # where a warm query's time goes: host batching, prepare (codes to the
-    # card), the two kernels, D2H of ml and SA values, per-read lists
+    # card), kernel 8a, kernel 8b's pass, D2H of ml and SA values, per-read
+    # lists
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.query(reads, lanes=QUERY_LANES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stage = dict.fromkeys(("batching", "prepare", "pre-scan", "walk", "D2H",
-                           "tolist"), 0.0)
+    stage = dict.fromkeys(("batching", "prepare", "pre-scan", "SA pass",
+                           "D2H", "tolist"), 0.0)
     t0 = time.perf_counter()
     bs = list(make_batches(list(reads), lanes=QUERY_LANES,
                            bucket_widths=False))
@@ -1805,20 +1971,19 @@ def phase_sa(dev, card, errs, timings, work, ctx):
             tf.initial_state(fi, codes.shape[1], dev))
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        sa = tsa.sa_walk(fi.records, fi.sigma + 1, sx.all_p, sx.sampled,
-                         sx.rate, sx.n, pre_idx.reshape(-1),
-                         pre_off.reshape(-1))
+        sa = tsa.sa_entries(fi.records, fi.sigma + 1, sx.all_p, sx.sampled,
+                            sx.rate, sx.n, pre_idx, pre_off, ml, codes)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        ml_h, sa_h = ml.cpu().numpy(), sa.reshape(ml.shape).cpu().numpy()
+        ml_h, sa_h = ml.cpu().numpy(), sa.cpu().numpy()
         marks.append(time.perf_counter())
         [(ml_h[:int(L), j].tolist(), sa_h[:int(L), j].tolist())
          for j, L in enumerate(b.lengths)]
         marks.append(time.perf_counter())
-        for key, t_a, t_b in zip(("prepare", "pre-scan", "walk", "D2H",
+        for key, t_a, t_b in zip(("prepare", "pre-scan", "SA pass", "D2H",
                                   "tolist"), marks, marks[1:]):
             stage[key] += t_b - t_a
-    k_ms = timings["fused_sa_pre_scan"][0] + timings["sa_walk"][0]
+    k_ms = sum(timings[k][0] for k in SA_KERNELS)
     busy = k_ms / 1e3 / wall
     say("SA", f"warm FusedSAEngine.query: wall {wall:.6f} s = "
               f"{n_bases / wall:.6e} bases/s; kernels {k_ms:.6f} ms, device "
@@ -4539,18 +4704,22 @@ def main() -> int:
 
     phase_small(dev, errs)
     phase_small_search(dev, errs)
+    lap("small PML, search")
     lat_us = phase_small_compact(dev, errs)
+    lap("small compact")
     phase_small_sa(dev, errs)
+    lap("small SA")
     phase_small_kmer(dev, errs)
-    lap("small phases")
+    lap("small k-mer")
     counts, ctx = phase_full(dev, card, errs, timings, work)
     counts.update(phase_search(dev, card, errs, timings, work, ctx))
     lap("phases 4-5")
     counts.update(phase_compact(dev, card, errs, timings, work, ctx, lat_us))
     lap("compact")
-    counts.update(phase_sa(dev, card, errs, timings, work, ctx))
+    counts.update(phase_sa(dev, card, errs, timings, work, ctx, lat_us))
+    lap("SA")
     counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
-    lap("SA, k-mer")
+    lap("k-mer")
     counts.update(phase_dense(dev, card, errs, timings, work, ctx))
     lap("dense")
     mesh_counts = phase_mesh(dev, card, errs, timings, work, ctx)

@@ -10,12 +10,19 @@ values can exceed n), so bit-exactness needs the same pre-LF state:
 `pre_tab` gives the reposition target before its LF per (run, char), and
 on the match and illegal paths the pre-LF state is the carry itself.
 
-Two kernels (csrc/fused_sa.cu) on a CUDA tensor, their plain PyTorch
-versions below on a CPU tensor:
-  - the pre-state scan: the one-step PML scan that also emits each base's
-    pre-LF (run, offset);
-  - the SA walk: every flat (run, offset) LF-walks to a row whose absolute
-    position is a multiple of `rate` and reads the sampled SA there.
+Kernels 8a and 8b (csrc/fused_sa.cu) on a CUDA tensor, their plain
+PyTorch versions below on a CPU tensor:
+  - 8a, the pre-state scan: the one-step PML scan that also emits each
+    base's pre-LF (run, offset);
+  - 8b, the SA pass (`sa_entries`): the SA value of a (run, offset) is its
+    LF walk to a row whose absolute position is a multiple of `rate`, the
+    sampled SA there plus the steps (`sa_walk_steps_plain`, the flat walk
+    of every element, defines it).  The carry after step t is LF(pre_t),
+    and a step t+1 on the LF path (ml[t+1] > 0, or the illegal code
+    sigma) walks from it, so where row(pre_t) is not sampled SA(t) =
+    SA(t+1) + 1.  Three launches: `sa_mark` (sampled rows, links, and a
+    list of the other elements, the anchors), `sa_walk` over the anchors
+    only, `sa_fill` (each link from its successor, backward along t).
 Positions and SA values are int64 throughout (`all_p`, `sampled`, the
 walk's output), so they do not wrap for texts of 2^31 bases and more.
 """
@@ -23,7 +30,7 @@ walk's output), so they do not wrap for texts of 2^31 bases and more.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +41,9 @@ from ..index.structure import MoveIndex
 from ..io.fastx import ReadBatch, make_batches
 from .fused import (BIT_USE_LF, FA_MASK, FB_MASK, FB_SHIFT, FusedIndex,
                     FusedPMLEngine, fused_step_math, initial_state)
+
+SA_LINK = -2    # the steps sa_mark gives an element its successor resolves
+SA_ANCHOR = -3  # ... and an element the walk resolves
 
 
 @dataclass
@@ -165,23 +175,86 @@ def sa_walk_plain(records: torch.Tensor, slots: int, all_p: torch.Tensor,
                                max_steps, idx, off)[0]
 
 
-def sa_walk(records: torch.Tensor, slots: int, all_p: torch.Tensor,
-            sampled: torch.Tensor, rate: int, max_steps: int,
-            idx: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
-    """The SA walk: the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+def sa_mark_plain(all_p: torch.Tensor, sampled: torch.Tensor, rate: int,
+                  pre_idx: torch.Tensor, pre_off: torch.Tensor,
+                  ml: torch.Tensor, codes: torch.Tensor, sigma: int):
+    """Plain version of kernel 8b's element pass over [W, lanes]: returns
+    (out int64, sampled[row / rate] where the row is sampled and 0
+    elsewhere; steps int64: 0 sampled, SA_LINK where step t+1 matched or
+    read sigma, SA_ANCHOR elsewhere; the anchors' flat indices int64, in
+    order)."""
+    row = all_p[pre_idx.to(torch.int64)] + pre_off
+    hit = row % rate == 0
+    nxt = torch.zeros_like(hit)
+    nxt[:-1] = (ml[1:] > 0) | (codes[1:].to(torch.int64) == sigma)
+    out = torch.where(hit, sampled[torch.where(hit, row // rate, 0)], 0)
+    dist = torch.where(hit, 0, torch.where(nxt, SA_LINK, SA_ANCHOR))
+    return out, dist, torch.nonzero(dist.reshape(-1) == SA_ANCHOR)[:, 0]
+
+
+def sa_fill_plain(out: torch.Tensor, dist: torch.Tensor,
+                  max_steps: int) -> torch.Tensor:
+    """Plain version of kernel 8b's fill: each element takes the value
+    and steps of the first element at or after it (along t) that is no
+    link, plus the distance; -1 where those steps are -1 or pass
+    max_steps.  Step W-1 is never a link."""
+    W, lanes = dist.shape
+    t = torch.arange(W, device=dist.device).unsqueeze(1).expand(W, lanes)
+    end = torch.where(dist == SA_LINK, W, t)
+    end = torch.flip(torch.cummin(torch.flip(end, [0]), 0).values, [0])
+    gap = end - t
+    d = dist.gather(0, end)
+    return torch.where((d < 0) | (d + gap > max_steps), -1,
+                       out.gather(0, end) + gap)
+
+
+def sa_entries_plain(records: torch.Tensor, slots: int, all_p: torch.Tensor,
+                     sampled: torch.Tensor, rate: int, max_steps: int,
+                     pre_idx: torch.Tensor, pre_off: torch.Tensor,
+                     ml: torch.Tensor, codes: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """Plain version of kernel 8b's three launches on kernel 8a's [W,
+    lanes] outputs: the SA values int64 [W, lanes], equal to
+    sa_walk_steps_plain's on every element, and the tallies {elements,
+    sampled, links, anchors, anchor_steps, longest} (longest: the
+    longest anchor walk)."""
+    out, dist, anchors = sa_mark_plain(all_p, sampled, rate, pre_idx,
+                                       pre_off, ml, codes, slots - 1)
+    vals, steps = sa_walk_steps_plain(
+        records, slots, all_p, sampled, rate, max_steps,
+        pre_idx.reshape(-1)[anchors], pre_off.reshape(-1)[anchors])
+    out.view(-1)[anchors] = vals
+    dist.view(-1)[anchors] = torch.where(vals == -1, -1, steps)
+    tally = {"elements": dist.numel(), "sampled": int((dist == 0).sum()),
+             "links": int((dist == SA_LINK).sum()),
+             "anchors": anchors.numel(), "anchor_steps": int(steps.sum()),
+             "longest": int(steps.max()) if anchors.numel() else 0}
+    return sa_fill_plain(out, dist, max_steps), tally
+
+
+def sa_entries(records: torch.Tensor, slots: int, all_p: torch.Tensor,
+               sampled: torch.Tensor, rate: int, max_steps: int,
+               pre_idx: torch.Tensor, pre_off: torch.Tensor, ml: torch.Tensor,
+               codes: torch.Tensor) -> torch.Tensor:
+    """The SA values int64 [W, lanes] of kernel 8a's outputs pre_idx,
+    pre_off, ml int32 and the codes uint8 [W, lanes]: kernel 8b's mark,
+    walk and fill on a CUDA tensor (no host sync), the plain version on a
+    CPU tensor."""
     if records.device.type == "cuda":
-        return kernels.sa_walk(records, slots, all_p, sampled, rate,
-                               max_steps, idx, off)
+        marked = kernels.sa_mark(all_p, sampled, rate, pre_idx, pre_off, ml,
+                                 codes, slots - 1)
+        kernels.sa_walk(records, slots, all_p, sampled, rate, max_steps,
+                        pre_idx, pre_off, marked)
+        return kernels.sa_fill(marked[0], marked[1], max_steps)
     if records.device.type != "cpu":
-        raise ValueError(f"no walk for device {records.device}")
-    return sa_walk_plain(records, slots, all_p, sampled, rate, max_steps,
-                         idx, off)
+        raise ValueError(f"no SA pass for device {records.device}")
+    return sa_entries_plain(records, slots, all_p, sampled, rate, max_steps,
+                            pre_idx, pre_off, ml, codes)[0]
 
 
 class FusedSAEngine:
     """Batched PMLs and per-base SA entries on one device: a pre-state
-    scan and an SA walk per batch."""
+    scan and an SA pass (mark, anchor walk, fill) per batch."""
 
     def __init__(self, fi: FusedIndex, ix: MoveIndex,
                  device: DeviceLike = None):
@@ -198,9 +271,8 @@ class FusedSAEngine:
         state = initial_state(fi, alphas_t.shape[1], self.device)
         _, ml, pre_idx, pre_off = pml_pre_state_scan(
             fi.records, sx.pre_tab, slots, fi.p_dollar, alphas_t, state)
-        sa = sa_walk(fi.records, slots, sx.all_p, sx.sampled, sx.rate, sx.n,
-                     pre_idx.reshape(-1), pre_off.reshape(-1))
-        return ml, sa.reshape(ml.shape)
+        return ml, sa_entries(fi.records, slots, sx.all_p, sx.sampled,
+                              sx.rate, sx.n, pre_idx, pre_off, ml, alphas_t)
 
     def query_batch(self, batch: ReadBatch
                     ) -> List[Tuple[List[int], List[int]]]:

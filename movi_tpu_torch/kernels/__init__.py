@@ -37,7 +37,8 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "fused_zml_scan": 0, "compose_search2_records": 0,
             "fused2_count_scan": 0, "fused2_zml_scan": 0,
             "fused_color_scan": 0, "compose_paired_color_records": 0,
-            "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_walk": 0,
+            "fused2_color_scan": 0, "fused_sa_pre_scan": 0, "sa_mark": 0,
+            "sa_walk": 0, "sa_fill": 0,
             "kmer_member_scan": 0, "kmer_count_scan": 0,
             "fused2_kmer_count_scan": 0, "prep_alc": 0, "mem2_scan": 0,
             "all_mem2_scan": 0, "kmer2_right_scan": 0,
@@ -88,9 +89,15 @@ _SIGNATURES = {
     # (records, pre_tab, codes, steps, lanes, slots, pd_run, pd_off, 3 state
     # in, 3 state out, ml, pre_idx, pre_off, stream)
     "movi_fused_sa_pre_scan": [_P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 10],
-    # (records, slots, all_p, sampled, rate, max_steps, idx, off, n, out,
-    # stream)
-    "movi_sa_walk": [_P, _I, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P],
+    # (all_p, sampled, rate, pre_idx, pre_off, ml, codes, sigma, lanes, n,
+    # out, dist, anchors, count, stream)
+    "movi_sa_mark": [_P, _P, _LL, _P, _P, _P, _P, _I, _I, _LL, *[_P] * 5],
+    # (records, slots, all_p, sampled, rate, max_steps, idx, off, list,
+    # count, n, out, dist, stream)
+    "movi_sa_walk": [_P, _I, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _P, _P,
+                     _P],
+    # (dist, out, W, lanes, max_steps, stream)
+    "movi_sa_fill": [_P, _P, _I, _I, _LL, _P],
     # (rec_all, init_rec, alc, W, alc_w, lanes, r, sigma, fk, k, ticks,
     # use_ftab, state in, state out, out, work, stream)
     "movi_kmer_member_scan": [_P, _P, _P, *[_I] * 7, _LL, _I, *[_P] * 5],
@@ -585,39 +592,109 @@ def fused_sa_pre_scan(records: torch.Tensor, pre_tab: torch.Tensor,
     return new_state, ml, pre_idx, pre_off
 
 
+def _check_sa_tables(all_p, sampled, rate: int, dev, rows=None):
+    _check(all_p, "all_p", torch.int64, dev, rows)
+    if all_p.dim() != 1 or sampled.dim() != 1:
+        raise ValueError("all_p and sampled must be 1-D")
+    _check(sampled, "sampled", torch.int64, dev)
+    if int(rate) <= 0:
+        raise ValueError(f"rate must be positive, got {rate}")
+
+
+def sa_mark(all_p: torch.Tensor, sampled: torch.Tensor, rate: int,
+            pre_idx: torch.Tensor, pre_off: torch.Tensor, ml: torch.Tensor,
+            codes: torch.Tensor, sigma: int):
+    """Kernel 8b's element pass over the pre-LF (run, offset) int32 [W,
+    lanes] of kernel 8a, its ml int32 and codes uint8 [W, lanes]: a
+    sampled row (all_p int64 [r] + offset a multiple of rate) takes
+    sampled[row / rate] with steps 0, an element whose step t+1 matched
+    or read sigma is a link (steps SA_LINK), the rest are anchors (steps
+    SA_ANCHOR), listed in no set order.  Returns (out int64 [W, lanes],
+    written where sampled; steps int64 [W, lanes]; anchors int64 [W *
+    lanes], of which the first `count` are set; count int64 [1], on the
+    card)."""
+    dev = pre_idx.device
+    if dev.type != "cuda":
+        raise ValueError("sa_mark launches on CUDA tensors only")
+    _check_sa_tables(all_p, sampled, rate, dev)
+    if pre_idx.dim() != 2:
+        raise ValueError("pre_idx must be [W, lanes]")
+    shape = tuple(pre_idx.shape)
+    _check(pre_idx, "pre_idx", torch.int32, dev)
+    _check(pre_off, "pre_off", torch.int32, dev, shape)
+    _check(ml, "ml", torch.int32, dev, shape)
+    _check(codes, "codes", torch.uint8, dev, shape)
+    n = pre_idx.numel()
+    out = torch.empty(shape, dtype=torch.int64, device=dev)
+    dist = torch.empty(shape, dtype=torch.int64, device=dev)
+    anchors = torch.empty(n, dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = _load()
+    code = lib.movi_sa_mark(
+        all_p.data_ptr(), sampled.data_ptr(), int(rate), pre_idx.data_ptr(),
+        pre_off.data_ptr(), ml.data_ptr(), codes.data_ptr(), sigma,
+        shape[1], n, out.data_ptr(), dist.data_ptr(), anchors.data_ptr(),
+        count.data_ptr(), _stream(dev))
+    _raise_on(code, "sa_mark")
+    launches["sa_mark"] += 1
+    return out, dist, anchors, count
+
+
 def sa_walk(records: torch.Tensor, slots: int, all_p: torch.Tensor,
             sampled: torch.Tensor, rate: int, max_steps: int,
-            idx: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
-    """Kernel 8b: LF-walk every flat (run, offset) int32 [n] to a row whose
-    absolute position is a multiple of rate, through the one-step records
-    int32 [r*slots, 2] and the run starts all_p int64 [r]; returns the SA
-    values sampled[pos / rate] + steps, int64 [n] (-1 for a walk past
-    max_steps)."""
+            idx: torch.Tensor, off: torch.Tensor, marked):
+    """Kernel 8b's walk: LF-walk the anchors' (run, offset) of idx, off
+    int32 [W, lanes] to a row whose absolute position is a multiple of
+    rate, through the one-step records int32 [r*slots, 2] and the run
+    starts all_p int64 [r]; an anchor's SA value is sampled[pos / rate] +
+    steps (-1 for a walk past max_steps).  marked = (out, dist, anchors,
+    count) of sa_mark on idx, off: it walks only the listed anchors (the
+    count read on the card) and writes their values into out and their
+    steps (-1 past max_steps) into dist, in place; returns out."""
     dev = records.device
     if dev.type != "cuda":
         raise ValueError("sa_walk launches on CUDA tensors only")
-    if records.dim() != 2 or records.shape[1] != 2 or \
+    if records.dim() != 2 or records.shape[1] != 2 or slots <= 0 or \
             records.shape[0] % slots:
         raise ValueError("records must be [r*slots, 2]")
     _check(records, "records", torch.int32, dev)
-    _check(all_p, "all_p", torch.int64, dev, (records.shape[0] // slots,))
-    if sampled.dim() != 1:
-        raise ValueError("sampled must be 1-D")
-    _check(sampled, "sampled", torch.int64, dev)
-    if idx.dim() != 1:
-        raise ValueError("idx must be 1-D")
+    _check_sa_tables(all_p, sampled, rate, dev, (records.shape[0] // slots,))
     _check(idx, "idx", torch.int32, dev)
     _check(off, "off", torch.int32, dev, tuple(idx.shape))
-    if int(rate) <= 0:
-        raise ValueError(f"rate must be positive, got {rate}")
-    out = torch.empty(idx.shape, dtype=torch.int64, device=dev)
+    n = idx.numel()
+    out, dist, anchors, count = marked
+    _check(out, "out", torch.int64, dev, tuple(idx.shape))
+    _check(dist, "dist", torch.int64, dev, tuple(idx.shape))
+    _check(anchors, "anchors", torch.int64, dev, (n,))
+    _check(count, "count", torch.int64, dev, (1,))
     lib = _load()
     code = lib.movi_sa_walk(
         records.data_ptr(), slots, all_p.data_ptr(), sampled.data_ptr(),
         int(rate), int(max_steps), idx.data_ptr(), off.data_ptr(),
-        idx.numel(), out.data_ptr(), _stream(dev))
+        anchors.data_ptr(), count.data_ptr(), n, out.data_ptr(),
+        dist.data_ptr(), _stream(dev))
     _raise_on(code, "sa_walk")
     launches["sa_walk"] += 1
+    return out
+
+
+def sa_fill(out: torch.Tensor, dist: torch.Tensor, max_steps: int):
+    """Kernel 8b's fill: every link of dist int64 [W, lanes] (SA_LINK)
+    takes out[t+1] + 1 in out int64 [W, lanes], in place, or -1 where its
+    chain's steps pass max_steps or end at a -1.  Returns out."""
+    dev = out.device
+    if dev.type != "cuda":
+        raise ValueError("sa_fill launches on CUDA tensors only")
+    if out.dim() != 2:
+        raise ValueError("out must be [W, lanes]")
+    _check(out, "out", torch.int64, dev)
+    _check(dist, "dist", torch.int64, dev, tuple(out.shape))
+    W, lanes = out.shape
+    lib = _load()
+    code = lib.movi_sa_fill(dist.data_ptr(), out.data_ptr(), W, lanes,
+                            int(max_steps), _stream(dev))
+    _raise_on(code, "sa_fill")
+    launches["sa_fill"] += 1
     return out
 
 

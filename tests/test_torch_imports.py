@@ -168,11 +168,11 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     _, six, _ = small_sa_index(37)
     sfi = tf.build_fused_index(six)
     sx = tsa.build_fused_sa_index(six, sfi)
-    _, _, pre_idx, pre_off = tsa.pml_pre_state_scan(
+    _, sml, pre_idx, pre_off = tsa.pml_pre_state_scan(
         sfi.records, sx.pre_tab, slots, sfi.p_dollar, alphas,
         tf.initial_state(sfi, 4, "cpu"))
-    tsa.sa_walk(sfi.records, slots, sx.all_p, sx.sampled, sx.rate, sx.n,
-                pre_idx.reshape(-1), pre_off.reshape(-1))
+    tsa.sa_entries(sfi.records, slots, sx.all_p, sx.sampled, sx.rate, sx.n,
+                   pre_idx, pre_off, sml, alphas)
     ksi = ts.build_fused_search_index(ix, ftab_k=4)
     al8 = torch.randint(-1, 4, (4, 9), dtype=torch.int8)
     lengths = torch.tensor([9, 8, 3, 0], dtype=torch.int32)
@@ -243,7 +243,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "fused_color_scan",
                                      "compose_paired_color_records",
                                      "fused2_color_scan",
-                                     "fused_sa_pre_scan", "sa_walk",
+                                     "fused_sa_pre_scan", "sa_mark",
+                                     "sa_walk", "sa_fill",
                                      "kmer_member_scan", "kmer_count_scan",
                                      "fused2_kmer_count_scan", "prep_alc",
                                      "mem2_scan", "all_mem2_scan",
@@ -304,7 +305,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   5, (0, 0), codes, st)
     i64 = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError):
-        kernels.sa_walk(rec, 5, i64, i64, 100, 10, st[0], st[1])
+        kernels.sa_walk(rec, 5, i64, i64, 100, 10, st[0], st[1],
+                        (i64, i64, i64, i64[:1]))
+    grid32 = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.sa_mark(i64, i64, 100, grid32, grid32, grid32, codes, 4)
+    with pytest.raises(ValueError):
+        kernels.sa_fill(torch.zeros((3, 4), dtype=torch.int64),
+                        torch.zeros((3, 4), dtype=torch.int64), 10)
     slots8 = torch.zeros((4, 9), dtype=torch.int8)
     with pytest.raises(ValueError):
         kernels.prep_alc(slots8, 4)
