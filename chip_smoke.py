@@ -103,8 +103,11 @@ the card's name and power limit.  Phases:
               counted apart: the count layouts agree, membership's found
               k-mers equal the counts', 256 sampled reads equal
               AdvancedEngine, kernels 9a, 9b, 7b and 10a equal their plain
-              versions over all lanes, timings, the longest lane's ticks
-              and steps, and a warm breakdown of each query
+              versions over all lanes (9a in one pass and split), timings,
+              the longest lane's ticks and steps, the latency floors (the
+              longest chain of steps per batch x load_latency, and x a
+              link of two random 32 B rows over a buffer of the table's
+              size, row_latency) and a warm breakdown of each query
      dense    phase 4's index as the dense transition table (kernel 14)
               and phase 4's reads through DensePMLEngine, counted apart:
               equal to phase 4's answers on every read, the kernel equal
@@ -163,10 +166,11 @@ the card's name and power limit.  Phases:
               the count engines agree, 32 sampled reads equal
               AdvancedEngine (its run walks in numpy, held to the plain
               oracle in the small phase), kernels 10b/10c equal their
-              plain versions
-              over the 150 bp batches and 8 long lanes cut to 1,500
-              bases, 11a/11b over every group, timings, bounds from the
-              rows really loaded, latency floors and warm breakdowns
+              plain versions over the 150 bp batches and 8 long lanes cut
+              to 1,500 bases, in one pass and split, 11a/11b over every
+              group, timings, bounds from the rows really loaded, latency
+              floors (as phase k-mer's, on the MEM table) and warm
+              breakdowns
      MEM v1   phase MEM's index and reads through Index.query_mems (BML
               at L = 20, all-MEMs) with MEM2_MAX_N lowered below the
               index's length in this process (the route an index past
@@ -357,7 +361,10 @@ MEM_L = 20                # bench.py MEM_L
 MEM_LANES = 16384         # bench.py MEM_LANES
 MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
-TICK_US = 0.9             # a dependent step's latency (PERF.md §2)
+TICK_US = 0.9             # a dependent step's latency (PERF.md §2): the
+#                           floors of kernels 13b/13c, 14, 15a and 15b
+ROW_CHAIN_STEPS = 10_000  # the links of row_latency's chains
+ROW_CHAIN_SEED = 5
 # the latency probe's ns a load when it timed kernel 12a's chain while 12a's
 # LF searched all of all_p (15 loads a step on the probe's index; PERF.md
 # §6); load_latency times that search-form chain alone
@@ -436,6 +443,99 @@ def load_latency(di, steps=LATENCY_STEPS):
                              f"{out.tolist()} != bisect's {[idx, off]}")
     loads = steps * (levels + 2)
     return ms * 1e3 / loads, loads, levels
+
+
+def _row_chain(buf, starts, out, n, steps, active):
+    """row_latency's kernel (Triton): `active` chains in one warp of 32
+    lanes, each link two independent random 32 B rows of buf (int32 [n,
+    8]): word 0 of the row at idx is the chain's next row, word 1 of the
+    row half a table away is 0 (a step's down and up rows).  out gets
+    each chain's last row."""
+    lanes = tl.arange(0, 32)
+    live = lanes < active
+    idx = tl.load(starts + lanes, mask=live, other=0)
+    half = n // 2
+    for _t in range(steps):
+        j = idx + half
+        j = tl.where(j >= n, j - n, j)
+        a = tl.load(buf + idx.to(tl.int64) * 8, mask=live, other=0)
+        b = tl.load(buf + j.to(tl.int64) * 8 + 1, mask=live, other=0)
+        idx = a ^ b
+    tl.store(out + lanes, idx, mask=live)
+
+
+def row_latency(nbytes, dev, steps=ROW_CHAIN_STEPS):
+    """Microseconds a link of a chain of dependent random 32 B row loads,
+    two independent rows a link (a step's two), over a buffer of nbytes
+    (a tick machine's table size) made here: a random cyclic permutation
+    drawn on the card, so that each timed run walks rows no earlier run
+    touched.  Returns (one chain alone in its warp, 32 chains in one warp,
+    which waits on its slowest lane) and the seconds the probe took.
+    Every chain's last row must equal the host's walk."""
+    import torch
+    import triton
+
+    global tl
+    import triton.language as tl
+
+    t0 = time.perf_counter()
+    n = nbytes // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ROW_CHAIN_SEED)
+    perm = torch.randperm(n, device=dev, generator=gen)
+    nxt = torch.empty_like(perm)
+    nxt[perm] = perm.roll(-1)
+    del perm
+    buf = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+    buf[:, 0] = nxt.to(torch.int32)
+    host = nxt.to(torch.int32).cpu().numpy()
+    del nxt
+    kernel = triton.jit(_row_chain)
+    rng = np.random.default_rng(ROW_CHAIN_SEED)
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    us = []
+    for active in (1, 32):
+        ms = []
+        for rep in range(3):  # the first run compiles
+            first = rng.integers(0, n, size=32).astype(np.int32)
+            starts = torch.from_numpy(first).to(dev)
+            _, t = timed_ms(lambda: kernel[(1,)](
+                buf, starts, out, n, steps, active, num_warps=1))
+            want = first[:active]
+            for _ in range(steps):
+                want = host[want]
+            if not np.array_equal(out[:active].cpu().numpy(), want):
+                raise AssertionError("row latency probe: a chain's last "
+                                     "row differs from the host's walk")
+            if rep:
+                ms.append(t)
+        us.append(sum(ms) / len(ms) * 1e3 / steps)
+    del buf
+    torch.cuda.empty_cache()
+    return us[0], us[1], time.perf_counter() - t0
+
+
+def chain_floors(phase, card, timings, table_bytes, dev, lat_us, chains):
+    """The latency floors of tick machines: per kernel, its longest lane's
+    dependent steps in each batch, summed over the batches, x lat_us
+    (load_latency: a chain of cached loads); beside it the same steps x
+    the random-row latency of a buffer of the table's size
+    (row_latency).  chains: {kernel: [steps per batch]}."""
+    one, warp, secs = row_latency(table_bytes, dev)
+    for name, per_batch in chains.items():
+        n = sum(per_batch)
+        timings[name + ".floor"] = n * lat_us / 1e3
+    say(phase, f"latency floors (the longest chain of dependent steps per "
+               f"batch, summed over the batches, x load_latency "
+               f"{lat_us * 1e3:.3f} ns; beside it x a link of two random "
+               f"32 B rows over a {table_bytes} B buffer: {one:.6f} us "
+               f"alone in its warp, {warp:.6f} us in a warp of 32 chains; "
+               f"probe {secs:.1f} s): " + "; ".join(
+                   f"{name} {timings[name + '.floor']:.6f} ms "
+                   f"({sum(b)} steps {b}), at the row latency "
+                   f"{sum(b) * one / 1e3:.6f} ms alone, "
+                   f"{sum(b) * warp / 1e3:.6f} ms in a warp"
+                   for name, b in chains.items()) + f"  ({card})")
 
 
 def say(phase, msg):
@@ -2257,10 +2357,12 @@ def kmer_breakdown(index, reads, k, kw, dev, k_ms, n_windows, card):
                  + f"  ({card})")
 
 
-def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
-               long_sample=2, cut_lanes=8, cut_len=LONG_CUT):
+def phase_kmer(dev, card, errs, timings, work, ctx, lat_us,
+               lanes=KMER_LANES, long_sample=2, cut_lanes=8,
+               cut_len=LONG_CUT):
     """k-mer membership and exact counts on phase 4's index (ftab-10
-    anchor rows), counted apart."""
+    anchor rows), counted apart; lat_us: load_latency's, for the latency
+    floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -2344,6 +2446,7 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
     runs = {name: [] for name in KMER_KERNELS}
     plain_ms = dict.fromkeys(KMER_KERNELS, 0.0)
     longest, n_ticks, n_steps = [], 0, 0
+    chains = {"kmer_member_scan": [], "kmer_count_scan": []}
     for b in batches + [cut]:
         al8 = torch.from_numpy(left_aligned_slots(b, si.alphamap_query,
                                                   fill=-1)
@@ -2354,7 +2457,7 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
         ticks_cap = tk.tick_cap(k, b.width)
         if b is cut:
             _, ms, _ = kmer_member_pair(si, alc, state, k, ticks_cap,
-                                        "full cut", errs)
+                                        "full cut", errs, split=cut_len)
             plain_ms["kmer_member_scan"] += ms
             continue
         plain_ms["prep_alc"] += ms
@@ -2363,14 +2466,16 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
                  al8.numel() * 3 * si.ftab_k)
         if b.width <= READ_LEN:
             (_, kw_), ms, args = kmer_member_pair(si, alc, state, k,
-                                                  ticks_cap, "full", errs)
+                                                  ticks_cap, "full", errs,
+                                                  split=READ_LEN)
             plain_ms["kmer_member_scan"] += ms
         else:
             args = kmer_member_args(si, alc, state, k, ticks_cap)
             kw_ = kernels.kmer_member_scan(*args)[1]
         runs["kmer_member_scan"].append((kernels.kmer_member_scan, args))
-        ticks, rows = (int(x) for x in kw_.to(torch.int64).sum(dim=1))
+        ticks, rows, _ = (int(x) for x in kw_.to(torch.int64).sum(dim=1))
         longest.append(int(kw_[0].max()))
+        chains["kmer_member_scan"].append(int(kw_[2].max()))
         n_ticks += ticks
         # the slots and fk-mer codes and the state read once, the rows each
         # tick loads, the emissions written once
@@ -2387,6 +2492,7 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
             if steps is None:
                 steps = kmer_count_steps(si0, win, k)
                 n_steps += int(steps.sum())
+                chains["kmer_count_scan"].append(int(steps.max()))
             n = int(torch.where(steps > 0, (steps - 1) // 2 + 1, 0).sum()
                     if paired else steps.sum())
             # the slots read once; per k-mer its (lane, start), the count's
@@ -2395,12 +2501,16 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lanes=KMER_LANES,
                      + n * 2 * (24 if paired else 16), n * OPS_PER_ROW)
     say("k-mer", f"kernels 9a, 9b, 7b and 10a equal their plain versions "
                  f"over all lanes (9a: the 150 bp batches and {cut_lanes} "
-                 f"long lanes cut to {cut_len} bases); membership: "
+                 f"long lanes cut to {cut_len} bases, in one pass and "
+                 f"split); membership: "
                  f"{n_ticks} ticks, {n_ticks / n_windows:.6f} per window, "
-                 f"the longest lane "
-                 f"per batch {longest} ticks (latency floor); counts: "
-                 f"{n_steps} one-step steps, the longest k-mer {k - 1} steps "
-                 f"one-step, {(k - 2) // 2 + 1} pair steps paired")
+                 f"the longest lane per batch {longest} ticks, "
+                 f"{chains['kmer_member_scan']} step ticks; counts: "
+                 f"{n_steps} one-step steps, the longest k-mer "
+                 f"{chains['kmer_count_scan']} steps one-step, "
+                 f"{(k - 2) // 2 + 1} pair steps paired")
+    chain_floors("k-mer", card, timings, si.rec_all.numel() * 4, dev, lat_us,
+                 chains)
     shapes = [tuple(b.seqs.shape) for b in batches]
     for name in KMER_KERNELS:
         rs = runs[name]
@@ -2770,12 +2880,13 @@ def mem_breakdown(index, reads, kw, dev, k_ms, n_bases, card, what,
                + f"  ({card})")
 
 
-def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
+def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
               lanes=MEM_LANES, long_reads=LONG_READS, long_len=LONG_LEN,
               long_sample=1, cut_lanes=8, cut_len=LONG_CUT):
     """MEMs (BML at L = 20 with ftab-10 anchors, all-MEMs) and the
     bidirectional exact k-mer counts on bench.py's reverse-complement
-    closed index, counted apart."""
+    closed index, counted apart; lat_us: load_latency's, for the latency
+    floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -2880,6 +2991,7 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
     runs = {name: [] for name in MEM_KERNELS}
     plain_ms = dict.fromkeys(MEM_KERNELS, 0.0)
     longest = {name: [] for name in MEM_KERNELS}
+    chains = {name: [] for name in MEM_KERNELS}
     rows_of = {}
     for L in (MEM_L, 0):
         e = index.mem_engine(L, dev)
@@ -2890,7 +3002,7 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
             if b is cut or b.width <= READ_LEN:
                 (_, w), ms, run = mem_machine_pair(
                     e.m2, alc, state, cap, f"full {name}", errs, L=L,
-                    use_ftab=use_ftab)
+                    use_ftab=use_ftab, split=b.width)
                 plain_ms[name] += ms
                 if b is cut:
                     continue
@@ -2898,8 +3010,9 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
                 run = mem_kernel_run(e.m2, alc, state, cap, L, use_ftab)
                 w = run[0](*run[1])[1]
             runs[name].append(run)
-            ticks, rows = (int(x) for x in w.to(torch.int64).sum(dim=1))
+            ticks, rows, _ = (int(x) for x in w.to(torch.int64).sum(dim=1))
             longest[name].append(int(w[0].max()))
+            chains[name].append(int(w[2].max()))
             rows_of[name] = rows_of.get(name, 0) + rows
             # slots (and codes) and the state read once, the rows each
             # tick loads, ends and counts written once
@@ -2922,8 +3035,10 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
         # char legal
         win = tk.kmer_windows(slots, own, anchor, KMER_K) >= 0
         before = torch.cat([win[:1], right[0][:-1]])
-        n_r = int((before & win[1:]).sum())
+        per_group = (before & win[1:]).sum(dim=0)
+        n_r = int(per_group.sum())
         steps_r += n_r
+        chains["kmer2_right_scan"].append(int(per_group.max()))
         add_work(work, "kmer2_right_scan",
                  slots.numel() + 8 * G + 64 * n_r + 9 * (KMER_K - 1) * G,
                  n_r * OPS_PER_ROW)
@@ -2932,29 +3047,29 @@ def phase_mem(dev, card, errs, timings, work, half_len=MEM_RC_HALF,
         # and (found, count)
         n_l, live = kmer2_left_steps(m2, s2, *right, slots, own, anchor,
                                      KMER_K, p)
+        # a partial's chain: its pos2rba rows, then its pair steps
+        chains["kmer2_left_scan"].append(1 + int(n_l.max()))
         n_l = int(n_l.sum())
         steps_l += n_l
         add_work(work, "kmer2_left_scan",
                  slots.numel() + 8 * G + live * (64 + 8) + 48 * n_l
                  + p * G * (1 + 5), (n_l + live) * OPS_PER_ROW)
-    longest["kmer2_right_scan"] = [KMER_K - 1]
-    longest["kmer2_left_scan"] = [1 + (p - 1 + 1) // 2]
     say("MEM", f"kernels 10b, 10c, 11a and 11b equal their plain versions "
                f"(10b/10c over all lanes of the 150 bp batches and "
-               f"{cut_lanes} long lanes cut to {cut_len} bases; 11a/11b over "
-               f"every group); the longest lane per batch (latency floor, "
-               f"x {TICK_US} us): 10b {longest['mem2_scan']} ticks, 10c "
-               f"{longest['all_mem2_scan']} ticks; 11a {KMER_K - 1} steps, "
-               f"11b 1 resolve + {p // 2} pair steps; rows: 10b "
+               f"{cut_lanes} long lanes cut to {cut_len} bases, in one pass "
+               f"and split; 11a/11b over every group); the longest lane per "
+               f"batch: 10b {longest['mem2_scan']} ticks, 10c "
+               f"{longest['all_mem2_scan']} ticks; rows: 10b "
                f"{rows_of['mem2_scan']}, 10c {rows_of['all_mem2_scan']}; "
                f"steps: 11a {steps_r}, 11b {steps_l}")
+    chain_floors("MEM", card, timings, m2.rec_all.numel() * 4, dev, lat_us,
+                 chains)
     shapes = {"mem": [tuple(b.seqs.shape) for b in batches],
               "kmer": [tuple(b.seqs.shape) for b in kbatches]}
     for name in MEM_KERNELS:
         rs = runs[name]
         k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
         timings[name] = (k_ms, plain_ms[name])
-        timings[name + ".floor"] = max(longest[name]) * TICK_US / 1e3
         sh = shapes["kmer" if "kmer2" in name else "mem"]
         per = ", ".join(f"{lb} lanes x {wb}: "
                         f"{cuda_ms(lambda: fn(*a), reps=3):.6f} ms"
@@ -4718,7 +4833,7 @@ def main() -> int:
     lap("compact")
     counts.update(phase_sa(dev, card, errs, timings, work, ctx, lat_us))
     lap("SA")
-    counts.update(phase_kmer(dev, card, errs, timings, work, ctx))
+    counts.update(phase_kmer(dev, card, errs, timings, work, ctx, lat_us))
     lap("k-mer")
     counts.update(phase_dense(dev, card, errs, timings, work, ctx))
     lap("dense")
@@ -4734,7 +4849,7 @@ def main() -> int:
     lap("small MEM")
     phase_small_mem1(dev, errs)
     lap("small MEM v1")
-    mem_counts, mem_ctx = phase_mem(dev, card, errs, timings, work)
+    mem_counts, mem_ctx = phase_mem(dev, card, errs, timings, work, lat_us)
     counts.update(mem_counts)
     lap("MEM")
     counts.update(phase_mem1(dev, card, errs, timings, work, mem_ctx,

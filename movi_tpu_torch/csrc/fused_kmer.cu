@@ -16,14 +16,24 @@
 //    until its lane is done.  A done lane's tick changes nothing, so this
 //    equals the TPU's lockstep scan of 2W+64-tick quanta with lanes
 //    compacted between them, which exist only for XLA's static shapes.  A
-//    tick loads either a step's two rows (bs_step's addressing) or one
+//    tick uses either a step's two rows (bs_step's addressing) or one
 //    ftab anchor row at 2*sigma*r + code, or nothing (anchor decisions,
 //    probe restarts); the char and fk-mer code at the tick's position are
-//    indexed loads from the lane's row and the emission is a plain add
-//    into the lane's output row (the TPU's one-hot selects and emits are
-//    not needed).  The tick budget and the state go in and out, so a run
-//    split in two equals one pass; each lane reports the ticks it ran and
-//    the rows it loaded.
+//    indexed loads from the lane's row and the emission an add into the
+//    lane's output row (the TPU's one-hot selects and emits are not
+//    needed).  The loop is software-pipelined over ticks, so that a tick
+//    waits on nothing but its own rows: every position the next tick can
+//    read follows from the registers, the char and code, and one bit (did
+//    the step or ftab row come back empty).  While the rows are in
+//    flight, the tick computes the next registers for both outcomes and
+//    loads both chars and codes; when the rows arrive, the bit picks the
+//    outcome, and the next tick is planned from the char and code in
+//    registers and issues its rows (a step's, or its ftab row) before
+//    anything else.  The emission is a reduction (atomicAdd into the
+//    lane's own row) that no load waits on.  The tick budget and the
+//    state go in and out, so a run split in two equals one pass; each
+//    lane reports the ticks it ran, the rows it loaded and the ticks that
+//    loaded a step's rows.
 //  - 9b: one thread per k-mer reads its k chars from the read-order int8
 //    slots by (lane, start) (an int32 [k, nk] window matrix would be 13x
 //    the bytes at k = 31), inits
@@ -46,6 +56,128 @@ using movi::Interval;
 constexpr int ANCHOR = 0, EXTEND = 1, DONE = 2, PROBE = 3;
 constexpr int NREG = 10;  // phase pos cur pc pok pinit rs os re oe
 
+// A membership lane's registers apart from its interval.
+struct KRegs {
+    int phase, pos, cur, pc, pok, pinit;
+};
+
+// The position a tick reads its char (and fk-mer code) at: the anchor at
+// pos, a probe init at pc, a probe step at pc-1, a stretch step at cur-1.
+__device__ __forceinline__ int kmer_pos(const KRegs& q, int W) {
+    const bool pi = q.phase == PROBE && q.pinit == 1;
+    return movi::clampi(
+        q.phase == ANCHOR ? q.pos
+                          : (q.phase == PROBE ? (pi ? q.pc : q.pc - 1)
+                                              : q.cur - 1),
+        0, W - 1);
+}
+
+// What a tick decides before its rows arrive, from its registers, its char
+// and its fk-mer code (-1 without ftab rows): the anchor decisions, and
+// which rows it reads.
+struct KPlan {
+    KRegs q;      // after the anchor decisions (pos1, cur1, pc1, ...)
+    int c, code;
+    int a_gate;   // the step's char, or -1: no step rows
+    int64_t down, up;  // the step char's row bases
+    bool ftl;     // reads the ftab row of code
+    bool init;    // the interval becomes init(c): a plain anchor/probe init
+    bool anchored, pi, extending, probing, can_step, can_pstep;
+};
+
+__device__ __forceinline__ KPlan kmer_plan(const KRegs& q, int c, int code,
+                                           int k, int step, int r,
+                                           int sigma) {
+    KPlan P;
+    P.c = c;
+    P.code = code;
+    const bool in_anchor = q.phase == ANCHOR;
+    P.extending = q.phase == EXTEND;
+    P.probing = q.phase == PROBE;
+    P.pi = P.probing && q.pinit == 1;
+    // anchoring lanes: decide, or start a probe
+    const int pos1 = (in_anchor && c < 0) ? q.pos - 1 : q.pos;
+    const bool legal = in_anchor && c >= 0 && pos1 >= k - 1;
+    const bool eligible =
+        step >= 1 && legal && pos1 >= k - 1 + step && q.pok == 0;
+    P.anchored = legal && !eligible;
+    P.q.pos = pos1;
+    P.q.pc = eligible ? pos1 - step : q.pc;
+    P.q.pinit = eligible ? 1 : q.pinit;
+    int phase1 = eligible ? PROBE : (P.anchored ? EXTEND : q.phase);
+    if (phase1 == ANCHOR && pos1 < k - 1) phase1 = DONE;
+    P.q.phase = phase1;
+    P.q.pok = P.anchored ? 0 : q.pok;
+    P.q.cur = P.anchored ? pos1 : q.cur;
+    // the tick's rows: a step's two, one ftab anchor row, or none
+    P.can_step = P.extending && P.q.cur > 0;
+    P.can_pstep = P.probing && !P.pi && P.q.pc > 0;
+    P.a_gate = (P.can_step || P.can_pstep) ? c : -1;
+    const int64_t a_s = P.a_gate > 0 ? P.a_gate : 0;
+    P.down = a_s * r;
+    P.up = (sigma + a_s) * r;
+    const bool code_ok = code >= 0;
+    P.ftl = (P.anchored || P.pi) && code_ok;
+    P.init = (P.anchored || (P.pi && c >= 0)) && !code_ok;
+    return P;
+}
+
+// The rest of the tick, given the one bit its rows decide: e is the ftab
+// row's emptiness on an ftab tick, the step's on a step tick, and true on
+// a tick without rows.  Returns the next registers; a stretch's emission
+// (at, val) has val > 0.
+__device__ __forceinline__ KRegs kmer_finish(const KPlan& P, bool e, int k,
+                                             int step, int fk, int W,
+                                             int& at, int& val) {
+    KRegs n = P.q;
+    // an ftab hit jumps the cursor; a miss advances the anchor
+    const bool hit = P.ftl && !e, miss = P.ftl && e;
+    if (P.anchored && hit) n.cur = P.q.pos - fk + 1;
+    if (P.anchored && miss) {
+        n.pos -= 1;
+        n.phase = n.pos >= k - 1 ? ANCHOR : DONE;
+    }
+    if (P.pi && hit) n.pc -= fk - 1;
+    if (P.pi && (hit || P.init)) n.pinit = 0;
+    const bool pi_fail = (P.pi && P.c < 0) || (P.pi && miss);
+    // commit the step
+    const bool step_ok = P.can_step && !e;
+    const bool pstep_ok = P.can_pstep && !e;
+    if (step_ok) n.cur -= 1;
+    if (pstep_ok) n.pc -= 1;
+    // probe termination (the look-ahead's backward search loop)
+    const int plen = (n.pos - step) - n.pc;
+    const bool probe_end =
+        (P.probing && !P.pi &&
+         (!P.can_pstep || e || (pstep_ok && plen > k - step))) ||
+        pi_fail;
+    const bool passed = n.pos - n.pc >= k - 1;
+    if (probe_end && passed) n.pok = 1;
+    if (probe_end) {
+        if (!passed) n.pos -= step + 1;
+        n.phase = (!passed && n.pos < k - 1) ? DONE : ANCHOR;
+    }
+    // a stretch ends at a failed step or at position 0
+    at = 0;
+    val = 0;
+    if (P.extending && !step_ok) {
+        const int matched = n.pos - n.cur;
+        const bool emit = matched >= k - 1;
+        if (emit) {
+            at = movi::clampi(n.cur, 0, W - 1);
+            val = matched - k + 2;
+        }
+        // the new anchor: cur + k - 2 after a success, pos - 1 else
+        n.pos = emit ? n.cur + k - 2 : n.pos - 1;
+        n.phase = n.pos >= k - 1 ? ANCHOR : DONE;
+    }
+    return n;
+}
+
+__device__ __forceinline__ bool ftab_empty(int4 f) {
+    return !(f.x < f.z || (f.x == f.z && f.y <= f.w));
+}
+
 __global__ void kmer_member_kernel(
     const int4* __restrict__ rec_all, const int4* __restrict__ init_rec_g,
     const int* __restrict__ alc, int W, int alc_w, int lanes, int r,
@@ -61,131 +193,86 @@ __global__ void kmer_member_kernel(
 
     int reg[NREG];
     for (int i = 0; i < NREG; ++i) reg[i] = st_in[i * lanes + lane];
-    int phase = reg[0], pos = reg[1], cur = reg[2], pc = reg[3],
-        pok = reg[4], pinit = reg[5];
+    KRegs q{reg[0], reg[1], reg[2], reg[3], reg[4], reg[5]};
     Interval iv{reg[6], reg[7], reg[8], reg[9]};
     const int* row = alc + (int64_t)lane * alc_w;
+    const int* codes = row + W;
     int* orow = out + (int64_t)lane * W;
     const int step = k / 3;
-    const int max_len = k - step;
-    const int64_t ftb = 2 * (int64_t)sigma * r;
+    const int4* ftab = rec_all + 2 * (int64_t)sigma * r;
+    // 0 (the wrapper takes ticks >= 0), but not to the compiler: a row's
+    // word no decode reads is and-ed with it and kept, so that its
+    // register stays live until the row lands (an instruction that
+    // reused it would wait on the whole in-flight load)
+    const int keep = (int)(ticks >> 63);
+
+    // The first tick's char, code and rows; from then on each tick loads
+    // the next tick's chars and codes while its own rows are in flight,
+    // and issues the next tick's rows as soon as they are addressed.
+    int p = kmer_pos(q, W);
+    KPlan P = kmer_plan(q, row[p], use_ftab ? codes[p] : -1, k, step, r,
+                        sigma);
+    const int4 zero{0, 0, 0, 0};
+    int4 frow = P.ftl ? ftab[P.code] : zero;
+    movi::StepRows sr{zero, zero};
+    if (P.a_gate >= 0) sr = movi::step_rows(rec_all, P.down, P.up, r, iv);
 
     long long t = 0;
-    int rows = 0;  // 16 B record rows loaded
-    for (; t < ticks && phase != DONE; ++t) {
-        const bool in_anchor = phase == ANCHOR;
-        const bool extending = phase == EXTEND;
-        const bool probing = phase == PROBE;
-        const bool pi = probing && pinit == 1;
-        // anchor char at pos, probe-init char at pc, probe step at pc-1,
-        // stretch step at cur-1
-        const int p_sel =
-            in_anchor ? pos : (probing ? (pi ? pc : pc - 1) : cur - 1);
-        const int p = movi::clampi(p_sel, 0, W - 1);
-        const int c = row[p];
-        const int code = use_ftab ? row[W + p] : -1;
+    int rows = 0;   // 16 B record rows loaded
+    int steps = 0;  // ticks that loaded a step's rows
+    while (t < ticks && q.phase != DONE) {
+        // 1. while this tick's rows are in flight: the next registers for
+        //    both outcomes, and their chars and codes
+        int at0, val0, at1, val1;
+        const KRegs q0 = kmer_finish(P, false, k, step, fk, W, at0, val0);
+        const KRegs q1 = kmer_finish(P, true, k, step, fk, W, at1, val1);
+        const int p0 = kmer_pos(q0, W), p1 = kmer_pos(q1, W);
+        const int c0 = row[p0], c1 = row[p1];
+        const int code0 = use_ftab ? codes[p0] : -1;
+        const int code1 = use_ftab ? codes[p1] : -1;
+        const Interval ini = movi::init_interval(init_rec, P.c);
 
-        // anchoring lanes: decide, or start a probe
-        int pos1 = (in_anchor && c < 0) ? pos - 1 : pos;
-        const bool legal = in_anchor && c >= 0 && pos1 >= k - 1;
-        const bool eligible =
-            step >= 1 && legal && pos1 >= k - 1 + step && pok == 0;
-        const bool anchored = legal && !eligible;
-        int pc1 = eligible ? pos1 - step : pc;
-        int pinit1 = eligible ? 1 : pinit;
-        int phase1 = eligible ? PROBE : (anchored ? EXTEND : phase);
-        const int pok1 = anchored ? 0 : pok;
-        int cur1 = anchored ? pos1 : cur;
-        if (phase1 == ANCHOR && pos1 < k - 1) phase1 = DONE;
-
-        // the tick's rows: a step's two, one ftab anchor row, or none
-        const bool can_step = extending && cur1 > 0;
-        const bool can_pstep = probing && !pi && pc1 > 0;
-        const int a_gate = (can_step || can_pstep) ? c : -1;
-        const bool code_ok = code >= 0;
-        const bool ftl = use_ftab && (anchored || pi) && code_ok;
-        bool empty = true;
+        // 2. the rows' one bit picks the outcome
         Interval nxt{0, 0, 0, 0};
-        int4 frow{0, 0, 0, 0};
-        if (ftl) {
-            frow = rec_all[ftb + code];
+        bool e = true;
+        if (P.ftl) {
+            e = ftab_empty(frow);
             rows += 1;
-        } else if (a_gate >= 0) {
-            empty = movi::bs_step(rec_all, r, sigma, iv, a_gate, nxt);
+        } else if (P.a_gate >= 0) {
+            e = movi::step_decode(sr, r, iv, P.a_gate, nxt);
             rows += 2;
+            steps += 1 + (sr.rd.w & keep);
         }
-
-        // interval init: the ftab row, or the char's init row
-        const Interval ini = movi::init_interval(init_rec, c);
-        bool pi_fail;
-        if (use_ftab) {
-            const bool f_empty = !(frow.x < frow.z ||
-                                   (frow.x == frow.z && frow.y <= frow.w));
-            const bool a_hit = anchored && code_ok && !f_empty;
-            const bool a_miss = anchored && code_ok && f_empty;
-            const bool a_plain = anchored && !code_ok;
-            const bool p_hit = pi && code_ok && !f_empty;
-            const bool p_missf = pi && code_ok && f_empty;  // fails at once
-            const bool p_plain = pi && !code_ok && c >= 0;
-            if (a_hit || p_hit) {
-                iv = movi::interval_of(frow);
-            } else if (a_plain || p_plain) {
-                iv = ini;
-            }
-            // a stretch hit jumps the cursor; a miss advances the anchor
-            if (a_hit) cur1 = pos1 - fk + 1;
-            if (a_miss) {
-                pos1 -= 1;
-                phase1 = pos1 >= k - 1 ? ANCHOR : DONE;
-            }
-            if (p_hit) pc1 -= fk - 1;
-            if (p_hit || p_plain) pinit1 = 0;
-            pi_fail = (pi && c < 0) || p_missf;
-        } else {
-            if (anchored || (pi && c >= 0)) iv = ini;
-            if (pi && c >= 0) pinit1 = 0;
-            pi_fail = pi && c < 0;
+        if (P.ftl && !e) {
+            iv = movi::interval_of(frow);
+        } else if (P.init) {
+            iv = ini;
+        } else if ((P.can_step || P.can_pstep) && !e) {
+            iv = nxt;
         }
+        q = e ? q1 : q0;
+        ++t;
 
-        // commit the step
-        const bool step_ok = can_step && !empty;
-        const bool pstep_ok = can_pstep && !empty;
-        if (step_ok || pstep_ok) iv = nxt;
-        const int cur2 = step_ok ? cur1 - 1 : cur1;
-        const int pc2 = pstep_ok ? pc1 - 1 : pc1;
-
-        // probe termination (the look-ahead's backward search loop)
-        const int plen = (pos1 - step) - pc2;
-        const bool probe_end =
-            (probing && !pi &&
-             (!can_pstep || empty || (pstep_ok && plen > max_len))) ||
-            pi_fail;
-        const bool passed = pos1 - pc2 >= k - 1;
-        pok = (probe_end && passed) ? 1 : pok1;
-        int pos2 = (probe_end && !passed) ? pos1 - step - 1 : pos1;
-        int phase2 = probe_end ? ANCHOR : phase1;
-        if (probe_end && !passed && pos2 < k - 1) phase2 = DONE;
-
-        // a stretch ends at a failed step or at position 0
-        if (extending && !step_ok) {
-            const int matched = pos1 - cur2;
-            const bool emit = matched >= k - 1;
-            if (emit) orow[movi::clampi(cur2, 0, W - 1)] += matched - k + 2;
-            // the new anchor: cur + k - 2 after a success, pos - 1 else
-            pos2 = emit ? cur2 + k - 2 : pos1 - 1;
-            phase2 = pos2 >= k - 1 ? ANCHOR : DONE;
+        // 3. the next tick's plan from its char and code, already in
+        //    registers, and its rows: the chain's only loads that wait on
+        //    this tick's rows
+        P = kmer_plan(q, e ? c1 : c0, e ? code1 : code0, k, step, r, sigma);
+        if (P.a_gate >= 0) {
+            sr = movi::step_rows(rec_all, P.down, P.up, r, iv);
+        } else if (P.ftl) {
+            frow = ftab[P.code];
         }
-        phase = phase2;
-        pos = pos2;
-        cur = cur2;
-        pc = pc2;
-        pinit = pinit1;
+        // the emission adds into the lane's own row: a reduction that no
+        // load waits on
+        const int val = e ? val1 : val0;
+        if (val > 0) atomicAdd(orow + (e ? at1 : at0), val);
     }
-    const int fin[NREG] = {phase, pos, cur, pc, pok, pinit,
+    const int fin[NREG] = {q.phase, q.pos, q.cur, q.pc, q.pok, q.pinit,
                            iv.rs, iv.os, iv.re, iv.oe};
     for (int i = 0; i < NREG; ++i) st_out[i * lanes + lane] = fin[i];
     work[lane] = (int)t;
     work[lanes + lane] = rows;
+    work[2 * lanes + lane] = steps;
 }
 
 __global__ void kmer_count_kernel(
@@ -244,7 +331,8 @@ __global__ void prep_alc_kernel(const int8_t* __restrict__ slots, int lanes,
 // Kernel 9a.  alc is int32 [lanes, alc_w]: the read-order slots, followed
 // with use_ftab by the fk-mer codes (alc_w = 2W).  st_in/st_out are int32
 // [10, lanes]; out is int32 [lanes, W], added to in place; work int32
-// [2, lanes] gets each lane's ticks and the record rows it loaded.
+// [3, lanes] gets each lane's ticks, the record rows it used and its step
+// ticks.
 extern "C" int movi_kmer_member_scan(
     const void* rec_all, const void* init_rec, const void* alc, int W,
     int alc_w, int lanes, int r, int sigma, int fk, int k, long long ticks,

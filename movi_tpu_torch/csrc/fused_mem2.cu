@@ -13,18 +13,29 @@
 // both intervals, sixteen registers) and loops until its lane is done.  A
 // done lane's tick changes nothing, so this equals the TPU's lockstep
 // scan of 2W+84 (4W+64) tick quanta with lanes compacted between them,
-// which exist for XLA's static shapes only.  Each tick is the JAX tick as
-// straight-line code in the JAX order, and loads only the rows it uses: a
-// step's two 32 B rows (as two int4 each), a RESOLVE's two pos2rba rows,
-// one ftab row for an anchored BML INIT, or none.  The char at the tick's
-// position is an indexed load from the lane's row of slots, and an
-// emission a plain add into the lane's row of ends and counts (the TPU's
-// one-hot selects and emits are not needed).  The tick budget and the
-// state go in and out, so a run split in two equals one pass; each lane
-// reports the ticks it ran and the rows it loaded.  A lane that comes in
-// at phase ENTRY first gets its start state from its slots (BML: INIT or
-// DONE by the read's length; all-MEMs: init_bidirectional at the first
-// char, the JAX engine's jitted make_state).
+// which exist for XLA's static shapes only.  Each tick is the JAX tick,
+// and uses only the rows it needs: a step's two 32 B rows (as two int4
+// each), a RESOLVE's two pos2rba rows, one ftab row for an anchored BML
+// INIT, or none.  The char at the tick's position is an indexed load from
+// the lane's row of slots, and an emission an add into the lane's row of
+// ends and counts (the TPU's one-hot selects and emits are not needed).
+// The tick budget and the state go in and out, so a run split in two
+// equals one pass; each lane reports the ticks it ran, the rows it loaded
+// and the ticks that loaded a step's rows (the chain no reordering
+// shortens: each step's rows are addressed by the interval the last one
+// decoded).  A lane that comes in at phase ENTRY first gets its start
+// state from its slots (BML: INIT or DONE by the read's length; all-MEMs:
+// init_bidirectional at the first char, the JAX engine's jitted
+// make_state).
+// 10c is software-pipelined over its ticks, so that a tick waits on
+// nothing but its own rows: every position the next tick can read follows
+// from the registers, the char and one bit (did the step succeed), so
+// while the rows are in flight the tick loads the chars of both outcomes
+// and plans both next ticks.  When the rows arrive, the bit picks the
+// outcome and the next tick's rows (a step's, or a RES tick's pos2rba
+// rows) are issued before anything else; the emissions are reductions
+// (atomicAdd into the lane's own rows) that no load waits on, and the
+// re-anchor takes the tick's own char.
 
 #include <cuda_runtime.h>
 
@@ -84,6 +95,12 @@ __global__ void mem2_kernel(
     const int m = read_len(row, W);
     const int64_t p2r = 2 * (int64_t)sigma * r;
     const int64_t ftb = p2r + n;
+    // 0 (the wrapper takes ticks >= 0), but not to the compiler: the
+    // interval a step reads and its rows' unused words are and-ed with it
+    // and kept past the decode, so that neither row's load may reuse their
+    // registers (which would order the second row's load after the first
+    // row's arrival) nor an instruction reuse a row's register in flight
+    const int keep = (int)(ticks >> 63);
     if (phase == ENTRY) {  // the window at 0, or done for a short read
         phase = m >= L ? INIT : DONE;
         pos = jc = end = 0;
@@ -92,7 +109,8 @@ __global__ void mem2_kernel(
     }
 
     long long t = 0;
-    int rows = 0;  // 32 B rows loaded
+    int rows = 0;   // 32 B rows loaded
+    int steps = 0;  // ticks that loaded a step's rows
     for (; t < ticks && phase != DONE; ++t) {
         // ---- INIT: anchor the window, init bidirectional
         const bool is_init = phase == INIT;
@@ -144,9 +162,14 @@ __global__ void mem2_kernel(
         int2 res_s = make_int2(0, 0), res_e = make_int2(0, 0);
         movi::Row8 frow{{0, 0, 0, 0, 0, 0, 0, 0}};
         if (active && a >= 0) {
-            st = movi::mem2_step(rec_all, r, sigma, a, iv_rs, iv_os, iv_re,
-                                 iv_oe);
+            const int64_t a_s = a;
+            const movi::StepRows8 sr = movi::step_rows8(
+                rec_all, a_s * r, (sigma + a_s) * r, r, iv_rs, iv_re);
+            st = movi::decode_step(sr.lo, sr.hi, r, a, iv_rs, iv_os, iv_re,
+                                   iv_oe);
             rows += 2;
+            steps += 1 + ((sr.lo.w[3] | sr.lo.w[7] | sr.hi.w[7] | iv_rs |
+                           iv_os | iv_re | iv_oe) & keep);
         } else if (in_resolve) {
             res_s = movi::load_p2r(rec_all, p2r + clampi(ras, 0, n - 1));
             res_e = movi::load_p2r(rec_all, p2r + clampi(rae_want, 0, n - 1));
@@ -257,6 +280,7 @@ __global__ void mem2_kernel(
     for (int i = 0; i < NREG; ++i) st_out[i * lanes + lane] = fin[i];
     work[lane] = (int)t;
     work[lanes + lane] = rows;
+    work[2 * lanes + lane] = steps;
 }
 
 // init_bidirectional at c: fw from c (the canonical empty interval, abs
@@ -268,6 +292,74 @@ __device__ __forceinline__ void init_pair6(const int* init6, int sigma,
     fw = c >= 0 ? movi::init6(init6, c) : empty;
     const int cr = c >= 0 ? sigma - 1 - c : (c == -1 ? 0 : -1);
     rc = cr >= 0 ? movi::init6(init6, cr) : empty;
+}
+
+// An all-MEMs lane's registers apart from its two intervals.
+struct AmRegs {
+    int phase, s, ml, e;
+};
+
+// The position of the char a tick reads: RIGHT at s+ml, LEFT at e-ml.  A
+// RES tick reads none; it holds the char of the RIGHT tick after it, at
+// s+ml too.
+__device__ __forceinline__ int am_pos(const AmRegs& q, int W) {
+    return clampi(q.phase == AM2_LEFT ? q.e - q.ml : q.s + q.ml, 0, W - 1);
+}
+
+// What a tick decides before its rows arrive, from its registers and char.
+struct AmPlan {
+    int a;             // the step's char (RIGHT: the complement), or -1
+    int64_t down, up;  // its row bases
+    bool right, left, res;
+    bool stepping;     // loads the step's rows: RIGHT or LEFT with a >= 0
+};
+
+__device__ __forceinline__ AmPlan am_plan(const AmRegs& q, int c, int m,
+                                          int r, int sigma) {
+    AmPlan P;
+    P.right = q.phase == AM2_RIGHT;
+    P.left = q.phase == AM2_LEFT;
+    P.res = q.phase == AM2_RES;
+    const int a_right =
+        c >= 0 ? sigma - 1 - c : (c == -1 ? 0 : -1);
+    P.a = P.right ? (q.s + q.ml < m ? a_right : -1)
+                  : ((P.left && q.e - q.ml >= 0) ? c : -1);
+    const int64_t a_s = P.a > 0 ? P.a : 0;
+    P.down = a_s * r;
+    P.up = (sigma + a_s) * r;
+    P.stepping = (P.right || P.left) && P.a >= 0;
+    return P;
+}
+
+// Issue a tick's rows: a step's two rows of the stepped side's interval,
+// or a RES tick's two pos2rba rows of rc's abs ends.
+__device__ __forceinline__ void issue_rows(const int* __restrict__ rec_all,
+                                           const int* __restrict__ p2r, int r,
+                                           int n, const AmPlan& P,
+                                           const Iv6& f, const Iv6& rc,
+                                           movi::StepRows8& sr, int2& res_s,
+                                           int2& res_e) {
+    if (P.stepping) {
+        sr = movi::step_rows8(rec_all, P.down, P.up, r,
+                              P.right ? rc.rs : f.rs,
+                              P.right ? rc.re : f.re);
+    } else if (P.res) {
+        res_s = movi::load_p2r(p2r, clampi(rc.as, 0, n - 1));
+        res_e = movi::load_p2r(p2r, clampi(rc.ae, 0, n - 1));
+    }
+}
+
+// The registers after a tick whose step succeeded (ok) or not; a RES
+// tick's are the same either way.
+__device__ __forceinline__ AmRegs am_next(const AmRegs& q, const AmPlan& P,
+                                         bool ok, int m) {
+    if (P.res) return AmRegs{AM2_RIGHT, q.s, q.ml, q.e};
+    if (ok) return AmRegs{q.phase, q.s, q.ml + 1, q.e};
+    if (P.left) return AmRegs{AM2_RES, q.e - q.ml + 1, q.ml, q.e};
+    // RIGHT fails: emit, then re-anchor at e = s+ml (done at the read's end)
+    const int e2 = q.s + q.ml;
+    return e2 >= m ? AmRegs{AM2_DONE, q.s, q.ml, e2}
+                   : AmRegs{AM2_LEFT, q.s, 1, e2};
 }
 
 __global__ void all_mem2_kernel(
@@ -283,104 +375,107 @@ __global__ void all_mem2_kernel(
 
     int reg[NREG];
     for (int i = 0; i < NREG; ++i) reg[i] = st_in[i * lanes + lane];
-    int phase = reg[0], s = reg[1], ml = reg[2], e = reg[3];
+    AmRegs q{reg[0], reg[1], reg[2], reg[3]};
     Iv6 f{reg[4], reg[5], reg[6], reg[7], reg[8], reg[9]};
     Iv6 rc{reg[10], reg[11], reg[12], reg[13], reg[14], reg[15]};
     const int* row = alc + (int64_t)lane * W;
     int* erow = ends + (int64_t)lane * W;
     int* crow = counts + (int64_t)lane * W;
     const int m = read_len(row, W);
-    const int64_t p2r = 2 * (int64_t)sigma * r;
-    if (phase == ENTRY) {  // init_bidirectional at the first char, ml = 1
-        phase = m > 0 ? AM2_RIGHT : AM2_DONE;
-        s = e = 0;
-        ml = 1;
+    const int* p2r = rec_all + 2 * (int64_t)sigma * r * 8;
+    // 0 (the wrapper takes ticks >= 0), but not to the compiler: the row
+    // words no decode reads are and-ed with it and kept, so that their
+    // registers stay live until the rows land (an instruction that reused
+    // one would wait on the whole in-flight load)
+    const int keep = (int)(ticks >> 63);
+    if (q.phase == ENTRY) {  // init_bidirectional at the first char, ml = 1
+        q = AmRegs{m > 0 ? AM2_RIGHT : AM2_DONE, 0, 1, 0};
         init_pair6(init6, sigma, p1, row[0], f, rc);
     }
 
+    // The first tick's char and rows; from then on each tick loads the
+    // next tick's chars while its own rows are in flight, and issues the
+    // next tick's rows as soon as they are addressed.  RES uses the CARRIED
+    // rae: after an illegal-char re-anchor the fw side is the canonical
+    // empty interval, so the count sync does not hold.
+    int c = row[am_pos(q, W)];
+    AmPlan P = am_plan(q, c, m, r, sigma);
+    movi::StepRows8 sr{};
+    int2 res_s = make_int2(0, 0), res_e = make_int2(0, 0);
+    issue_rows(rec_all, p2r, r, n, P, f, rc, sr, res_s, res_e);
+
     long long t = 0;
-    int rows = 0;
-    for (; t < ticks && phase != AM2_DONE; ++t) {
-        const bool in_right = phase == AM2_RIGHT;
-        const bool in_left = phase == AM2_LEFT;
-        const bool in_res = phase == AM2_RES;
-        // one char: RIGHT at s+ml, LEFT at e-ml
-        const int c_raw = row[clampi(in_right ? s + ml : e - ml, 0, W - 1)];
-        const int a_right =
-            c_raw >= 0 ? sigma - 1 - c_raw : (c_raw == -1 ? 0 : -1);
-        const int a = in_right ? (s + ml < m ? a_right : -1)
-                               : ((in_left && e - ml >= 0) ? c_raw : -1);
-        const Iv6& iv = in_right ? rc : f;
-        const bool stepping = in_right || in_left;
-        Step2 st;
-        st.empty = true;
-        st.skip = 0;
-        st.nxt = Iv6{0, 0, 0, 0, 0, 0};
-        int2 res_s = make_int2(0, 0), res_e = make_int2(0, 0);
-        if (stepping && a >= 0) {
-            st = movi::mem2_step(rec_all, r, sigma, a, iv.rs, iv.os, iv.re,
-                                 iv.oe);
+    int rows = 0;   // 32 B rows loaded
+    int steps = 0;  // ticks that loaded a step's rows
+    while (t < ticks && q.phase != AM2_DONE) {
+        // 1. while this tick's rows are in flight: both outcomes'
+        //    registers, chars and plans, the re-anchor's intervals
+        const AmRegs q0 = am_next(q, P, true, m);
+        const AmRegs q1 = am_next(q, P, false, m);
+        const int c0 = P.res ? c : row[am_pos(q0, W)];
+        const int c1 = P.res ? c : row[am_pos(q1, W)];
+        const AmPlan P0 = am_plan(q0, c0, m, r, sigma);
+        const AmPlan P1 = am_plan(q1, c1, m, r, sigma);
+        Iv6 f_init, rc_init;  // init_bidirectional at e = s+ml: this char
+        init_pair6(init6, sigma, p1, c, f_init, rc_init);
+        const int at = clampi(q.s, 0, W - 1);
+        const int cnt = f.ae - f.as + 1;
+        const int ends_add = q.s + q.ml;
+
+        // 2. the rows decide ok; the stepped side takes the decode, the
+        //    companion advances in abs
+        bool ok = false;
+        if (P.stepping) {
+            const Iv6 iv = P.right ? rc : f;
+            const Step2 st = movi::decode_step(sr.lo, sr.hi, r, P.a, iv.rs,
+                                               iv.os, iv.re, iv.oe);
+            ok = !st.empty;
             rows += 2;
-        } else if (in_res) {
-            // RES uses the CARRIED rae: after an illegal-char re-anchor the
-            // fw side is the canonical empty interval, so the count sync
-            // does not hold
-            res_s = movi::load_p2r(rec_all, p2r + clampi(rc.as, 0, n - 1));
-            res_e = movi::load_p2r(rec_all, p2r + clampi(rc.ae, 0, n - 1));
-            rows += 2;
-        }
-        const bool ok = stepping && !st.empty;
-        const bool right_ok = in_right && ok;
-        const bool left_ok = in_left && ok;
-        // the stepped side takes the decode; the companion advances in abs
-        Iv6 f2 = f, rc2 = rc;
-        if (right_ok) {
-            rc2 = st.nxt;
-            f2.as = f.as + st.skip;
-            f2.ae = f.as + st.skip + (st.nxt.ae - st.nxt.as);
-        }
-        if (left_ok) {
-            f2 = st.nxt;
-            rc2.as = rc.as + st.skip;
-            rc2.ae = rc2.as + (st.nxt.ae - st.nxt.as);
-        }
-        int ml2 = (right_ok || left_ok) ? ml + 1 : ml;
-        int phase2 = phase, s2 = s, e2 = e;
-        if (in_right && !ok) {
-            // emit (s, s+ml, count(fw)) at s; the count clamps to 0 while
-            // the fw side is the canonical empty interval (fas > fae)
-            const int at = clampi(s, 0, W - 1);
-            const int cnt = f.ae - f.as + 1;
-            erow[at] += s + ml;
-            crow[at] += cnt > 0 ? cnt : 0;
-            e2 = s + ml;
-            if (s + ml >= m) {
-                phase2 = AM2_DONE;
-            } else {
-                // re-anchor: init at e, ml = 1, left-extend
-                init_pair6(init6, sigma, p1, row[clampi(e2, 0, W - 1)], f2,
-                           rc2);
-                ml2 = 1;
-                phase2 = AM2_LEFT;
+            steps += 1 + ((sr.lo.w[3] | sr.lo.w[7] | sr.hi.w[7]) & keep);
+            if (ok && P.right) {
+                f.as = f.as + st.skip;
+                f.ae = f.as + (st.nxt.ae - st.nxt.as);
+                rc = st.nxt;
+            } else if (ok) {
+                rc.as = rc.as + st.skip;
+                rc.ae = rc.as + (st.nxt.ae - st.nxt.as);
+                f = st.nxt;
             }
+        } else if (P.res) {
+            rc.rs = res_s.x;
+            rc.os = rc.as - res_s.y;
+            rc.re = res_e.x;
+            rc.oe = rc.ae - res_e.y;
+            rows += 2;
         }
-        if (in_left && !ok) {
-            // s = e - ml + 1, resolve rc, back to RIGHT
-            s2 = e - ml + 1;
-            phase2 = AM2_RES;
+        const bool emit = P.right && !ok;
+        if (emit && q1.phase == AM2_LEFT) {  // re-anchor at e = s+ml
+            f = f_init;
+            rc = rc_init;
         }
-        if (in_res) {
-            rc2.rs = res_s.x; rc2.os = rc.as - res_s.y;
-            rc2.re = res_e.x; rc2.oe = rc.ae - res_e.y;
-            phase2 = AM2_RIGHT;
+        q = ok ? q0 : q1;
+        P = ok ? P0 : P1;
+        c = ok ? c0 : c1;
+        ++t;
+
+        // 3. the next tick's rows, addressed now: the chain's only loads
+        //    that wait on this tick's rows
+        issue_rows(rec_all, p2r, r, n, P, f, rc, sr, res_s, res_e);
+        // emit (s, s+ml, count(fw)) at s: reductions into the lane's own
+        // rows that no load waits on; the count clamps to 0 while the fw
+        // side is the canonical empty interval (fas > fae)
+        if (emit) {
+            atomicAdd(erow + at, ends_add);
+            atomicAdd(crow + at, cnt > 0 ? cnt : 0);
         }
-        phase = phase2; s = s2; ml = ml2; e = e2; f = f2; rc = rc2;
     }
-    const int fin[NREG] = {phase, s, ml, e, f.rs, f.os, f.re, f.oe, f.as,
-                           f.ae, rc.rs, rc.os, rc.re, rc.oe, rc.as, rc.ae};
+    const int fin[NREG] = {q.phase, q.s, q.ml, q.e, f.rs, f.os, f.re, f.oe,
+                           f.as, f.ae, rc.rs, rc.os, rc.re, rc.oe, rc.as,
+                           rc.ae};
     for (int i = 0; i < NREG; ++i) st_out[i * lanes + lane] = fin[i];
     work[lane] = (int)t;
     work[lanes + lane] = rows;
+    work[2 * lanes + lane] = steps;
 }
 
 }  // namespace
@@ -388,7 +483,7 @@ __global__ void all_mem2_kernel(
 // Kernel 10b.  alc int32 [lanes, alc_w]: the read-order slots, followed
 // with use_ftab by the fk-mer codes (alc_w = 2W).  st_in/st_out int32
 // [16, lanes]; ends and counts int32 [lanes, W], added to in place; work
-// int32 [2, lanes] gets each lane's ticks and 32 B rows.
+// int32 [3, lanes] gets each lane's ticks, 32 B rows and step ticks.
 extern "C" int movi_mem2_scan(const void* rec_all, const void* init6,
                               const void* alc, int W, int alc_w, int lanes,
                               int r, int sigma, int n, int fk, int L,

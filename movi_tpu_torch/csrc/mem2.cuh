@@ -90,16 +90,28 @@ __device__ __forceinline__ Step2 decode_step(const Row8& lo, const Row8& hi,
     return s;
 }
 
-// mem2_step: load the two rows of char a >= 0 (both issued before either
-// is used) and decode.
+// The two rows a step reads: the down row of (a, rs) and the up row of
+// (a, re); down and up are the char's row bases a_s*r and (sigma + a_s)*r.
+// Both loads are issued before either is used.
+struct StepRows8 {
+    Row8 lo, hi;
+};
+
+__device__ __forceinline__ StepRows8 step_rows8(
+    const int* __restrict__ rec_all, int64_t down, int64_t up, int r, int rs,
+    int re) {
+    return StepRows8{load_row8(rec_all, down + clampi(rs, 0, r - 1)),
+                     load_row8(rec_all, up + clampi(re, 0, r - 1))};
+}
+
+// mem2_step: step_rows8 for char a >= 0, then decode_step.
 __device__ __forceinline__ Step2 mem2_step(const int* __restrict__ rec_all,
                                            int r, int sigma, int a, int rs,
                                            int os, int re, int oe) {
     const int64_t a_s = a > 0 ? a : 0;
-    const Row8 lo = load_row8(rec_all, a_s * r + clampi(rs, 0, r - 1));
-    const Row8 hi =
-        load_row8(rec_all, (sigma + a_s) * r + clampi(re, 0, r - 1));
-    return decode_step(lo, hi, r, a, rs, os, re, oe);
+    const StepRows8 sr =
+        step_rows8(rec_all, a_s * r, (sigma + a_s) * r, r, rs, re);
+    return decode_step(sr.lo, sr.hi, r, a, rs, os, re, oe);
 }
 
 // mem2_resolve: (run, offset) of an absolute BWT row via pos2rba.

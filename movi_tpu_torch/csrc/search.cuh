@@ -1,5 +1,5 @@
 // The one-step backward-search step on the search records, shared by the
-// count and ZML scans (and, later, the k-mer machines).
+// count and ZML scans and the k-mer machines.
 //
 // Search records (movi_tpu/engine/fused_search.py): int4 per (char, run),
 // "down" rows [0, sigma*r) for the interval start, "up" rows
@@ -43,22 +43,43 @@ __device__ __forceinline__ void lf_from_rec(int4 rec, int offset, int& run,
     off = off0 - ff * cum1;
 }
 
-// backward_search_step (fused_bs_step): the next interval for char a, and
-// whether it is empty.  The two record loads are independent and both are
-// issued before either is used.
-__device__ __forceinline__ bool bs_step(const int4* __restrict__ rec_all,
-                                        int r, int sigma, const Interval& cur,
-                                        int a, Interval& nxt) {
-    const int a_s = a > 0 ? a : 0;
-    const int4 rd = rec_all[(int64_t)a_s * r + clampi(cur.rs, 0, r - 1)];
-    const int4 ru =
-        rec_all[(int64_t)(sigma + a_s) * r + clampi(cur.re, 0, r - 1)];
+// The two rows a step reads: the "down" row of (char, rs) and the "up" row
+// of (char, re).  down and up are the char's row bases, a_s*r and
+// (sigma + a_s)*r; the two loads are independent and both are issued
+// before either is used.
+struct StepRows {
+    int4 rd, ru;
+};
+
+__device__ __forceinline__ StepRows step_rows(const int4* __restrict__ rec_all,
+                                              int64_t down, int64_t up, int r,
+                                              const Interval& cur) {
+    return StepRows{rec_all[down + clampi(cur.rs, 0, r - 1)],
+                    rec_all[up + clampi(cur.re, 0, r - 1)]};
+}
+
+// The step's result from its rows: the next interval for char a, and
+// whether it is empty.
+__device__ __forceinline__ bool step_decode(const StepRows& rows, int r,
+                                            const Interval& cur, int a,
+                                            Interval& nxt) {
+    const int4 rd = rows.rd, ru = rows.ru;
     const bool empty = a < 0 || rd.x >= r || rd.x > cur.re;
     const int os1 = rd.x != cur.rs ? 0 : cur.os;
     const int oe1 = ru.x != cur.re ? ru.w - 1 : cur.oe;
     lf_from_rec(rd, os1, nxt.rs, nxt.os);
     lf_from_rec(ru, oe1, nxt.re, nxt.oe);
     return empty;
+}
+
+// backward_search_step (fused_bs_step): step_rows, then step_decode.
+__device__ __forceinline__ bool bs_step(const int4* __restrict__ rec_all,
+                                        int r, int sigma, const Interval& cur,
+                                        int a, Interval& nxt) {
+    const int64_t a_s = a > 0 ? a : 0;
+    return step_decode(
+        step_rows(rec_all, a_s * r, (sigma + a_s) * r, r, cur), r, cur, a,
+        nxt);
 }
 
 // Occurrences of the matched suffix: all_p[re] + oe - all_p[rs] - os + 1

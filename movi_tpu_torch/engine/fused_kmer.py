@@ -204,15 +204,16 @@ def kmer_scan_plain(si: FusedSearchIndex, alc: torch.Tensor, state,
     state (the keys of make_kmer_state) over alc, int32 [lanes, W] slots
     or, with use_ftab, [lanes, 2W] slots and fk-mer codes (prep_alc).
     Stops early once every lane is done (later ticks change nothing).
-    Returns (state, work int32 [2, lanes]: the ticks each lane ran before
-    it was done and the 16 B record rows it loaded)."""
+    Returns (state, work int32 [3, lanes]: the ticks each lane ran before
+    it was done, the 16 B record rows it loaded and the ticks that loaded
+    a step's two rows)."""
     W = alc.shape[1] // 2 if use_ftab else alc.shape[1]
     alphas, codes = alc[:, :W], (alc[:, W:] if use_ftab else None)
     lanes = alphas.shape[0]
     lane_idx = torch.arange(lanes, device=alc.device)
     st = {key: v.clone() for key, v in state.items()}
     out = st.pop("out")
-    work = torch.zeros((2, lanes), dtype=torch.int32, device=alc.device)
+    work = torch.zeros((3, lanes), dtype=torch.int32, device=alc.device)
     for t in range(ticks):
         if t % 64 == 0 and bool((st["phase"] == DONE).all()):
             break
@@ -220,6 +221,7 @@ def kmer_scan_plain(si: FusedSearchIndex, alc: torch.Tensor, state,
         st, rows = _kmer_tick(si, alphas, codes, st, k, lane_idx, out)
         work[0] += live.to(torch.int32)
         work[1] += torch.where(live, rows, 0).to(torch.int32)
+        work[2] += (live & (rows == 2)).to(torch.int32)
     st["out"] = out
     return st, work
 
@@ -393,8 +395,8 @@ class FusedKmerEngine:
                                     lengths.to(self.device), self.k)
 
     def query_batch_device(self, batch: ReadBatch):
-        """(emissions int32 [lanes, W], work int32 [2, lanes]: ticks and
-        record rows per lane) on the device."""
+        """(emissions int32 [lanes, W], work int32 [3, lanes]: ticks,
+        record rows and step ticks per lane) on the device."""
         alc, state = self.prepare(batch)
         cap = tick_cap(self.k, batch.width)
         st, work = kmer_scan(self.si, alc, state, self.k, cap,

@@ -437,7 +437,7 @@ def mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state, L: int,
     return _lockstep(
         lambda st, ends, counts: _mem_tick(mi, al, m, st, L, lane_idx, ends,
                                            counts),
-        _enter_mem(state, m, L), DONE, ticks, al.device, tallies=2)
+        _enter_mem(state, m, L), DONE, ticks, al.device)
 
 
 def all_mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state,
@@ -451,8 +451,7 @@ def all_mem_ticks_plain(mi: FusedMemIndex, alphas: torch.Tensor, state,
     return _lockstep(
         lambda st, ends, counts: _all_mem_tick(mi, al, m, st, lane_idx,
                                                ends, counts),
-        _enter_all_mem(mi, al, m, state), AM_DONE, ticks, al.device,
-        tallies=2)
+        _enter_all_mem(mi, al, m, state), AM_DONE, ticks, al.device)
 
 
 def mem_scan_plain(mi: FusedMemIndex, alphas: torch.Tensor, state, L: int,

@@ -394,7 +394,8 @@ def _mem2_tick(m2: FusedMem2Index, alphas, codes, m, st, L: int,
                lane_idx, ends, counts):
     """One lockstep BML tick of every lane (fused_mem2.py _mem2_scan's
     tick, in its order); adds the emissions into ends and counts and
-    returns the new registers and the 32 B rows each lane needed."""
+    returns the new registers and, per lane, the 32 B rows it needed and
+    whether it loaded a step's rows ([2, lanes])."""
     sigma, r, n = m2.sigma, m2.r, m2.n
     P2R = 2 * sigma * r
     W = alphas.shape[1]
@@ -452,7 +453,8 @@ def _mem2_tick(m2: FusedMem2Index, alphas, codes, m, st, L: int,
     key_hi = where(in_resolve, P2R + rae_want.clamp(0, n - 1),
                    (sigma + a_s) * r + iv_re.clamp(0, r - 1))
     active = backish | in_fwd | in_next
-    rows = where(in_resolve | (active & (a >= 0)), 2, 0)
+    stepped = active & (a >= 0)
+    rows = where(in_resolve | stepped, 2, 0)
     if use_ftab:
         fkey = P2R + n + code0.clamp(min=0)
         key_lo = where(do_init, fkey, key_lo)
@@ -550,13 +552,13 @@ def _mem2_tick(m2: FusedMem2Index, alphas, codes, m, st, L: int,
     regs = (phase2, pos2, jc2, end2, frs2, fos2, fre2, foe2, fas2, fae2,
             rrs2, ros2, rre2, roe2, ras2, rae2)
     return ({key: v.to(torch.int32) for key, v in zip(MEM2_STATE_KEYS, regs)},
-            rows)
+            torch.stack([rows, stepped.to(rows.dtype)]))
 
 
 def _all_mem2_tick(m2: FusedMem2Index, alphas, m, st, lane_idx, ends,
                    counts):
     """One lockstep all-MEMs tick of every lane (fused_mem2.py
-    _all_mem2_scan's tick, in its order)."""
+    _all_mem2_scan's tick, in its order), with _mem2_tick's tallies."""
     sigma, r, n = m2.sigma, m2.r, m2.n
     P2R = 2 * sigma * r
     W = alphas.shape[1]
@@ -589,7 +591,8 @@ def _all_mem2_tick(m2: FusedMem2Index, alphas, m, st, lane_idx, ends,
     key_hi = where(in_res, P2R + rae.clamp(0, n - 1),
                    (sigma + a_s) * r + iv_re.clamp(0, r - 1))
     stepping = in_right | in_left
-    rows = where(in_res | (stepping & (a >= 0)), 2, 0)
+    stepped = stepping & (a >= 0)
+    rows = where(in_res | stepped, 2, 0)
     lo = m2.rec_all[key_lo.to(torch.int64)]
     hi = m2.rec_all[key_hi.to(torch.int64)]
     nrs, nos, nre, noe, nas, nae, skip, empty = _decode_step(
@@ -645,28 +648,28 @@ def _all_mem2_tick(m2: FusedMem2Index, alphas, m, st, lane_idx, ends,
     regs = (phase2, s2, ml2, e2, frs2, fos2, fre2, foe2, fas2, fae2,
             rrs2, ros2, rre2, roe2, ras2, rae2)
     return ({key: v.to(torch.int32) for key, v in zip(AM2_STATE_KEYS, regs)},
-            rows)
+            torch.stack([rows, stepped.to(rows.dtype)]))
 
 
-def _lockstep(tick, state, done: int, ticks: int, device, tallies=1):
+def _lockstep(tick, state, done: int, ticks: int, device):
     """Run `tick(st, ends, counts)` up to `ticks` times, stopping early
     once every lane is done (later ticks change nothing).  Returns the
-    state and work int32 [1 + tallies, lanes]: each lane's ticks before it
-    was done and the sums of the per-lane tallies each tick returns beside
-    the state ([lanes] or [tallies, lanes]; the v2 machines: the 32 B rows
-    loaded)."""
+    state and work int32 [3, lanes]: each lane's ticks before it was done
+    and the sums of the two per-lane tallies each tick returns beside the
+    state ([2, lanes]; the v2 machines: the 32 B rows loaded and the ticks
+    that loaded a step's rows; the v1 machines: table bytes and
+    extensions)."""
     st = {key: v.clone() for key, v in state.items()}
     ends, counts = st.pop("ends"), st.pop("counts")
     lanes = ends.shape[0]
-    work = torch.zeros((1 + tallies, lanes), dtype=torch.int32,
-                       device=device)
+    work = torch.zeros((3, lanes), dtype=torch.int32, device=device)
     for t in range(ticks):
         if t % 64 == 0 and bool((st["phase"] == done).all()):
             break
         live = st["phase"] != done
         st, add = tick(st, ends, counts)
         work[0] += live.to(torch.int32)
-        work[1:] += torch.where(live, add, 0).to(torch.int32).view(-1, lanes)
+        work[1:] += torch.where(live, add, 0).to(torch.int32)
     st["ends"], st["counts"] = ends, counts
     return st, work
 
@@ -775,8 +778,8 @@ class _Mem2Engine:
         return prep_alc(torch.from_numpy(al8).to(self.device), fk)
 
     def query_batch_device(self, batch: ReadBatch):
-        """(ends, counts int32 [lanes, W], work int32 [2, lanes]: each
-        lane's ticks and 32 B rows) on the device."""
+        """(ends, counts int32 [lanes, W], work int32 [3, lanes]: each
+        lane's ticks, 32 B rows and step ticks) on the device."""
         alc, state, cap = self.prepare(batch)
         st, work = self.scan(alc, state, cap)
         if bool((st["phase"] != self.done_phase).any()):

@@ -712,8 +712,9 @@ def kmer_member_scan(rec_all, init_rec, r: int, sigma: int, ftab_k: int,
     codes), on the one-step search records int32 [2*sigma*r (+ 4^ftab_k),
     4].  state: the int32 [lanes] registers of KMER_STATE_KEYS and out
     int32 [lanes, W].  Each lane runs until it is done or has run `ticks`
-    ticks.  Returns (state, work int32 [2, lanes]: the ticks each lane ran
-    and the 16 B record rows it loaded)."""
+    ticks.  Returns (state, work int32 [3, lanes]: the ticks each lane ran,
+    the 16 B record rows it used and the ticks that loaded a step's
+    rows)."""
     dev = alc.device
     if dev.type != "cuda":
         raise ValueError("kmer_member_scan launches on CUDA tensors only")
@@ -735,7 +736,7 @@ def kmer_member_scan(rec_all, init_rec, r: int, sigma: int, ftab_k: int,
     _check(state["out"], "out", torch.int32, dev, (lanes, W))
     out = state["out"].clone()
     st_out = torch.empty_like(st_in)
-    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    work = torch.empty((3, lanes), dtype=torch.int32, device=dev)
     lib = _load()
     code = lib.movi_kmer_member_scan(
         rec_all.data_ptr(), init_rec.data_ptr(), alc.data_ptr(), W, alc_w,
@@ -865,7 +866,7 @@ def _machine(entry: str, counter: str, keys, rec_all, init6, r: int,
         _check(state[key], key, torch.int32, dev, (lanes, W))
     ends, counts = state["ends"].clone(), state["counts"].clone()
     st_out = torch.empty_like(st_in)
-    work = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+    work = torch.empty((3, lanes), dtype=torch.int32, device=dev)
     lib = _load()
     code = getattr(lib, entry)(
         rec_all.data_ptr(), init6.data_ptr(), alc.data_ptr(), *lead,
@@ -885,8 +886,9 @@ def mem2_scan(rec_all, init6, r: int, sigma: int, n: int, ftab_k: int,
     MEM v2 table.  state: the int32 [lanes] registers of MEM2_STATE_KEYS
     (a lane at phase -1, ENTRY, starts from its slots), ends and counts
     int32 [lanes, W].  Each lane runs until it is done or has run `ticks`
-    ticks.  Returns (state, work int32 [2, lanes]: the
-    ticks each lane ran and the 32 B rows it loaded)."""
+    ticks.  Returns (state, work int32 [3, lanes]: the
+    ticks each lane ran, the 32 B rows it used and the ticks that loaded a
+    step's rows)."""
     if alc.dim() != 2:
         raise ValueError("alc must be [lanes, W] or [lanes, 2W]")
     alc_w = alc.shape[1]

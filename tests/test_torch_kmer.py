@@ -121,10 +121,14 @@ def test_kmer_scan_state_equals_jax(indexes, batch, fk, k, ticks):
     assert set(got) == set(want)
     for key in want:
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
-    nticks, rows = work
+    nticks, rows, steps = work
     assert int(nticks.max()) <= ticks
     assert bool((nticks[got["phase"] != tk.DONE] == ticks).all())
     assert bool((rows <= 2 * nticks).all()) and int(rows.sum()) > 0
+    # a step loads two rows, an ftab anchor one
+    assert bool((2 * steps <= rows).all()) and int(steps.sum()) > 0
+    assert bool((rows - 2 * steps <= nticks - steps).all())
+    assert use_ftab or torch.equal(rows, 2 * steps)
 
 
 @pytest.mark.parametrize("fk", [0, 6])

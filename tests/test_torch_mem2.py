@@ -144,10 +144,13 @@ def test_mem2_scan_equals_jax(setup, fk, L, ticks):
                              use_ftab)
     got, work = tm2.mem2_scan(t, alc, state, L, ticks, use_ftab)
     _equal_states(got, want, tm2.MEM2_STATE_KEYS)
-    nticks, rows = work
+    nticks, rows, steps = work
     assert int(nticks.max()) <= ticks
     assert bool((nticks[got["phase"] != tm2.DONE] == ticks).all())
     assert bool((rows <= 2 * nticks).all()) and int(rows.sum()) > 0
+    # a step loads two rows; RESOLVE two and an ftab anchor one, no step
+    assert bool((2 * steps <= rows).all()) and int(steps.sum()) > 0
+    assert bool((steps <= nticks).all())
 
 
 def _all_mem_inputs(setup, n=24, seed=12):
@@ -184,6 +187,8 @@ def test_all_mem2_scan_equals_jax(setup, ticks):
     got, work = tm2.all_mem2_scan(t, alc, state, ticks)
     _equal_states(got, want, tm2.AM2_STATE_KEYS)
     assert int(work[0].max()) <= ticks and int(work[1].sum()) > 0
+    # a step loads two rows, a RES tick two more
+    assert bool((2 * work[2] <= work[1]).all()) and int(work[2].sum()) > 0
 
 
 @pytest.mark.parametrize("machine", ["bml", "bml-ftab", "all"])
