@@ -63,9 +63,11 @@ the card's name and power limit.  Phases:
               query_zml, paired=False then paired=True (the paired search
               compose runs on the card), counted apart from phase 4: the
               two layouts agree, 256 sampled reads equal ScalarEngine,
-              kernels 4-6 equal their plain versions over all lanes and
-              the whole table, their timings, and a warm breakdown for
-              each (query, layout)
+              kernels 6-7 equal their plain versions over all lanes and
+              the whole table, their timings (with the lanes a warp each
+              one-step batch launched with) and latency floors (the
+              one-step scans' longest chain of steps per batch), and a
+              warm breakdown for each (query, layout)
      compact  phase 4's text indexed without NT splitting (regular
               thresholds, and regular) and the same reads through the
               compact engines of Index.compact_engine (PML by threshold
@@ -542,6 +544,18 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+def main_reads(text, lanes, long_reads, long_len, seed, prefix):
+    """A full phase's reads: `lanes` 150 bp reads simulated from `text`
+    with `seed` (named prefix + i), then `long_reads` of `long_len` bases
+    with seed 43 (l + i), as (name, bytes)."""
+    from movi_tpu_torch.testing import sim_reads
+
+    short = sim_reads(text, lanes, READ_LEN, seed=seed)
+    longs = sim_reads(text, long_reads, long_len, seed=43)
+    return ([(f"{prefix}{i}", s.tobytes()) for i, s in enumerate(short)]
+            + [(f"l{i}", s.tobytes()) for i, s in enumerate(longs)])
+
+
 def cuda_ms(fn, reps, warmup=1):
     """Mean milliseconds per call between CUDA events, after warmup."""
     import torch
@@ -862,7 +876,7 @@ def phase_small_search(dev, errs):
             f"small paired={paired}", reads,
             index.query_count(reads, paired=paired, device=dev),
             index.query_zml(reads, paired=paired, device=dev), oracle)
-    say("small", f"r={ix.r}: kernels 4-6 equal plain (count, ml, state, a "
+    say("small", f"r={ix.r}: kernels 6-7 equal plain (count, ml, state, a "
                  f"scan split in two, the compose table) on {len(reads)} "
                  f"reads; count and ZML in both layouts equal ScalarEngine")
 
@@ -1166,7 +1180,7 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
     from movi_tpu_torch.cpu_ref.scalar import ScalarEngine
     from movi_tpu_torch.engine import fused as tf
     from movi_tpu_torch.engine import fused2 as tf2
-    from movi_tpu_torch.testing import index_from_text, random_text, sim_reads
+    from movi_tpu_torch.testing import index_from_text, random_text
 
     t0 = time.perf_counter()
     text = random_text(text_len, 0)
@@ -1182,10 +1196,7 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
     say("full", f"host index build {t_ix:.3f} s + one-step records "
                 f"{t_fused:.3f} s (host CPU)")
 
-    short = sim_reads(text, lanes, READ_LEN, seed=42)
-    longs = sim_reads(text, long_reads, long_len, seed=43)
-    reads = ([(f"s{i}", s.tobytes()) for i, s in enumerate(short)]
-             + [(f"l{i}", s.tobytes()) for i, s in enumerate(longs)])
+    reads = main_reads(text, lanes, long_reads, long_len, 42, "s")
     n_bases = lanes * READ_LEN + long_reads * long_len
 
     # the main path, counted: nothing else launches between reset and read
@@ -1560,8 +1571,9 @@ def phase_compact(dev, card, errs, timings, work, ctx, lat_us,
     return counts
 
 
-def phase_search(dev, card, errs, timings, work, ctx):
-    """Count and ZML on phase 4's index and reads, counted apart."""
+def phase_search(dev, card, errs, timings, work, ctx, lat_us):
+    """Count and ZML on phase 4's index and reads, counted apart; lat_us:
+    load_latency's, for the one-step scans' latency floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -1624,7 +1636,7 @@ def phase_search(dev, card, errs, timings, work, ctx):
     batches = list(_as_batches(reads, QUERY_LANES))
     args = {k: [] for k in SCAN_OF}
     plain_ms = dict.fromkeys(SCAN_OF, 0.0)
-    longest = {"count": [], "count2": []}
+    longest = {"count": [], "count2": [], "zml": []}
     for batch in batches:
         for kind in SCAN_OF:
             kern, plain, a, kw = search_args(kind, s2 if "2" in kind else si,
@@ -1634,14 +1646,17 @@ def phase_search(dev, card, errs, timings, work, ctx):
             plain_ms[kind] += ms
             args[kind].append((kern, a, kw))
             add_work(work, SCAN_OF[kind], *search_work(kind, a[-1], st))
-            if kind in longest:
+            if kind == "zml":  # every lane steps from row 1 to the end
+                longest[kind].append(a[-1].shape[0] - 1)
+            elif kind in longest:
                 longest[kind].append(int(count_steps(kind, st).max()))
-    say("search", "kernels 4-6 equal their plain versions over all lanes "
+    say("search", "kernels 6-7 equal their plain versions over all lanes "
                   "and the whole table")
-    say("search", "the longest count lane's dependent steps per batch "
-                  "(latency floor): " + "; ".join(
-                      f"{SCAN_OF[kind]} {steps} (max {max(steps)})"
-                      for kind, steps in longest.items()))
+    say("search", "the longest lane's dependent steps per batch: " + "; ".join(
+        f"{SCAN_OF[kind]} {steps} (max {max(steps)})"
+        for kind, steps in longest.items()))
+    chain_floors("search", card, timings, 32 * sigma * r, dev, lat_us,
+                 {SCAN_OF[kind]: longest[kind] for kind in ("count", "zml")})
     # the compose reads the run arrays and next-run tables, writes the table
     add_work(work, "compose_search2_records",
              4 * r * (3 + 2 * sigma) + 24 * 2 * r * sigma * sigma,
@@ -1652,15 +1667,23 @@ def phase_search(dev, card, errs, timings, work, ctx):
         runs = args[kind]
         k_ms = cuda_ms(lambda: [fn(*a, **kw) for fn, a, kw in runs], reps=5)
         timings[name] = (k_ms, plain_ms[kind])
-        per = [cuda_ms(lambda: fn(*a, **kw), reps=5) for fn, a, kw in runs]
-        per_s = ", ".join(f"{lanes_b} lanes x {w_b}: {ms:.6f} ms"
-                          for (lanes_b, w_b), ms in zip(shapes, per))
+        # each batch's time, and the lanes a warp its launch carried
+        per = [(cuda_ms(lambda: fn(*a, **kw), reps=5),
+                kernels.last_lanes_per_warp()) for fn, a, kw in runs]
+        per_s = ", ".join(
+            f"{lanes_b} lanes x {w_b}"
+            + ("" if "2" in kind else f" ({lpw} a warp)")
+            + f": {ms:.6f} ms"
+            for (lanes_b, w_b), (ms, lpw) in zip(shapes, per))
+        floor = timings.get(name + ".floor")
         say("search", f"{name} over the main path's {len(batches)} batches "
                       f"({n_bases} bases): kernel {k_ms:.6f} ms = "
                       f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
                       f"{plain_ms[kind]:.6f} ms = "
-                      f"{n_bases / plain_ms[kind] * 1e3:.6e} bases/s; kernel "
-                      f"per batch [{per_s}]  ({card})")
+                      f"{n_bases / plain_ms[kind] * 1e3:.6e} bases/s"
+                      + ("" if floor is None else
+                         f", latency floor {floor:.6f} ms")
+                      + f"; kernel per batch [{per_s}]  ({card})")
     k_ms = cuda_ms(lambda: kernels.compose_search2_records(*comp, r, sigma),
                    reps=3)
     timings["compose_search2_records"] = (k_ms, compose_plain_ms)
@@ -2895,8 +2918,7 @@ def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
     from movi_tpu_torch.engine import fused_mem2 as tm2
     from movi_tpu_torch.engine.fused_kmer2 import FusedKmer2CountEngine
     from movi_tpu_torch.testing import (index_from_text, random_text,
-                                        screening_reads, sim_reads,
-                                        with_revcomp)
+                                        screening_reads, with_revcomp)
 
     t0 = time.perf_counter()
     half = random_text(half_len, 1)
@@ -2912,10 +2934,7 @@ def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
                f"rows {4 ** m2.ftab_k * 32} B); host index build "
                f"{t_ix:.3f} s, table built and moved in "
                f"{time.perf_counter() - t0:.3f} s (host CPU)")
-    short = sim_reads(half, lanes, READ_LEN, seed=MEM_SEED)
-    longs = sim_reads(half, long_reads, long_len, seed=43)
-    reads = ([(f"m{i}", s.tobytes()) for i, s in enumerate(short)]
-             + [(f"l{i}", s.tobytes()) for i, s in enumerate(longs)])
+    reads = main_reads(half, lanes, long_reads, long_len, MEM_SEED, "m")
     kshort = screening_reads(half, lanes, READ_LEN, seed=KMER_SEED)
     kreads = ([(f"k{i}", s.tobytes()) for i, s in enumerate(kshort)]
               + reads[lanes:])
@@ -3071,9 +3090,15 @@ def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
         k_ms = cuda_ms(lambda: [fn(*a) for fn, a in rs], reps=3)
         timings[name] = (k_ms, plain_ms[name])
         sh = shapes["kmer" if "kmer2" in name else "mem"]
-        per = ", ".join(f"{lb} lanes x {wb}: "
-                        f"{cuda_ms(lambda: fn(*a), reps=3):.6f} ms"
-                        for (lb, wb), (fn, a) in zip(sh, rs))
+        per = []
+        for (lb, wb), (fn, a) in zip(sh, rs):
+            ms = cuda_ms(lambda: fn(*a), reps=3)
+            # the lanes a warp that 10b's launch carried
+            per.append(f"{lb} lanes x {wb}"
+                       + (f" ({kernels.last_lanes_per_warp()} a warp)"
+                          if name == "mem2_scan" else "")
+                       + f": {ms:.6f} ms")
+        per = ", ".join(per)
         say("MEM", f"{name} over the main path's {len(rs)} batches: kernel "
                    f"{k_ms:.6f} ms, plain {plain_ms[name]:.6f} ms (over the "
                    f"inputs compared above), latency floor "
@@ -4827,7 +4852,7 @@ def main() -> int:
     phase_small_kmer(dev, errs)
     lap("small k-mer")
     counts, ctx = phase_full(dev, card, errs, timings, work)
-    counts.update(phase_search(dev, card, errs, timings, work, ctx))
+    counts.update(phase_search(dev, card, errs, timings, work, ctx, lat_us))
     lap("phases 4-5")
     counts.update(phase_compact(dev, card, errs, timings, work, ctx, lat_us))
     lap("compact")

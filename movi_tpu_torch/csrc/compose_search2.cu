@@ -1,4 +1,4 @@
-// Kernel 5: compose the paired backward-search records.
+// Kernel 7's compose: the paired backward-search records.
 //
 // Replaces movi_tpu/engine/fused_search2.py _compose_search2_chunk
 // (jitted with donation and driven chunk by chunk by compose_search2).

@@ -27,21 +27,25 @@
 // state from its slots (BML: INIT or DONE by the read's length; all-MEMs:
 // init_bidirectional at the first char, the JAX engine's jitted
 // make_state).
-// 10c is software-pipelined over its ticks, so that a tick waits on
-// nothing but its own rows: every position the next tick can read follows
-// from the registers, the char and one bit (did the step succeed), so
-// while the rows are in flight the tick loads the chars of both outcomes
-// and plans both next ticks.  When the rows arrive, the bit picks the
-// outcome and the next tick's rows (a step's, or a RES tick's pos2rba
-// rows) are issued before anything else; the emissions are reductions
-// (atomicAdd into the lane's own rows) that no load waits on, and the
-// re-anchor takes the tick's own char.
+// Both machines are software-pipelined over their ticks, so that a tick
+// waits on nothing but its own rows: every position the next tick can read
+// follows from the registers, the chars and one bit (did the step succeed;
+// 10b: or is the ftab row valid), so while the rows are in flight the tick
+// loads the chars of both outcomes (10b: an INIT tick's second char or
+// fk-mer code too); 10c also plans both next ticks, 10b plans the one the
+// bit picks (the select of two plans cost it more).  When the rows arrive,
+// the bit picks the outcome and the next tick's rows (a step's, a RESOLVE
+// or RES tick's pos2rba rows, an ftab row) are issued before anything else;
+// the emissions are reductions (atomicAdd into the lane's own rows) that
+// no load waits on, and a re-anchor takes the tick's own char.  A batch
+// with few lanes is spread over the card's SMs (spread.cuh; 10b).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "mem2.cuh"
+#include "spread.cuh"
 
 namespace {
 
@@ -70,213 +74,286 @@ __device__ __forceinline__ int read_len(const int* row, int W) {
     return m;
 }
 
+// A BML lane's registers apart from its two intervals.
+struct BmlRegs {
+    int phase, pos, jc, end;
+};
+
+// The two alc indices a tick reads: its char and, on an INIT tick, the
+// second one it needs (with ftab the fk-mer code at the window's end, else
+// the char the anchored window steps on in the same tick).  A RESOLVE tick
+// reads none; it holds the char of the FWD tick after it, at jc.
+__device__ __forceinline__ int2 bml_pos(const BmlRegs& q, int W, int L,
+                                        int use_ftab) {
+    int p;
+    if (q.phase == INIT || q.phase == DONE) {
+        p = q.pos + L - 1;
+    } else if (q.phase == BACK || q.phase == BSCAN) {
+        p = q.pos + L - 2 - q.jc;
+    } else if (q.phase == NEXT) {
+        p = q.end - 1 - q.jc;
+    } else {  // FWD, RESOLVE
+        p = q.jc;
+    }
+    const int a = clampi(p, 0, W - 1);
+    return make_int2(a, use_ftab ? W + a : clampi(q.pos + L - 2, 0, W - 1));
+}
+
+// What a tick decides before its rows arrive, from its registers and the
+// chars at bml_pos: its INIT part (which loads no row) applied to the
+// registers, and the rows the rest of it loads.
+struct BmlPlan {
+    BmlRegs q;         // the registers after the INIT part
+    int c;             // the char at the tick's first index
+    int a;             // the step's char (FWD: the complement), or -1
+    int code;          // an anchored ftab INIT's fk-mer code, or -1
+    int64_t down, up;  // the step's row bases
+    bool back, bscan, fwd, next, resolve;
+    bool ftab;         // an anchored INIT with ftab: its row decides
+    bool anchor;       // an anchored INIT without ftab: steps as BACK
+    bool stepping;     // loads a step's two rows
+    bool exhausted;    // a NEXT tick past its candidates
+};
+
+__device__ __forceinline__ BmlPlan bml_plan(const BmlRegs& q, int c, int cb,
+                                            int m, int L, int use_ftab, int r,
+                                            int sigma) {
+    BmlPlan P;
+    P.q = q;
+    P.c = c;
+    P.code = -1;
+    P.ftab = P.anchor = false;
+    if (q.phase == INIT) {
+        if (q.pos + L > m) {
+            P.q.phase = DONE;
+        } else if (c < 0) {
+            P.q.pos = q.pos + L - 1;  // re-anchor past the illegal char
+        } else if (use_ftab) {
+            P.ftab = true;
+            P.code = cb;
+        } else {
+            P.anchor = true;
+            P.q.phase = BACK;
+            P.q.jc = 0;
+        }
+    }
+    const int ph = P.q.phase;
+    P.back = ph == BACK;
+    P.bscan = ph == BSCAN;
+    P.fwd = ph == FWD;
+    P.next = ph == NEXT;
+    P.resolve = ph == RESOLVE;
+    const int craw = P.anchor ? cb : c;
+    int a = P.fwd ? (craw >= 0 ? sigma - 1 - craw : (craw == -1 ? 0 : -1))
+                  : craw;
+    if (P.fwd && q.jc >= m) a = -1;
+    const bool active = P.back || P.bscan || P.fwd || P.next;
+    P.a = active ? a : -1;
+    P.stepping = P.a >= 0;
+    P.exhausted = P.next && q.jc > q.end - q.pos - 2;
+    const int64_t a_s = P.a > 0 ? P.a : 0;
+    P.down = a_s * r;
+    P.up = (sigma + a_s) * r;
+    return P;
+}
+
+// The registers after a tick, given its one bit: the step's rows came
+// back non-empty, or the ftab row is valid.  A tick without that bit (no
+// rows, or RESOLVE) takes ok = false.
+__device__ __forceinline__ BmlRegs bml_next(const BmlPlan& P, bool ok, int m,
+                                            int L, int fk) {
+    BmlRegs n = P.q;
+    const BmlRegs& q = P.q;
+    if (P.ftab) {
+        // a row covering the whole window skips BACK
+        if (ok) {
+            n.phase = fk >= L ? RESOLVE : BACK;
+            n.jc = fk >= L ? q.pos + L : fk - 1;
+        } else {
+            n.phase = BSCAN;
+            n.jc = 0;
+        }
+    } else if (P.back || P.bscan) {
+        if (!ok) {
+            n.phase = INIT;
+            n.pos = q.pos + L - 1 - q.jc;
+        } else if (q.jc + 1 >= L - 1) {
+            // BACK resolves; a completed BSCAN emits nothing and
+            // re-anchors one right
+            n.jc = P.back ? q.pos + L : q.jc + 1;
+            n.phase = P.back ? RESOLVE : INIT;
+            n.pos = P.back ? q.pos : q.pos + 1;
+        } else {
+            n.jc = q.jc + 1;
+        }
+    } else if (P.resolve) {
+        n.phase = FWD;
+    } else if (P.fwd) {
+        if (ok) {
+            n.jc = q.jc + 1;
+        } else {
+            // emit, then the backward scan from end = jc (or a re-anchor
+            // there past an illegal char; done at the read's end)
+            n.end = q.jc;
+            if (q.jc >= m) {
+                n.phase = DONE;
+            } else {
+                n.jc = 0;
+                n.phase = P.c < 0 ? INIT : NEXT;
+                if (P.c < 0) n.pos = q.jc;
+            }
+        }
+    } else if (P.next) {
+        if (ok && !P.exhausted) {
+            n.jc = q.jc + 1;
+        } else {
+            n.phase = INIT;
+            n.pos = q.end - q.jc;
+        }
+    }
+    return n;
+}
+
 __global__ void mem2_kernel(
     const int* __restrict__ rec_all, const int* __restrict__ init6_g,
     const int* __restrict__ alc, int W, int alc_w, int lanes, int r,
     int sigma, int n, int fk, int L, long long ticks, int use_ftab,
     const int* __restrict__ st_in, int* __restrict__ st_out,
     int* __restrict__ ends, int* __restrict__ counts,
-    int* __restrict__ work) {
+    int* __restrict__ work, int lpw) {
     extern __shared__ int init6[];  // (sigma + 1) rows of six words
     load_init6(init6_g, init6, sigma);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= lanes) return;
+    const int lane = movi::spread_lane(lpw);
+    if (lane < 0 || lane >= lanes) return;
 
     int reg[NREG];
     for (int i = 0; i < NREG; ++i) reg[i] = st_in[i * lanes + lane];
-    int phase = reg[0], pos = reg[1], jc = reg[2], end = reg[3];
-    int frs = reg[4], fos = reg[5], fre = reg[6], foe = reg[7],
-        fas = reg[8], fae = reg[9];
-    int rrs = reg[10], ros = reg[11], rre = reg[12], roe = reg[13],
-        ras = reg[14], rae = reg[15];
+    BmlRegs q{reg[0], reg[1], reg[2], reg[3]};
+    Iv6 f{reg[4], reg[5], reg[6], reg[7], reg[8], reg[9]};
+    Iv6 rc{reg[10], reg[11], reg[12], reg[13], reg[14], reg[15]};
     const int* row = alc + (int64_t)lane * alc_w;
     int* erow = ends + (int64_t)lane * W;
     int* crow = counts + (int64_t)lane * W;
     const int m = read_len(row, W);
-    const int64_t p2r = 2 * (int64_t)sigma * r;
-    const int64_t ftb = p2r + n;
+    const int* p2r = rec_all + 2 * (int64_t)sigma * r * 8;
+    const int* ftab = p2r + (int64_t)n * 8;
     // 0 (the wrapper takes ticks >= 0), but not to the compiler: the
     // interval a step reads and its rows' unused words are and-ed with it
     // and kept past the decode, so that neither row's load may reuse their
     // registers (which would order the second row's load after the first
     // row's arrival) nor an instruction reuse a row's register in flight
     const int keep = (int)(ticks >> 63);
-    if (phase == ENTRY) {  // the window at 0, or done for a short read
-        phase = m >= L ? INIT : DONE;
-        pos = jc = end = 0;
-        frs = fos = fre = foe = fas = fae = 0;
-        rrs = ros = rre = roe = ras = rae = 0;
+    if (q.phase == ENTRY) {  // the window at 0, or done for a short read
+        q = BmlRegs{m >= L ? INIT : DONE, 0, 0, 0};
+        f = Iv6{0, 0, 0, 0, 0, 0};
+        rc = Iv6{0, 0, 0, 0, 0, 0};
     }
+
+    // The first tick's chars and rows; from then on each tick loads the
+    // next tick's chars while its own rows are in flight, and issues the
+    // next tick's rows as soon as they are addressed.
+    int2 ix = bml_pos(q, W, L, use_ftab);
+    BmlPlan P = bml_plan(q, row[ix.x], q.phase == INIT ? row[ix.y] : 0, m, L,
+                         use_ftab, r, sigma);
+    Iv6 siv{};  // the interval the step reads (rs, os, re, oe)
+    movi::StepRows8 sr{};
+    movi::Row8 frow{};
+    int2 res_s = make_int2(0, 0), res_e = make_int2(0, 0);
+    // issue a planned tick's rows: a step's two rows, a RESOLVE's two
+    // pos2rba rows of rc's abs ends, or an ftab anchor row
+    auto issue = [&](const BmlPlan& p) {
+        if (p.stepping) {
+            siv = p.anchor ? movi::init6(init6, p.c) : (p.fwd ? rc : f);
+            sr = movi::step_rows8(rec_all, p.down, p.up, r, siv.rs, siv.re);
+        } else if (p.resolve) {
+            res_s = movi::load_p2r(p2r, clampi(rc.as, 0, n - 1));
+            res_e = movi::load_p2r(
+                p2r, clampi(rc.as + (f.ae - f.as), 0, n - 1));
+        } else if (p.code >= 0) {
+            frow = movi::load_row8(ftab, p.code);
+        }
+    };
+    issue(P);
 
     long long t = 0;
     int rows = 0;   // 32 B rows loaded
     int steps = 0;  // ticks that loaded a step's rows
-    for (; t < ticks && phase != DONE; ++t) {
-        // ---- INIT: anchor the window, init bidirectional
-        const bool is_init = phase == INIT;
-        const bool past_end = pos + L > m;
-        const int c0 = row[clampi(pos + L - 1, 0, W - 1)];
-        const bool do_init = is_init && !past_end && c0 >= 0;
-        const bool init_illegal = is_init && !past_end && c0 < 0;
-        const Iv6 i_f = movi::init6(init6, c0);
-        int code0 = -1;
-        if (!use_ftab) {
-            // anchored lanes step in the same tick (fall into BACK)
-            if (do_init) {
-                frs = i_f.rs; fos = i_f.os; fre = i_f.re; foe = i_f.oe;
-                fas = i_f.as; fae = i_f.ae;
-                ras = movi::init6(init6, sigma - 1 - c0).as;
-                jc = 0;
-                phase = BACK;
-            }
-        } else {
-            code0 = row[W + clampi(pos + L - 1, 0, W - 1)];
-        }
-        if (is_init && past_end) phase = DONE;
-        if (init_illegal) pos = pos + L - 1;
+    while (t < ticks && q.phase != DONE) {
+        // 1. while this tick's rows are in flight: both outcomes'
+        //    registers and chars; the init interval of the tick's char (a
+        //    failed FWD's NEXT, an ftab miss); the emission
+        const BmlRegs q0 = bml_next(P, true, m, L, fk);
+        const BmlRegs q1 = bml_next(P, false, m, L, fk);
+        const int2 ix0 = bml_pos(q0, W, L, use_ftab);
+        const int2 ix1 = bml_pos(q1, W, L, use_ftab);
+        const int ca0 = row[ix0.x], ca1 = row[ix1.x];
+        const int cb0 = q0.phase == INIT ? row[ix0.y] : 0;
+        const int cb1 = q1.phase == INIT ? row[ix1.y] : 0;
+        const Iv6 ini = movi::init6(init6, P.c);
+        const int at = clampi(P.q.pos, 0, W - 1);
+        const int e_end = P.q.jc;
+        const int e_cnt = rc.ae - rc.as + 1;
 
-        // ---- the tick's rows, phase-keyed
-        const bool in_back = phase == BACK;
-        const bool in_resolve = phase == RESOLVE;
-        const bool in_fwd = phase == FWD;
-        const bool in_next = phase == NEXT;
-        const bool in_bscan = use_ftab && phase == BSCAN;
-        const bool backish = in_back || in_bscan;
-        const int p_step =
-            backish ? pos + L - 2 - jc : (in_fwd ? jc : end - 1 - jc);
-        const int c_raw = row[clampi(p_step, 0, W - 1)];
-        const int c_fwd =
-            c_raw >= 0 ? sigma - 1 - c_raw : (c_raw == -1 ? 0 : -1);
-        int a = in_fwd ? c_fwd : c_raw;
-        if (in_fwd && jc >= m) a = -1;
-        const int iv_rs = in_fwd ? rrs : frs;
-        const int iv_os = in_fwd ? ros : fos;
-        const int iv_re = in_fwd ? rre : fre;
-        const int iv_oe = in_fwd ? roe : foe;
-        const int rae_want = ras + (fae - fas);  // rc end = start + count - 1
-        const bool active = backish || in_fwd || in_next;
-        Step2 st;
-        st.empty = true;
-        st.skip = 0;
-        st.nxt = Iv6{0, 0, 0, 0, 0, 0};
-        int2 res_s = make_int2(0, 0), res_e = make_int2(0, 0);
-        movi::Row8 frow{{0, 0, 0, 0, 0, 0, 0, 0}};
-        if (active && a >= 0) {
-            const int64_t a_s = a;
-            const movi::StepRows8 sr = movi::step_rows8(
-                rec_all, a_s * r, (sigma + a_s) * r, r, iv_rs, iv_re);
-            st = movi::decode_step(sr.lo, sr.hi, r, a, iv_rs, iv_os, iv_re,
-                                   iv_oe);
+        // 2. the rows decide the bit; the registers take the outcome
+        bool ok = false;
+        if (P.anchor) {  // init bidirectional at c0, then BACK's step
+            f = ini;
+            rc.as = movi::init6(init6, sigma - 1 - P.c).as;
+        }
+        if (P.stepping) {
+            const Step2 st = movi::decode_step(sr.lo, sr.hi, r, P.a, siv.rs,
+                                               siv.os, siv.re, siv.oe);
+            ok = !st.empty;
             rows += 2;
-            steps += 1 + ((sr.lo.w[3] | sr.lo.w[7] | sr.hi.w[7] | iv_rs |
-                           iv_os | iv_re | iv_oe) & keep);
-        } else if (in_resolve) {
-            res_s = movi::load_p2r(rec_all, p2r + clampi(ras, 0, n - 1));
-            res_e = movi::load_p2r(rec_all, p2r + clampi(rae_want, 0, n - 1));
+            steps += 1 + ((sr.lo.w[3] | sr.lo.w[7] | sr.hi.w[7] | siv.rs |
+                           siv.os | siv.re | siv.oe) & keep);
+            if (ok && (P.back || P.bscan)) {
+                if (P.back) rc.as = rc.as + st.skip;
+                f = st.nxt;
+            } else if (ok && P.fwd) {
+                rc = st.nxt;
+            } else if (ok && P.next && !P.exhausted) {
+                f.rs = st.nxt.rs; f.os = st.nxt.os;
+                f.re = st.nxt.re; f.oe = st.nxt.oe;
+            }
+        } else if (P.resolve) {  // rc abs -> (run, offset)
+            rc.ae = rc.as + (f.ae - f.as);
+            rc.rs = res_s.x; rc.os = rc.as - res_s.y;
+            rc.re = res_e.x; rc.oe = rc.ae - res_e.y;
             rows += 2;
-        } else if (do_init && code0 >= 0) {  // use_ftab
-            frow = movi::load_row8(rec_all, ftb + code0);
-            rows += 1;
-        }
-        const bool ok = active && !st.empty;
-
-        // ---- BACK/BSCAN: extend_left; rc in abs only
-        const bool back_ok = backish && ok;
-        int frs2 = frs, fos2 = fos, fre2 = fre, foe2 = foe, fas2 = fas,
-            fae2 = fae;
-        if (back_ok) {
-            frs2 = st.nxt.rs; fos2 = st.nxt.os; fre2 = st.nxt.re;
-            foe2 = st.nxt.oe; fas2 = st.nxt.as; fae2 = st.nxt.ae;
-        }
-        int ras2 = (in_back && ok) ? ras + st.skip : ras;
-        const bool back_fail = backish && !ok;
-        int pos2 = back_fail ? pos + L - 1 - jc : pos;
-        int phase2 = back_fail ? INIT : phase;
-        int jc2 = back_ok ? jc + 1 : jc;
-        if (in_back && ok && jc2 >= L - 1) {
-            phase2 = RESOLVE;
-            jc2 = pos + L;
-        }
-        if (in_bscan && ok && jc2 >= L - 1) {
-            // a completed BSCAN emits nothing and re-anchors one right
-            phase2 = INIT;
-            pos2 = pos + 1;
-        }
-
-        // ---- RESOLVE: rc abs -> (run, offset)
-        int rrs2 = rrs, ros2 = ros, rre2 = rre, roe2 = roe, rae2 = rae;
-        if (in_resolve) {
-            rrs2 = res_s.x; ros2 = ras - res_s.y;
-            rre2 = res_e.x; roe2 = rae_want - res_e.y;
-            rae2 = rae_want;
-            phase2 = FWD;
-        }
-
-        // ---- FWD: plain steps on rc; emit on failure
-        if (in_fwd && ok) {
-            rrs2 = st.nxt.rs; ros2 = st.nxt.os; rre2 = st.nxt.re;
-            roe2 = st.nxt.oe; ras2 = st.nxt.as; rae2 = st.nxt.ae;
-            jc2 = jc + 1;
-        }
-        const bool fwd_fail = in_fwd && !ok;
-        int end2 = end;
-        bool next_init_illegal = false;
-        if (fwd_fail) {
-            const int at = clampi(pos, 0, W - 1);
-            erow[at] += jc;
-            crow[at] += rae - ras + 1;
-            end2 = jc;
-            if (jc >= m) {
-                phase2 = DONE;
-            } else {
-                // NEXT init: fw = init(seq[end]) (the char just read)
-                phase2 = NEXT;
-                const Iv6 nx = movi::init6(init6, c_raw);
-                frs2 = nx.rs; fos2 = nx.os; fre2 = nx.re; foe2 = nx.oe;
-                jc2 = 0;
-                next_init_illegal = c_raw < 0;
+        } else if (P.ftab) {
+            ok = P.code >= 0 && frow.w[7] == 1;
+            rows += P.code >= 0 ? 1 : 0;
+            if (ok) {
+                f = Iv6{frow.w[0], frow.w[1], frow.w[2], frow.w[3],
+                        frow.w[4], frow.w[4] + frow.w[5] - 1};
+                rc.as = frow.w[6];
             }
         }
-
-        // ---- NEXT: backward-scan to the next candidate
-        const bool exhausted = in_next && jc > end - pos - 2;
-        const bool next_fail =
-            (in_next && !ok && !exhausted) || next_init_illegal;
-        if (in_next && ok && !exhausted) {
-            frs2 = st.nxt.rs; fos2 = st.nxt.os; fre2 = st.nxt.re;
-            foe2 = st.nxt.oe;
-            jc2 = jc + 1;
+        // a failed FWD inits fw at the char it read; an ftab miss at c0
+        if ((P.fwd && !ok && P.q.jc < m) || (P.ftab && !ok)) {
+            f.rs = ini.rs; f.os = ini.os; f.re = ini.re; f.oe = ini.oe;
         }
-        const bool stop = next_fail || exhausted;
-        if (stop && in_next) pos2 = end - jc;
-        if (next_init_illegal) pos2 = end2;
-        if (stop || next_init_illegal) phase2 = INIT;
+        const bool emit = P.fwd && !ok;
+        q = ok ? q0 : q1;
+        P = bml_plan(q, ok ? ca0 : ca1, ok ? cb0 : cb1, m, L, use_ftab, r,
+                     sigma);
+        ++t;
 
-        // ---- ftab INIT landing
-        if (use_ftab && do_init) {
-            if (code0 >= 0 && frow.w[7] == 1) {
-                frs2 = frow.w[0]; fos2 = frow.w[1]; fre2 = frow.w[2];
-                foe2 = frow.w[3]; fas2 = frow.w[4];
-                fae2 = frow.w[4] + frow.w[5] - 1;
-                ras2 = frow.w[6];
-                // a row covering the whole window skips BACK
-                jc2 = fk >= L ? pos + L : fk - 1;
-                phase2 = fk >= L ? RESOLVE : BACK;
-            } else {
-                frs2 = i_f.rs; fos2 = i_f.os; fre2 = i_f.re; foe2 = i_f.oe;
-                jc2 = 0;
-                phase2 = BSCAN;
-            }
+        // 3. the next tick's rows, planned from its chars in registers and
+        //    addressed now: the chain's only loads that wait on this
+        //    tick's rows
+        issue(P);
+        // emit (jc, count(rc)) at pos: reductions into the lane's own
+        // rows that no load waits on
+        if (emit) {
+            atomicAdd(erow + at, e_end);
+            atomicAdd(crow + at, e_cnt);
         }
-
-        phase = phase2; pos = pos2; jc = jc2; end = end2;
-        frs = frs2; fos = fos2; fre = fre2; foe = foe2; fas = fas2;
-        fae = fae2;
-        rrs = rrs2; ros = ros2; rre = rre2; roe = roe2; ras = ras2;
-        rae = rae2;
     }
-    const int fin[NREG] = {phase, pos, jc, end, frs, fos, fre, foe, fas,
-                           fae, rrs, ros, rre, roe, ras, rae};
+    const int fin[NREG] = {q.phase, q.pos, q.jc, q.end, f.rs, f.os, f.re,
+                           f.oe, f.as, f.ae, rc.rs, rc.os, rc.re, rc.oe,
+                           rc.as, rc.ae};
     for (int i = 0; i < NREG; ++i) st_out[i * lanes + lane] = fin[i];
     work[lane] = (int)t;
     work[lanes + lane] = rows;
@@ -490,15 +567,16 @@ extern "C" int movi_mem2_scan(const void* rec_all, const void* init6,
                               long long ticks, int use_ftab,
                               const void* st_in, void* st_out, void* ends,
                               void* counts, void* work, void* stream) {
-    const int block = 128;
-    const int grid = (lanes + block - 1) / block;
-    if (grid > 0) {
-        mem2_kernel<<<grid, block, (size_t)(sigma + 1) * 6 * sizeof(int),
+    movi::Spread s;
+    const cudaError_t e = movi::spread(lanes, 128, &s);
+    if (e != cudaSuccess) return (int)e;
+    if (lanes > 0) {
+        mem2_kernel<<<s.grid, s.block, (size_t)(sigma + 1) * 6 * sizeof(int),
                       (cudaStream_t)stream>>>(
             (const int*)rec_all, (const int*)init6, (const int*)alc, W,
             alc_w, lanes, r, sigma, n, fk, L, ticks, use_ftab,
             (const int*)st_in, (int*)st_out, (int*)ends, (int*)counts,
-            (int*)work);
+            (int*)work, s.lpw);
     }
     return (int)cudaGetLastError();
 }

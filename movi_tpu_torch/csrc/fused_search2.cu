@@ -1,4 +1,4 @@
-// Kernel 6: the paired backward-search scans, count and ZML.
+// Kernel 7: the paired backward-search scans, count and ZML.
 //
 // Replaces movi_tpu/engine/fused_search2.py _count2_init + _count2_carry
 // (with the final all_p gather of fused2_count_scan) and _zml2_carry

@@ -72,14 +72,20 @@ __device__ __forceinline__ bool step_decode(const StepRows& rows, int r,
     return empty;
 }
 
-// backward_search_step (fused_bs_step): step_rows, then step_decode.
+// The two rows of a step from cur for char a (an illegal char reads
+// char 0's rows, which step_decode ignores).
+__device__ __forceinline__ StepRows bs_rows(const int4* __restrict__ rec_all,
+                                            int r, int sigma,
+                                            const Interval& cur, int a) {
+    const int64_t a_s = a > 0 ? a : 0;
+    return step_rows(rec_all, a_s * r, (sigma + a_s) * r, r, cur);
+}
+
+// backward_search_step (fused_bs_step): bs_rows, then step_decode.
 __device__ __forceinline__ bool bs_step(const int4* __restrict__ rec_all,
                                         int r, int sigma, const Interval& cur,
                                         int a, Interval& nxt) {
-    const int64_t a_s = a > 0 ? a : 0;
-    return step_decode(
-        step_rows(rec_all, a_s * r, (sigma + a_s) * r, r, cur), r, cur, a,
-        nxt);
+    return step_decode(bs_rows(rec_all, r, sigma, cur, a), r, cur, a, nxt);
 }
 
 // Occurrences of the matched suffix: all_p[re] + oe - all_p[rs] - os + 1

@@ -1,0 +1,69 @@
+// How a batch's lanes are laid over the card's warps (kernels 6 and 10b).
+//
+// A lane is one thread's chain of dependent row loads, and a warp issues
+// in step: it waits each step on the slowest of its lanes' rows.  A batch
+// with no more lanes than the card has SMs (the 64 lanes of a 10 kb batch)
+// is better spread one lane a warp, one warp an SM, than packed into two
+// warps of one SM; a larger batch keeps 32 lanes a warp, so that its
+// warps' instructions serve 32 lanes each.  Only these two shapes have
+// been timed (at 64 and 8,192 lanes); the rule takes only the batch's lane
+// count and the card's SM count.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace movi {
+
+// The lanes each warp carries: 1 while the batch has no more lanes than
+// the card has SMs, else 32.
+__host__ __device__ inline int lanes_per_warp(int lanes, int sms) {
+    return lanes <= sms ? 1 : 32;
+}
+
+// The lanes a warp carried in this library's last launch of kernel 6 or
+// 10b (0 before the first).
+inline int& last_lanes_per_warp() {
+    static int lpw = 0;
+    return lpw;
+}
+
+// A launch over `lanes` lanes: `lpw` lanes a warp; `block` threads a
+// block, the kernel's own block when a warp carries 32 lanes, else one
+// warp, so that each warp can sit on an SM of its own.
+struct Spread {
+    int lpw, block, grid;
+};
+
+// The launch of `lanes` lanes on the current device, whose SM count is
+// read once; an error if the device or its SM count cannot be read.
+inline cudaError_t spread(int lanes, int full_block, Spread* s) {
+    constexpr int kDevices = 64;
+    static int sms_of[kDevices];  // 0: not read yet
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+    if (sms_of[dev] <= 0) {
+        int sms = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e != cudaSuccess) return e;
+        if (sms <= 0) return cudaErrorInvalidDevice;
+        sms_of[dev] = sms;
+    }
+    s->lpw = lanes_per_warp(lanes, sms_of[dev]);
+    s->block = s->lpw == 32 ? full_block : 32;
+    const long long per_block = (long long)(s->block / 32) * s->lpw;
+    s->grid = (int)((lanes + per_block - 1) / per_block);
+    last_lanes_per_warp() = s->lpw;
+    return cudaSuccess;
+}
+
+// This thread's lane, or -1 for a thread past its warp's lanes.
+__device__ __forceinline__ int spread_lane(int lpw) {
+    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int j = threadIdx.x & 31;
+    return j < lpw ? warp * lpw + j : -1;
+}
+
+}  // namespace movi

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "movi_compose_paired_records": [_P, _I, _I, _I, _I, _P, _P, _P],
     "movi_fused2_pml_scan": [_P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _P],
+    # (): the lanes a warp carried in the last launch of kernel 6 or 10b
+    "movi_last_lanes_per_warp": [],
     "movi_fused_count_scan": _SEARCH,
     "movi_fused_zml_scan": _SEARCH,
     "movi_fused2_count_scan": _SEARCH,
@@ -487,7 +489,7 @@ def _first_char_needed(state, alphas_t):
 
 def fused_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
                      alphas_t: torch.Tensor, state=None):
-    """Kernel 4, count: one-step backward search over alphas_t [W, lanes]
+    """Kernel 6, count: one-step backward search over alphas_t [W, lanes]
     (int8 chars).  Returns (state [6, lanes], count [lanes])."""
     _first_char_needed(state, alphas_t)
     return _search_scan("movi_fused_count_scan", "fused_count_scan",
@@ -498,12 +500,19 @@ def fused_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
 
 def fused_zml_scan(rec_all, init_rec, r: int, sigma: int,
                    alphas_t: torch.Tensor, state=None):
-    """Kernel 4, ZML: returns (state [6, lanes], ml [W, lanes])."""
+    """Kernel 6, ZML: returns (state [6, lanes], ml [W, lanes])."""
     _first_char_needed(state, alphas_t)
     return _search_scan("movi_fused_zml_scan", "fused_zml_scan", rec_all,
                         (2 * sigma * r, 4), init_rec, None, alphas_t,
                         torch.int8, r, sigma, state, None,
                         alphas_t.shape[0])
+
+
+def last_lanes_per_warp() -> int:
+    """The lanes a warp carried in the last launch of kernel 6 (one-step
+    count or ZML) or 10b (csrc/spread.cuh): 1 or 32, chosen by the launch
+    from its lane count and the card's SM count; 0 before the first."""
+    return int(_load().movi_last_lanes_per_warp())
 
 
 def _pair_sigma(sigma: int):
@@ -513,7 +522,7 @@ def _pair_sigma(sigma: int):
 
 def fused2_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
                       pairs_t: torch.Tensor, state=None, a0=None):
-    """Kernel 6, count: paired backward search over pairs_t [W2, lanes]
+    """Kernel 7, count: paired backward search over pairs_t [W2, lanes]
     (uint8 pair codes), from the first chars a0 [lanes] (int8) or from
     state.  Returns (state [6, lanes], count [lanes])."""
     _pair_sigma(sigma)
@@ -527,7 +536,7 @@ def fused2_count_scan(rec_all, init_rec, all_p, r: int, sigma: int,
 
 def fused2_zml_scan(rec_all, init_rec, restart_rec, r: int, sigma: int,
                     pairs_t: torch.Tensor, state=None):
-    """Kernel 6, ZML: returns (state [6, lanes], ml [2*W2, lanes])."""
+    """Kernel 7, ZML: returns (state [6, lanes], ml [2*W2, lanes])."""
     _pair_sigma(sigma)
     return _search_scan("movi_fused2_zml_scan", "fused2_zml_scan", rec_all,
                         (2 * r * sigma * sigma, 6), init_rec,
@@ -537,9 +546,9 @@ def fused2_zml_scan(rec_all, init_rec, restart_rec, r: int, sigma: int,
 
 
 def compose_search2_records(id_a, off_a, n_a, nu, nd, r: int, sigma: int):
-    """Kernel 5: the paired search table int32 [2*r*sigma^2, 6] from the
-    run arrays id/offset/n int32 [r] and the next-run tables nu/nd int32
-    [sigma, r]."""
+    """Kernel 7's compose: the paired search table int32 [2*r*sigma^2, 6]
+    from the run arrays id/offset/n int32 [r] and the next-run tables
+    nu/nd int32 [sigma, r]."""
     dev = id_a.device
     if dev.type != "cuda":
         raise ValueError("compose_search2_records launches on CUDA tensors "
