@@ -53,10 +53,13 @@ the card's name and power limit.  Phases:
               1% substitutions (seed 42) plus 64 reads of 10 kb, through
               Index.query_pml(paired=False) and then paired=True (the
               compose runs on the card); every kernel's output equals its
-              plain version over all lanes; 256 sampled reads equal
-              ScalarEngine; every launch counter is above 0; timings
-              (CUDA events) of each scan over the batches the main path
-              ran and of the compose, the scan rate against lanes, and
+              plain version over all lanes (kernel 1 also split in two);
+              256 sampled reads equal ScalarEngine; every launch counter
+              is above 0; timings (CUDA events) of each scan over the
+              batches the main path ran (with the lanes a warp each
+              kernel 1 batch launched with) and of the compose, kernel
+              1's latency floor (each batch's width of steps), the scan
+              rate against lanes, and
               where a warm query_pml's time goes (host stages, the
               device's busy and idle shares)
   5. search   the same index and reads through Index.query_count and
@@ -634,15 +637,28 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def scan_pair(kernel, plain, args, what, errs, key):
+def scan_pair(kernel, plain, args, what, errs, key, splits=()):
     """Run a scan kernel and its plain version on the same inputs
     (records, slots, p_dollar, codes, state0); both ml and the carried
-    state must agree exactly.  Returns the kernel's ml and the plain
-    version's milliseconds."""
+    state must agree exactly, and so must the kernel's scan split in two
+    at each step of `splits` (the state carried from the first piece
+    into the second).  Returns the kernel's ml and the plain version's
+    milliseconds."""
+    import torch
+
     st_k, ml_k = kernel(*args)
     (st_p, ml_p), plain_ms = timed_ms(lambda: plain(*args))
     require_equal(f"{what} ml", ml_k, ml_p, errs, key)
     require_state_equal(what, st_k, st_p, errs, key)
+    codes = args[3]
+    for split in splits:
+        if not 0 < split < codes.shape[0]:
+            continue
+        st, ml1 = kernel(*args[:3], codes[:split], args[4])
+        st, ml2 = kernel(*args[:3], codes[split:], st)
+        require_equal(f"{what} split at {split} ml", torch.cat([ml1, ml2]),
+                      ml_p, errs, key)
+        require_state_equal(f"{what} split at {split}", st, st_p, errs, key)
     return ml_k, plain_ms
 
 
@@ -673,9 +689,10 @@ def phase_small(dev, errs):
     st0 = tf.initial_state(fi, batch.lanes, dev)
 
     eng1 = tf.FusedPMLEngine(fi, dev)
+    # split inside kernel 1's ring of codes (two steps) and past it
     scan_pair(kernels.fused_pml_scan, tf.fused_pml_scan_plain,
               (fi.records, slots, fi.p_dollar, eng1.prepare(batch), st0),
-              "small one-step", errs, "fused_pml_scan")
+              "small one-step", errs, "fused_pml_scan", splits=(1, 2, 101))
 
     table_k, b_k = kernels.compose_paired_records(fi.records, fi.r, slots,
                                                   fi.p_dollar)
@@ -1171,8 +1188,10 @@ def phase_small_compact(dev, errs):
     return lat_us
 
 
-def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
+def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
                lanes=FULL_LANES, long_reads=LONG_READS, long_len=LONG_LEN):
+    """PML one-step and paired on the 5 M-run index, counted; lat_us:
+    load_latency's, for kernel 1's latency floor."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -1253,7 +1272,8 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
         a12_t, W = eng2.prepare(batch)
         a2 = (f2.records, slots, f2.p_dollar, a12_t, st0)
         ml1, ms1 = scan_pair(kernels.fused_pml_scan, tf.fused_pml_scan_plain,
-                             a1, "full one-step", errs, "fused_pml_scan")
+                             a1, "full one-step", errs, "fused_pml_scan",
+                             splits=(a1[3].shape[0] // 2 | 1,))
         ml2, ms2 = scan_pair(kernels.fused2_pml_scan,
                              tf2.fused2_pml_scan_plain, a2, "full paired",
                              errs, "fused2_pml_scan")
@@ -1264,7 +1284,11 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
         plain_ms["fused2_pml_scan"] += ms2
         add_work(work, "fused_pml_scan", *scan_work(a1[3], 8, 4, 12))
         add_work(work, "fused2_pml_scan", *scan_work(a12_t, 16, 8, 12))
-    say("full", "each kernel equals its plain version over all lanes")
+    say("full", "each kernel equals its plain version over all lanes "
+                "(kernel 1 in one pass and split)")
+    # kernel 1's chain: every lane steps through the batch's width
+    chain_floors("full", card, timings, 8 * slots * r, dev, lat_us,
+                 {"fused_pml_scan": [b.width for b in batches]})
     # the compose reads the one-step table and writes the paired one
     add_work(work, "compose_paired_records", r * slots * (8 + 16 * slots),
              r * slots * slots * OPS_PER_ROW)
@@ -1278,7 +1302,11 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
         timings[name] = (
             cuda_ms(lambda: [fn(*a) for a in args[name]], reps=10),
             plain_ms[name])
-        per_batch = [cuda_ms(lambda: fn(*a), reps=10) for a in args[name]]
+        # each batch's time, and the lanes a warp its launch carried
+        per_batch = [(cuda_ms(lambda: fn(*a), reps=10),
+                      kernels.last_lanes_per_warp()
+                      if name == "fused_pml_scan" else None)
+                     for a in args[name]]
         timings[name + ".per_batch"] = per_batch
     timings["compose_paired_records"] = (
         cuda_ms(lambda: kernels.compose_paired_records(*comp), reps=3),
@@ -1286,14 +1314,19 @@ def phase_full(dev, card, errs, timings, work, text_len=FULL_TEXT,
     for name, layout in (("fused_pml_scan", "one-step"),
                          ("fused2_pml_scan", "paired")):
         k_ms, p_ms = timings[name]
-        per = ", ".join(f"{lanes_b} lanes x {w_b}: {ms:.6f} ms"
-                        for (lanes_b, w_b), ms in
+        per = ", ".join(f"{lanes_b} lanes x {w_b}"
+                        + ("" if lpw is None else f" ({lpw} a warp)")
+                        + f": {ms:.6f} ms"
+                        for (lanes_b, w_b), (ms, lpw) in
                         zip(shapes, timings[name + ".per_batch"]))
+        floor = timings.get(name + ".floor")
         say("full", f"{layout} scan over the main path's {len(batches)} "
                     f"batches ({n_bases} bases): kernel {k_ms:.6f} ms = "
                     f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
-                    f"{p_ms:.6f} ms = {n_bases / p_ms * 1e3:.6e} bases/s; "
-                    f"kernel per batch [{per}]  ({card})")
+                    f"{p_ms:.6f} ms = {n_bases / p_ms * 1e3:.6e} bases/s"
+                    + ("" if floor is None else
+                       f", latency floor {floor:.6f} ms")
+                    + f"; kernel per batch [{per}]  ({card})")
     k_ms, p_ms = timings["compose_paired_records"]
     say("full", f"compose r={r}: kernel {k_ms / 1e3:.6f} s, plain "
                 f"{p_ms / 1e3:.6f} s  ({card})")
@@ -4851,7 +4884,7 @@ def main() -> int:
     lap("small SA")
     phase_small_kmer(dev, errs)
     lap("small k-mer")
-    counts, ctx = phase_full(dev, card, errs, timings, work)
+    counts, ctx = phase_full(dev, card, errs, timings, work, lat_us)
     counts.update(phase_search(dev, card, errs, timings, work, ctx, lat_us))
     lap("phases 4-5")
     counts.update(phase_compact(dev, card, errs, timings, work, ctx, lat_us))

@@ -102,12 +102,15 @@ def inflight_writes(sass: str, function: str):
 
 def main_loop(sass: str, function: str):
     """The (first, last) address of `function`'s longest backward
-    branch: its main loop."""
-    spans = []
+    branch: its main loop; the whole function where it has no loop."""
+    spans, addrs = [], []
     for m in _INSTR.finditer(_function_body(sass, function)):
+        addrs.append(int(m.group(1), 16))
         back = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", m.group(2))
         if back and int(back.group(1), 16) < int(m.group(1), 16):
             spans.append((int(back.group(1), 16), int(m.group(1), 16)))
+    if not spans:
+        return addrs[0], addrs[-1]
     return max(spans, key=lambda sp: sp[1] - sp[0])
 
 

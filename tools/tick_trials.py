@@ -64,8 +64,8 @@ SASS_FUNCTIONS = ("11mem2_kernel", "24fused_search_scan_kernelILb1E",
                   "24fused_search_scan_kernelILb0E")
 
 
-def build(csrc: str, out_so: str, patches, work: str):
-    """Start nvcc on SOURCES of a copy of csrc with `patches` applied;
+def build(csrc: str, out_so: str, patches, work: str, sources=SOURCES):
+    """Start nvcc on `sources` of a copy of csrc with `patches` applied;
     return the processes and the link step, or None where a patch no
     longer matches."""
     from movi_tpu_torch import kernels
@@ -82,7 +82,7 @@ def build(csrc: str, out_so: str, patches, work: str):
             f.write(text.replace(old, new))
     nvcc = kernels._nvcc()
     objs, procs = [], []
-    for name in SOURCES:
+    for name in sources:
         obj = os.path.join(src, name + ".o")
         log = open(obj + ".log", "w+")
         procs.append((subprocess.Popen(
