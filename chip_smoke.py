@@ -67,10 +67,11 @@ the card's name and power limit.  Phases:
               compose runs on the card), counted apart from phase 4: the
               two layouts agree, 256 sampled reads equal ScalarEngine,
               kernels 6-7 equal their plain versions over all lanes and
-              the whole table, their timings (with the lanes a warp each
-              one-step batch launched with) and latency floors (the
-              one-step scans' longest chain of steps per batch), and a
-              warm breakdown for each (query, layout)
+              the whole table (7 also split in two), their timings (with
+              the lanes a warp each batch launched with) and latency
+              floors (each scan's longest chain of steps per batch, beside
+              row_latency over its table), and a warm breakdown for each
+              (query, layout)
      compact  phase 4's text indexed without NT splitting (regular
               thresholds, and regular) and the same reads through the
               compact engines of Index.compact_engine (PML by threshold
@@ -210,11 +211,14 @@ the card's name and power limit.  Phases:
               paired (the color compose runs on the card), early stop off
               and on, counted apart: the layouts agree, 256 sampled reads
               equal ColorEngine, kernels A-C equal their plain versions
-              over all lanes and the whole table, timings and a warm
-              breakdown;
+              over all lanes and the whole table (A also split in two),
+              timings (A's with the lanes a warp of each batch), A's
+              latency floors (each batch's width, or with early stop the
+              most rows a lane scanned, beside row_latency over its
+              table) and a warm breakdown;
               then a 24-genome pangenome (24 x 250,000 bases) whose
               compressed color table keeps 2^16 sets: the two-load form
-              of kernel A, counted apart
+              of kernel A, counted apart, the same checks and floors
   8. cli     the port's CLI (run in this process) on the card against an
               index that its own `build --color --sa-entries` made: the
               PML and ZML --classify reports, the count .matches file, ZML
@@ -520,13 +524,15 @@ def row_latency(nbytes, dev, steps=ROW_CHAIN_STEPS):
     return us[0], us[1], time.perf_counter() - t0
 
 
-def chain_floors(phase, card, timings, table_bytes, dev, lat_us, chains):
+def chain_floors(phase, card, timings, table_bytes, dev, lat_us, chains,
+                 probe=None):
     """The latency floors of tick machines: per kernel, its longest lane's
     dependent steps in each batch, summed over the batches, x lat_us
     (load_latency: a chain of cached loads); beside it the same steps x
     the random-row latency of a buffer of the table's size
-    (row_latency).  chains: {kernel: [steps per batch]}."""
-    one, warp, secs = row_latency(table_bytes, dev)
+    (row_latency, or `probe`, an earlier run's (one, warp, seconds)).
+    chains: {kernel: [steps per batch]}.  Returns the probe."""
+    one, warp, secs = probe or row_latency(table_bytes, dev)
     for name, per_batch in chains.items():
         n = sum(per_batch)
         timings[name + ".floor"] = n * lat_us / 1e3
@@ -535,12 +541,14 @@ def chain_floors(phase, card, timings, table_bytes, dev, lat_us, chains):
                f"{lat_us * 1e3:.3f} ns; beside it x a link of two random "
                f"32 B rows over a {table_bytes} B buffer: {one:.6f} us "
                f"alone in its warp, {warp:.6f} us in a warp of 32 chains; "
-               f"probe {secs:.1f} s): " + "; ".join(
+               + (f"probe {secs:.1f} s" if probe is None else
+                  "an earlier phase's probe") + "): " + "; ".join(
                    f"{name} {timings[name + '.floor']:.6f} ms "
                    f"({sum(b)} steps {b}), at the row latency "
                    f"{sum(b) * one / 1e3:.6f} ms alone, "
                    f"{sum(b) * warp / 1e3:.6f} ms in a warp"
                    for name, b in chains.items()) + f"  ({card})")
+    return one, warp, secs
 
 
 def say(phase, msg):
@@ -1606,7 +1614,7 @@ def phase_compact(dev, card, errs, timings, work, ctx, lat_us,
 
 def phase_search(dev, card, errs, timings, work, ctx, lat_us):
     """Count and ZML on phase 4's index and reads, counted apart; lat_us:
-    load_latency's, for the one-step scans' latency floors."""
+    load_latency's, for the scans' latency floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -1669,27 +1677,34 @@ def phase_search(dev, card, errs, timings, work, ctx, lat_us):
     batches = list(_as_batches(reads, QUERY_LANES))
     args = {k: [] for k in SCAN_OF}
     plain_ms = dict.fromkeys(SCAN_OF, 0.0)
-    longest = {"count": [], "count2": [], "zml": []}
+    longest = {kind: [] for kind in SCAN_OF}
     for batch in batches:
         for kind in SCAN_OF:
             kern, plain, a, kw = search_args(kind, s2 if "2" in kind else si,
                                              batch, dev)
-            ms, (st, _) = search_pair(kern, plain, a, kw, f"full {kind}",
-                                      errs, SCAN_OF[kind])
+            # kernel 7 also split at an odd pair step
+            ms, (st, _) = search_pair(
+                kern, plain, a, kw, f"full {kind}", errs, SCAN_OF[kind],
+                split=a[-1].shape[0] // 2 | 1 if "2" in kind else None)
             plain_ms[kind] += ms
             args[kind].append((kern, a, kw))
             add_work(work, SCAN_OF[kind], *search_work(kind, a[-1], st))
             if kind == "zml":  # every lane steps from row 1 to the end
                 longest[kind].append(a[-1].shape[0] - 1)
-            elif kind in longest:
+            elif kind == "zml2":  # every lane takes every pair step
+                longest[kind].append(a[-1].shape[0])
+            else:
                 longest[kind].append(int(count_steps(kind, st).max()))
     say("search", "kernels 6-7 equal their plain versions over all lanes "
-                  "and the whole table")
+                  "and the whole table (kernel 7 in one pass and split)")
     say("search", "the longest lane's dependent steps per batch: " + "; ".join(
         f"{SCAN_OF[kind]} {steps} (max {max(steps)})"
         for kind, steps in longest.items()))
     chain_floors("search", card, timings, 32 * sigma * r, dev, lat_us,
                  {SCAN_OF[kind]: longest[kind] for kind in ("count", "zml")})
+    chain_floors("search", card, timings, 48 * sigma * sigma * r, dev,
+                 lat_us, {SCAN_OF[kind]: longest[kind]
+                          for kind in ("count2", "zml2")})
     # the compose reads the run arrays and next-run tables, writes the table
     add_work(work, "compose_search2_records",
              4 * r * (3 + 2 * sigma) + 24 * 2 * r * sigma * sigma,
@@ -1704,9 +1719,7 @@ def phase_search(dev, card, errs, timings, work, ctx, lat_us):
         per = [(cuda_ms(lambda: fn(*a, **kw), reps=5),
                 kernels.last_lanes_per_warp()) for fn, a, kw in runs]
         per_s = ", ".join(
-            f"{lanes_b} lanes x {w_b}"
-            + ("" if "2" in kind else f" ({lpw} a warp)")
-            + f": {ms:.6f} ms"
+            f"{lanes_b} lanes x {w_b} ({lpw} a warp): {ms:.6f} ms"
             for (lanes_b, w_b), (ms, lpw) in zip(shapes, per))
         floor = timings.get(name + ".floor")
         say("search", f"{name} over the main path's {len(batches)} batches "
@@ -3751,6 +3764,20 @@ def color_pair(eng, batch, what, errs, key, split=False):
     return got, plain_ms, (kern, args, kw)
 
 
+def color_chains(runs, es_runs, suffix=""):
+    """Kernel 5's longest chain of dependent steps per batch: its width,
+    and with early stop the most rows a lane of the batch scanned (from
+    one more run of the kernel on es_runs)."""
+    from movi_tpu_torch.engine.fused_color import scanned_rows
+
+    es_steps = []
+    for f, a, kw in es_runs:
+        st, ml, _ = f(*a, **kw)
+        es_steps.append(scanned_rows(st, kw["lens"], ml.shape[0]))
+    return {"fused_color_scan" + suffix: [a[3].shape[0] for _, a, _ in runs],
+            "fused_color_scan" + suffix + " early_stop": es_steps}
+
+
 def color_cut(reads, lanes, cut_lanes, cut_len):
     """The long lanes the color scans' plain versions are held on: the
     first cut_lanes / 2 genome reads and the last cut_lanes / 2 random
@@ -3763,16 +3790,17 @@ def color_cut(reads, lanes, cut_lanes, cut_len):
                              longs[:half] + longs[-half:]], QUERY_LANES))
 
 
-def color_pairs(eng, batches, cut, what, errs, key):
+def color_pairs(eng, batches, cut, what, errs, key, split=False):
     """An engine's color scan kernel against its plain version on every
     150 bp batch and on `cut` (long reads cut short: the plain version
-    takes milliseconds per lockstep step on the card); the long batches
-    through the kernel only.  Returns the main path's runs (fn, args, kw)
-    and the plain version's milliseconds."""
+    takes milliseconds per lockstep step on the card), with `split` also
+    split in two; the long batches through the kernel only.  Returns the
+    main path's runs (fn, args, kw) and the plain version's
+    milliseconds."""
     runs, plain_ms = [], 0.0
     for b in batches + [cut]:
         if b is cut or b.width <= READ_LEN:
-            _, ms, run = color_pair(eng, b, what, errs, key)
+            _, ms, run = color_pair(eng, b, what, errs, key, split=split)
             plain_ms += ms
             if b is cut:
                 continue
@@ -3970,9 +3998,11 @@ def color_breakdown(index, ct, reads, paired, dev, k_ms, n_bases, card,
              f"prepare+scan {t_scan:.6f} s, tally {t_tally:.6f} s  ({card})")
 
 
-def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
+def phase_color(dev, card, errs, timings, work, lat_us, lanes=FULL_LANES,
                 long_reads=LONG_READS, genomes=COLOR_GENOMES,
                 genome_len=COLOR_GENOME_LEN, cut_lanes=8, cut_len=LONG_CUT):
+    """Movi Color one-step and paired, early stop off and on, counted;
+    lat_us: load_latency's, for kernel 5's latency floors."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -4066,7 +4096,8 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
             eng = index.color_engine(ct, paired, dev, early_stop=es)
             key = "fused2_color_scan" if paired else "fused_color_scan"
             runs[key, es], plain_ms[key, es] = color_pairs(
-                eng, batches, cut, f"full {key} early_stop={es}", errs, key)
+                eng, batches, cut, f"full {key} early_stop={es}", errs, key,
+                split=not paired)
             for run in runs[key, es]:
                 if not es:  # a record row (and a color id) per code
                     _, (rec, _, _, codes, _), kw = run
@@ -4076,7 +4107,15 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
                         codes, row, 8 * (2 if paired else 1), 12))
     say("color", f"kernels A-C equal their plain versions over all lanes "
                  f"of the 150 bp batches and {cut_lanes} long lanes cut to "
-                 f"{cut_len} bases, and over the whole table")
+                 f"{cut_len} bases (kernel 5 in one pass and split), and "
+                 f"over the whole table")
+    # kernel 5's chain: every lane steps through its batch's width, with
+    # early stop through the most rows a lane of the batch scanned
+    timings["color.probe"] = chain_floors(
+        "color", card, timings, 12 * slots * r, dev, lat_us,
+        color_chains(runs[("fused_color_scan", False)],
+                     runs[("fused_color_scan", True)]))
+    timings["color.probe_bytes"] = 12 * slots * r
     # the compose reads the one-step table and the color ids, writes the
     # paired color table
     add_work(work, "compose_paired_color_records",
@@ -4086,18 +4125,27 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
     shapes = [tuple(b.seqs.shape) for b in batches]
     for (key, es), rs in runs.items():
         k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
-        per = [cuda_ms(lambda: f(*a, **kw), reps=5) for f, a, kw in rs]
+        # each batch's time, and for kernel 5 the lanes a warp its launch
+        # carried
+        per = [(cuda_ms(lambda: f(*a, **kw), reps=5),
+                kernels.last_lanes_per_warp()
+                if key == "fused_color_scan" else None) for f, a, kw in rs]
         if not es:
             timings[key] = (k_ms, plain_ms[key, es])
         timings[key, es] = k_ms
-        per_s = ", ".join(f"{lb} lanes x {wb}: {ms:.6f} ms"
-                          for (lb, wb), ms in zip(shapes, per))
+        per_s = ", ".join(f"{lb} lanes x {wb}"
+                          + ("" if lpw is None else f" ({lpw} a warp)")
+                          + f": {ms:.6f} ms"
+                          for (lb, wb), (ms, lpw) in zip(shapes, per))
+        floor = timings.get(key + (" early_stop" if es else "") + ".floor")
         say("color", f"{key} early_stop={es} over the main path's "
                      f"{len(batches)} batches ({n_bases} bases): kernel "
                      f"{k_ms:.6f} ms = {n_bases / k_ms * 1e3:.6e} bases/s, "
                      f"plain {plain_ms[key, es]:.6f} ms = "
-                     f"{n_bases / plain_ms[key, es] * 1e3:.6e} bases/s; "
-                     f"kernel per batch [{per_s}]  ({card})")
+                     f"{n_bases / plain_ms[key, es] * 1e3:.6e} bases/s"
+                     + ("" if floor is None else
+                        f", latency floor {floor:.6f} ms")
+                     + f"; kernel per batch [{per_s}]  ({card})")
     k_ms = cuda_ms(lambda: kernels.compose_paired_color_records(*comp),
                    reps=3)
     timings["compose_paired_color_records"] = (k_ms, compose_plain_ms)
@@ -4123,12 +4171,14 @@ def phase_color(dev, card, errs, timings, work, lanes=FULL_LANES,
     return counts
 
 
-def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
+def phase_color_two_load(dev, card, errs, timings, lat_us, lanes=FULL_LANES,
                          long_reads=LONG_READS, genomes=WIDE_GENOMES,
                          genome_len=WIDE_GENOME_LEN, cut_lanes=8,
                          cut_len=LONG_CUT):
     """A pangenome whose compressed color table keeps 2^16 sets: no
-    3-word records, no paired color records; kernel A's two-load form."""
+    3-word records, no paired color records; kernel A's two-load form.
+    lat_us: load_latency's, for its latency floors, beside the color
+    phase's row_latency probe."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -4168,22 +4218,39 @@ def phase_color_two_load(dev, card, errs, timings, lanes=FULL_LANES,
                            [reads[i] for i in pick],
                            [res[es][i] for i in pick], oracle)
     batches = list(_as_batches(reads, QUERY_LANES))
+    shapes = [tuple(b.seqs.shape) for b in batches]
     cut = color_cut(reads, lanes, cut_lanes, cut_len)
+    runs, plain_ms = {}, {}
     for es in (False, True):
         eng = index.color_engine(ct, device=dev, early_stop=es)
-        rs, p_ms = color_pairs(eng, batches, cut, f"two-load early_stop={es}",
-                               errs, "fused_color_scan")
+        runs[es], plain_ms[es] = color_pairs(
+            eng, batches, cut, f"two-load early_stop={es}", errs,
+            "fused_color_scan", split=True)
+    chain_floors("two-load", card, timings, timings["color.probe_bytes"],
+                 dev, lat_us, color_chains(runs[False], runs[True],
+                                           " two-load"),
+                 probe=timings["color.probe"])
+    for es, rs in runs.items():
         k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
+        p_ms = plain_ms[es]
         timings["two-load", es] = (k_ms, p_ms)
+        # each batch's time, and the lanes a warp its launch carried
+        per = [(cuda_ms(lambda: f(*a, **kw), reps=5),
+                kernels.last_lanes_per_warp()) for f, a, kw in rs]
+        per_s = ", ".join(f"{lb} lanes x {wb} ({lpw} a warp): {ms:.6f} ms"
+                          for (lb, wb), (ms, lpw) in zip(shapes, per))
+        floor = timings["fused_color_scan two-load"
+                        + (" early_stop" if es else "") + ".floor"]
         say("two-load", f"fused_color_scan (two-load form) early_stop={es} "
                         f"over {len(batches)} batches ({n_bases} bases): "
                         f"kernel {k_ms:.6f} ms = "
                         f"{n_bases / k_ms * 1e3:.6e} bases/s, plain "
-                        f"{p_ms:.6f} ms  ({card})")
+                        f"{p_ms:.6f} ms, latency floor {floor:.6f} ms; "
+                        f"kernel per batch [{per_s}]  ({card})")
     say("two-load", f"launches {counts}; {len(pick)} sampled reads equal "
                     f"ColorEngine; the kernel equals its plain version over "
                     f"all lanes of the 150 bp batches and {cut_lanes} long "
-                    f"lanes cut to {cut_len} bases")
+                    f"lanes cut to {cut_len} bases, in one pass and split")
     color_breakdown(index, ct, reads, False, dev,
                     timings["two-load", False][0], n_bases, card, "two-load")
 
@@ -4915,8 +4982,8 @@ def main() -> int:
     del mem_ctx
     lap("MEM v1")
     phase_small_color(dev, errs)
-    counts.update(phase_color(dev, card, errs, timings, work))
-    phase_color_two_load(dev, card, errs, timings)
+    counts.update(phase_color(dev, card, errs, timings, work, lat_us))
+    phase_color_two_load(dev, card, errs, timings, lat_us)
     lap("color phases")
     phase_cli("gpu")
     lap("cli")

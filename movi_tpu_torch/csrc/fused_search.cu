@@ -144,7 +144,8 @@ int launch(const void* rec_all, const void* init_rec, const void* all_p,
 
 }  // namespace
 
-// The lanes a warp carried in the last launch of kernel 1, 6 or 10b.
+// The lanes a warp carried in the last launch of kernel 1, 5, 6, 7 or
+// 10b.
 extern "C" int movi_last_lanes_per_warp() {
     return movi::last_lanes_per_warp();
 }

@@ -63,32 +63,58 @@ __device__ __forceinline__ bool crossed(const Interval& v) {
     return v.rs > v.re || (v.rs == v.re && v.os > v.oe);
 }
 
+// The two rows of a pair step from cur for the pair a12: the down row of
+// (rs, a12) and the up row of (re, a12), independent of each other.
+struct PairRows {
+    Rec6 rd, ru;
+};
+
+__device__ __forceinline__ PairRows bs2_rows(const int* __restrict__ rec_all,
+                                             int r, int S2,
+                                             const Interval& cur, int a12) {
+    const int a = clampi(a12, 0, S2 - 1);
+    return PairRows{
+        load_rec6(rec_all, (int64_t)clampi(cur.rs, 0, r - 1) * S2 + a),
+        load_rec6(rec_all, ((int64_t)r + clampi(cur.re, 0, r - 1)) * S2 + a)};
+}
+
+// The pair step's result from its rows: the mid and final intervals and
+// their emptiness (e2 is meaningful only where !e1; callers gate it).
+__device__ __forceinline__ void bs2_decode(const PairRows& rows,
+                                           const Interval& cur, bool l1,
+                                           bool l2, Interval& mid,
+                                           Interval& fin, bool& e1,
+                                           bool& e2) {
+    decode_dir(rows.rd, cur.os, mid.rs, mid.os, fin.rs, fin.os);
+    decode_dir(rows.ru, cur.oe, mid.re, mid.oe, fin.re, fin.oe);
+    e1 = !l1 || crossed(mid);
+    e2 = !l2 || crossed(fin);
+}
+
 // fused2_bs_step: two backward_search_steps for chars (a1, a2) packed as
-// a12 = a1*sigma + a2, with legality l1, l2.  Writes the mid and final
-// intervals; e2 is meaningful only where !e1 (callers gate it).  The down
-// and up rows are independent and both in flight before either is used.
+// a12 = a1*sigma + a2, with legality l1, l2: bs2_rows, then bs2_decode.
+// The down and up rows are both in flight before either is used.
 __device__ __forceinline__ void bs2_step(const int* __restrict__ rec_all,
                                          int r, int S2, const Interval& cur,
                                          int a12, bool l1, bool l2,
                                          Interval& mid, Interval& fin,
                                          bool& e1, bool& e2) {
-    const int a = clampi(a12, 0, S2 - 1);
-    const Rec6 rd =
-        load_rec6(rec_all, (int64_t)clampi(cur.rs, 0, r - 1) * S2 + a);
-    const Rec6 ru = load_rec6(
-        rec_all, ((int64_t)r + clampi(cur.re, 0, r - 1)) * S2 + a);
-    decode_dir(rd, cur.os, mid.rs, mid.os, fin.rs, fin.os);
-    decode_dir(ru, cur.oe, mid.re, mid.oe, fin.re, fin.oe);
-    e1 = !l1 || crossed(mid);
-    e2 = !l2 || crossed(fin);
+    bs2_decode(bs2_rows(rec_all, r, S2, cur, a12), cur, l1, l2, mid, fin, e1,
+               e2);
 }
 
-// A pair code (a1+2)*8 + (a2+2) -> chars.
-__device__ __forceinline__ void unpack_pair(int v, int sigma, int& a1,
-                                            int& a2, int& a12) {
-    a1 = (v >> 3) - 2;
-    a2 = (v & 7) - 2;
-    a12 = (a1 > 0 ? a1 : 0) * sigma + (a2 > 0 ? a2 : 0);
+// A pair code (a1+2)*8 + (a2+2) unpacked: a2, the packed pair a12 and
+// both chars' legality.
+struct PairCode {
+    int a2, a12;
+    bool l1, l2;
+};
+
+__device__ __forceinline__ PairCode pair_code(int v, int sigma) {
+    const int a1 = (v >> 3) - 2;
+    const int a2 = (v & 7) - 2;
+    return PairCode{a2, (a1 > 0 ? a1 : 0) * sigma + (a2 > 0 ? a2 : 0),
+                    a1 >= 0, a2 >= 0};
 }
 
 }  // namespace movi
