@@ -371,7 +371,7 @@ MEM_LANES = 16384         # bench.py MEM_LANES
 MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
 TICK_US = 0.9             # a dependent step's latency (PERF.md §2): the
-#                           floors of kernels 13b/13c, 14, 15a and 15b
+#                           floors of kernels 13b/13c, 15a and 15b
 ROW_CHAIN_STEPS = 10_000  # the links of row_latency's chains
 ROW_CHAIN_SEED = 5
 # the latency probe's ns a load when it timed kernel 12a's chain while 12a's
@@ -714,17 +714,25 @@ def phase_small(dev, errs):
     f2 = tf2.build_fused2_index(fi)
     eng2 = tf2.Fused2PMLEngine(f2, dev)
     a12_t, _ = eng2.prepare(batch)
-    scan_pair(kernels.fused2_pml_scan, tf2.fused2_pml_scan_plain,
-              (f2.records, slots, f2.p_dollar, a12_t, st0), "small paired",
-              errs, "fused2_pml_scan")
+    # split inside kernel 3's ring of codes and past it; its int32 pair
+    # codes (the other instantiation) give what its uint8 ones give
+    a2 = (f2.records, slots, f2.p_dollar, a12_t, st0)
+    scan_pair(kernels.fused2_pml_scan, tf2.fused2_pml_scan_plain, a2,
+              "small paired", errs, "fused2_pml_scan", splits=(1, 2, 51))
+    st8, ml8 = kernels.fused2_pml_scan(*a2)
+    st32, ml32 = kernels.fused2_pml_scan(*a2[:3], a12_t.to(torch.int32), st0)
+    require_equal("small paired int32 codes ml", ml32, ml8, errs,
+                  "fused2_pml_scan")
+    require_state_equal("small paired int32 codes", st32, st8, errs,
+                        "fused2_pml_scan")
 
     index = Index(ix)
     for paired in (False, True):
         got = index.query_pml(reads, paired=paired, device=dev)
         check_oracle(f"small paired={paired}", reads, got, oracle)
     say("small", f"r={ix.r}: kernels equal plain on {len(reads)} reads "
-                 f"(lengths 1-4097, with N); both layouts equal "
-                 f"ScalarEngine")
+                 f"(lengths 1-4097, with N; kernel 3 with uint8 and int32 "
+                 f"codes, both split too); both layouts equal ScalarEngine")
 
     # kernel 3 on run ids past 2^24: CONST branches whose next state is
     # (A, C), so one pair step writes A out as the run id
@@ -1284,7 +1292,8 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
                              splits=(a1[3].shape[0] // 2 | 1,))
         ml2, ms2 = scan_pair(kernels.fused2_pml_scan,
                              tf2.fused2_pml_scan_plain, a2, "full paired",
-                             errs, "fused2_pml_scan")
+                             errs, "fused2_pml_scan",
+                             splits=(a12_t.shape[0] // 2 | 1,))
         require_equal("full layouts", ml1, ml2[:W])
         args["fused_pml_scan"].append(a1)
         args["fused2_pml_scan"].append(a2)
@@ -1293,10 +1302,14 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
         add_work(work, "fused_pml_scan", *scan_work(a1[3], 8, 4, 12))
         add_work(work, "fused2_pml_scan", *scan_work(a12_t, 16, 8, 12))
     say("full", "each kernel equals its plain version over all lanes "
-                "(kernel 1 in one pass and split)")
-    # kernel 1's chain: every lane steps through the batch's width
+                "(kernels 1 and 3 in one pass and split)")
+    # kernel 1's chain: every lane steps through the batch's width; kernel
+    # 3's through its W2 pair steps
     chain_floors("full", card, timings, 8 * slots * r, dev, lat_us,
                  {"fused_pml_scan": [b.width for b in batches]})
+    chain_floors("full", card, timings, 16 * slots**2 * r, dev, lat_us,
+                 {"fused2_pml_scan": [a[3].shape[0] for a in
+                                      args["fused2_pml_scan"]]})
     # the compose reads the one-step table and writes the paired one
     add_work(work, "compose_paired_records", r * slots * (8 + 16 * slots),
              r * slots * slots * OPS_PER_ROW)
@@ -1312,9 +1325,7 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
             plain_ms[name])
         # each batch's time, and the lanes a warp its launch carried
         per_batch = [(cuda_ms(lambda: fn(*a), reps=10),
-                      kernels.last_lanes_per_warp()
-                      if name == "fused_pml_scan" else None)
-                     for a in args[name]]
+                      kernels.last_lanes_per_warp()) for a in args[name]]
         timings[name + ".per_batch"] = per_batch
     timings["compose_paired_records"] = (
         cuda_ms(lambda: kernels.compose_paired_records(*comp), reps=3),
@@ -1322,9 +1333,8 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
     for name, layout in (("fused_pml_scan", "one-step"),
                          ("fused2_pml_scan", "paired")):
         k_ms, p_ms = timings[name]
-        per = ", ".join(f"{lanes_b} lanes x {w_b}"
-                        + ("" if lpw is None else f" ({lpw} a warp)")
-                        + f": {ms:.6f} ms"
+        per = ", ".join(f"{lanes_b} lanes x {w_b} ({lpw} a warp): "
+                        f"{ms:.6f} ms"
                         for (lanes_b, w_b), (ms, lpw) in
                         zip(shapes, timings[name + ".per_batch"]))
         floor = timings.get(name + ".floor")
@@ -3778,6 +3788,26 @@ def color_chains(runs, es_runs, suffix=""):
             "fused_color_scan" + suffix + " early_stop": es_steps}
 
 
+def scanned_pairs(state, lens, W2):
+    """The most pair steps any lane of a paired early-stop color scan ran,
+    from its final state: a retired lane's stop / 2, else its read's pair
+    steps, at most W2."""
+    import torch
+
+    pairs = torch.where(state[4] > 0, state[4] // 2, (lens + 1) // 2)
+    return min(int(pairs.max()), W2)
+
+
+def color2_chains(runs, es_runs):
+    """Kernel 4's longest chain of dependent pair steps per batch: its W2,
+    and with early stop the most pair steps a lane of the batch scanned
+    (from one more run of the kernel on es_runs)."""
+    es_steps = [scanned_pairs(f(*a, **kw)[0], kw["lens"], a[3].shape[0])
+                for f, a, kw in es_runs]
+    return {"fused2_color_scan": [a[3].shape[0] for _, a, _ in runs],
+            "fused2_color_scan early_stop": es_steps}
+
+
 def color_cut(reads, lanes, cut_lanes, cut_len):
     """The long lanes the color scans' plain versions are held on: the
     first cut_lanes / 2 genome reads and the last cut_lanes / 2 random
@@ -3910,6 +3940,13 @@ def phase_small_color(dev, errs, exact_len=EXACT_LEN):
             out[layout], _, _ = color_pair(
                 eng, batch, f"small {layout} early_stop={es}", errs, key,
                 split=True)
+        # kernel 4's int32 pair codes (its other instantiations) give what
+        # its uint8 ones give
+        kern, _, args, kw, _ = color_scan(engs["paired"], batch)
+        a32 = (*args[:3], args[3].to(torch.int32), args[4])
+        require_color_equal(f"small paired int32 codes early_stop={es}",
+                            kern(*a32, **kw), out["paired"], errs,
+                            "fused2_color_scan")
         require_color_equal(f"small two-load vs 3-word early_stop={es}",
                             out["two-load"], out["3-word"], errs,
                             "fused_color_scan")
@@ -3930,7 +3967,8 @@ def phase_small_color(dev, errs, exact_len=EXACT_LEN):
                            oracle)
     say("small color", f"r={ix.r}, C={ci.num_colors}: kernels A (3-word and "
                        f"two-load), B (real ids and ids past 2^15) and C "
-                       f"equal plain, early stop off and on ({stopped} "
+                       f"(uint8 and int32 codes) equal plain, early stop "
+                       f"off and on ({stopped} "
                        f"lanes stopped), split scans equal one pass; the "
                        f"one-step, two-load and paired engines equal "
                        f"ColorEngine on {len(reads)} reads")
@@ -4097,7 +4135,7 @@ def phase_color(dev, card, errs, timings, work, lat_us, lanes=FULL_LANES,
             key = "fused2_color_scan" if paired else "fused_color_scan"
             runs[key, es], plain_ms[key, es] = color_pairs(
                 eng, batches, cut, f"full {key} early_stop={es}", errs, key,
-                split=not paired)
+                split=True)
             for run in runs[key, es]:
                 if not es:  # a record row (and a color id) per code
                     _, (rec, _, _, codes, _), kw = run
@@ -4107,8 +4145,8 @@ def phase_color(dev, card, errs, timings, work, lat_us, lanes=FULL_LANES,
                         codes, row, 8 * (2 if paired else 1), 12))
     say("color", f"kernels A-C equal their plain versions over all lanes "
                  f"of the 150 bp batches and {cut_lanes} long lanes cut to "
-                 f"{cut_len} bases (kernel 5 in one pass and split), and "
-                 f"over the whole table")
+                 f"{cut_len} bases (kernels 5 and 4 in one pass and split), "
+                 f"and over the whole table")
     # kernel 5's chain: every lane steps through its batch's width, with
     # early stop through the most rows a lane of the batch scanned
     timings["color.probe"] = chain_floors(
@@ -4116,6 +4154,11 @@ def phase_color(dev, card, errs, timings, work, lat_us, lanes=FULL_LANES,
         color_chains(runs[("fused_color_scan", False)],
                      runs[("fused_color_scan", True)]))
     timings["color.probe_bytes"] = 12 * slots * r
+    # kernel 4's chain: every lane's W2 pair steps, with early stop the
+    # most pair steps a lane of the batch scanned
+    chain_floors("color", card, timings, 32 * slots**2 * r, dev, lat_us,
+                 color2_chains(runs[("fused2_color_scan", False)],
+                               runs[("fused2_color_scan", True)]))
     # the compose reads the one-step table and the color ids, writes the
     # paired color table
     add_work(work, "compose_paired_color_records",
@@ -4125,17 +4168,13 @@ def phase_color(dev, card, errs, timings, work, lat_us, lanes=FULL_LANES,
     shapes = [tuple(b.seqs.shape) for b in batches]
     for (key, es), rs in runs.items():
         k_ms = cuda_ms(lambda: [f(*a, **kw) for f, a, kw in rs], reps=5)
-        # each batch's time, and for kernel 5 the lanes a warp its launch
-        # carried
+        # each batch's time, and the lanes a warp its launch carried
         per = [(cuda_ms(lambda: f(*a, **kw), reps=5),
-                kernels.last_lanes_per_warp()
-                if key == "fused_color_scan" else None) for f, a, kw in rs]
+                kernels.last_lanes_per_warp()) for f, a, kw in rs]
         if not es:
             timings[key] = (k_ms, plain_ms[key, es])
         timings[key, es] = k_ms
-        per_s = ", ".join(f"{lb} lanes x {wb}"
-                          + ("" if lpw is None else f" ({lpw} a warp)")
-                          + f": {ms:.6f} ms"
+        per_s = ", ".join(f"{lb} lanes x {wb} ({lpw} a warp): {ms:.6f} ms"
                           for (lb, wb), (ms, lpw) in zip(shapes, per))
         floor = timings.get(key + (" early_stop" if es else "") + ".floor")
         say("color", f"{key} early_stop={es} over the main path's "
@@ -4255,13 +4294,13 @@ def phase_color_two_load(dev, card, errs, timings, lat_us, lanes=FULL_LANES,
                     timings["two-load", False][0], n_bases, card, "two-load")
 
 
-def phase_dense(dev, card, errs, timings, work, ctx, cut_lanes=8,
+def phase_dense(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                 cut_len=LONG_CUT):
     """Dense-automaton PML (kernel 14) on phase 4's index and reads,
     counted apart: equal to phase 4's answers on every read, the kernel
     equal to its plain version over the 150 bp batches and cut_lanes long
-    lanes cut to cut_len bases, its time per query, bound, floor and
-    table bytes."""
+    lanes cut to cut_len bases, its time per query, bound, latency floor
+    (lat_us: load_latency's) and table bytes."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -4317,15 +4356,17 @@ def phase_dense(dev, card, errs, timings, work, ctx, cut_lanes=8,
     k_ms = cuda_ms(lambda: [kernels.dense_pml_scan(*a) for a in args],
                    reps=10)
     timings["dense_pml_scan"] = (k_ms, plain_ms)
-    steps = max(b.width for b in batches)
+    # kernel 14's chain: every lane steps through its batch's width
+    chain_floors("dense", card, timings, table_bytes, dev, lat_us,
+                 {"dense_pml_scan": [b.width for b in batches]})
     b_ms, b_by = bound(*work["dense_pml_scan"])
     say("dense", f"kernel 14 over the main path's {len(batches)} batches: "
                  f"{k_ms:.6f} ms a query = {n_bases / k_ms * 1e3:.6e} "
                  f"bases/s; bound {b_ms:.6f} ms ({b_by}); latency floor "
-                 f"{steps * TICK_US / 1e3:.6f} ms ({steps} dependent "
-                 f"steps x {TICK_US} us); plain {plain_ms:.6f} ms (150 bp "
-                 f"batches and {cut_lanes} long lanes cut to {cut_len} "
-                 f"bases); table {table_bytes} B  ({card})")
+                 f"{timings['dense_pml_scan.floor']:.6f} ms; plain "
+                 f"{plain_ms:.6f} ms (150 bp batches and {cut_lanes} long "
+                 f"lanes cut to {cut_len} bases); table {table_bytes} B  "
+                 f"({card})")
     return counts
 
 
@@ -4960,7 +5001,7 @@ def main() -> int:
     lap("SA")
     counts.update(phase_kmer(dev, card, errs, timings, work, ctx, lat_us))
     lap("k-mer")
-    counts.update(phase_dense(dev, card, errs, timings, work, ctx))
+    counts.update(phase_dense(dev, card, errs, timings, work, ctx, lat_us))
     lap("dense")
     mesh_counts = phase_mesh(dev, card, errs, timings, work, ctx)
     counts["classify_from_ml"] = mesh_counts["classify_from_ml"]

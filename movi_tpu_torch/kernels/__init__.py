@@ -72,8 +72,8 @@ _SIGNATURES = {
     "movi_compose_paired_records": [_P, _I, _I, _I, _I, _P, _P, _P],
     "movi_fused2_pml_scan": [_P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _P],
-    # (): the lanes a warp carried in the last launch of kernel 1, 5, 6,
-    # 7 or 10b
+    # (): the lanes a warp carried in the last launch of kernel 1, 3, 4,
+    # 5, 6, 7 or 10b
     "movi_last_lanes_per_warp": [],
     "movi_fused_count_scan": _SEARCH,
     "movi_fused_zml_scan": _SEARCH,
@@ -510,8 +510,9 @@ def fused_zml_scan(rec_all, init_rec, r: int, sigma: int,
 
 
 def last_lanes_per_warp() -> int:
-    """The lanes a warp carried in the last launch of kernel 1, 5 (the
-    one-step color scan), 6 or 7 (count or ZML) or 10b (csrc/spread.cuh):
+    """The lanes a warp carried in the last launch of kernel 1, 3 (the
+    paired PML scan), 4 (the paired color scan), 5 (the one-step color
+    scan), 6 or 7 (count or ZML) or 10b (csrc/spread.cuh):
     1 or 32, chosen by the launch from its lane count and the card's SM
     count; 0 before the first."""
     return int(_load().movi_last_lanes_per_warp())
