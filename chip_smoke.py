@@ -22,9 +22,10 @@ the card's name and power limit.  Phases:
   2. build    nvcc of the kernels; `make -C native` for the host SA-IS
   3. small    5,000-base index: each kernel equals its plain version on
               the card (ml or count, carried state, a scan split in two
-              equal to one pass, the compose tables); every layout of PML,
-              count and ZML equals ScalarEngine; kernel 3 on synthetic
-              records whose run ids pass 2^24 (w0's sign bit)
+              equal to one pass, the compose tables, kernel 7's also on a
+              three-letter index whose r*sigma^2 is odd); every layout of
+              PML, count and ZML equals ScalarEngine; kernel 3 on
+              synthetic records whose run ids pass 2^24 (w0's sign bit)
      small compact  the 5,000-base text of phase 3 indexed with regular
               thresholds without NT splitting, as `regular`, and the
               separators index of tests/test_separators.py: kernels 12a
@@ -118,7 +119,9 @@ the card's name and power limit.  Phases:
               and phase 4's reads through DensePMLEngine, counted apart:
               equal to phase 4's answers on every read, the kernel equal
               to its plain version over the 150 bp batches and 8 long
-              lanes cut to 1,500 bases, time, bound, floor, table bytes
+              lanes cut to 1,500 bases, in one pass and split at an odd
+              step, time (per batch with its lanes a warp), bound, floor,
+              table bytes
      mesh     a process group of one rank on the card (NCCL): phase 4's
               reads through ShardedPMLEngine one-step and paired with
               on-device classification (kernels 1 or 3, then 16a),
@@ -134,8 +137,9 @@ the card's name and power limit.  Phases:
               zml at model = 2 on a 5,000-base index, equal to the
               unsharded scans; then, counted apart, model = 1 over NCCL on
               phase 4's index and first 150 bp batch: equal to phases 4-5,
-              the wall and kernel time per step, the scans against their
-              plain versions
+              the wall and kernel time per step (the host loop's, and the
+              device time of its launches queued back to back, gaps
+              included), the scans against their plain versions
      multihost  `python -m movi_tpu_torch.parallel.multihost --pml
               --classify` with 1 host and 2 hosts sharing the card on a
               50 kb two-document index saved with its engine caches: the
@@ -370,6 +374,7 @@ MEM_L = 20                # bench.py MEM_L
 MEM_LANES = 16384         # bench.py MEM_LANES
 MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
+SPIN_CYCLES = 200_000_000  # queued_ms's torch.cuda._sleep, ~0.1 s
 TICK_US = 0.9             # a dependent step's latency (PERF.md §2): the
 #                           floors of kernels 13b/13c, 15a and 15b
 ROW_CHAIN_STEPS = 10_000  # the links of row_latency's chains
@@ -881,7 +886,8 @@ def phase_small_search(dev, errs):
     from movi_tpu_torch.engine import fused_search as ts
     from movi_tpu_torch.engine import fused_search2 as ts2
     from movi_tpu_torch.io.fastx import make_batches
-    from movi_tpu_torch.testing import length_reads, mixed_reads, small_index
+    from movi_tpu_torch.testing import (length_reads, mixed_reads,
+                                        odd_index, small_index)
 
     text, ix = small_index()
     reads = mixed_reads(text) + length_reads(text)
@@ -889,11 +895,15 @@ def phase_small_search(dev, errs):
     batch = next(make_batches(reads, lanes=len(reads)))
     si = ts.build_fused_search_index(ix).to(dev)
 
-    comp = compose_inputs(ix, dev)
-    table_k = kernels.compose_search2_records(*comp, ix.r, ix.sigma)
-    table_p = ts2.compose_search2_plain(*comp, ix.r, ix.sigma)
-    require_equal("small search compose table", table_k, table_p, errs,
-                  "compose_search2_records")
+    # the compose, also on a three-letter index whose r*sigma^2 is odd:
+    # its up slab starts 8 B past a 16 B boundary, its last tile is ragged
+    for what, cix in (("small", ix), ("odd r*sigma^2", odd_index()[1])):
+        comp = compose_inputs(cix, dev)
+        table_k = kernels.compose_search2_records(*comp, cix.r, cix.sigma)
+        table_p = ts2.compose_search2_plain(*comp, cix.r, cix.sigma)
+        require_equal(f"{what} search compose table (r={cix.r}, sigma="
+                      f"{cix.sigma})", table_k, table_p, errs,
+                      "compose_search2_records")
     s2 = ts2.build_fused_search2_index(ix, dev)
     for kind in SCAN_OF:
         kern, plain, args, kw = search_args(kind, s2 if "2" in kind else si,
@@ -910,8 +920,9 @@ def phase_small_search(dev, errs):
             index.query_count(reads, paired=paired, device=dev),
             index.query_zml(reads, paired=paired, device=dev), oracle)
     say("small", f"r={ix.r}: kernels 6-7 equal plain (count, ml, state, a "
-                 f"scan split in two, the compose table) on {len(reads)} "
-                 f"reads; count and ZML in both layouts equal ScalarEngine")
+                 f"scan split in two, the compose table, also on an index "
+                 f"of odd r*sigma^2) on {len(reads)} reads; count and ZML "
+                 f"in both layouts equal ScalarEngine")
 
 
 def compact_run(kind, di, codes, state=None):
@@ -4299,8 +4310,9 @@ def phase_dense(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
     """Dense-automaton PML (kernel 14) on phase 4's index and reads,
     counted apart: equal to phase 4's answers on every read, the kernel
     equal to its plain version over the 150 bp batches and cut_lanes long
-    lanes cut to cut_len bases, its time per query, bound, latency floor
-    (lat_us: load_latency's) and table bytes."""
+    lanes cut to cut_len bases, in one pass and split at an odd step, its
+    time per query and per batch (with the lanes a warp), bound, latency
+    floor (lat_us: load_latency's) and table bytes."""
     import torch
 
     from movi_tpu_torch import kernels
@@ -4336,7 +4348,7 @@ def phase_dense(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
                  f"(host clock)  ({card})")
 
     slots = di.sigma + 1
-    args, plain_ms = [], 0.0
+    args, plain_ms, lpws = [], 0.0, set()
     for b in batches:
         codes = eng.prepare(b)
         args.append((di.table, slots, codes,
@@ -4346,16 +4358,34 @@ def phase_dense(dev, card, errs, timings, work, ctx, lat_us, cut_lanes=8,
             codes = codes[:cut_len, :cut_lanes].contiguous()
         a = (di.table, slots, codes,
              td.initial_state(di, codes.shape[1], dev))
+        # one pass, and split at an odd step with the state carried
         st_k, ml_k = kernels.dense_pml_scan(*a)
+        lpws.add(kernels.last_lanes_per_warp())
         (st_p, ml_p), ms = timed_ms(lambda: td.dense_pml_scan_plain(*a))
         plain_ms += ms
-        require_equal("dense ml", ml_k, ml_p, errs, "dense_pml_scan")
-        for name, x, y in zip(("p", "ml"), st_k, st_p):
-            require_equal(f"dense state {name}", x, y, errs,
+        split = codes.shape[0] // 2 | 1
+        st_1, ml_1 = kernels.dense_pml_scan(*a[:2], codes[:split], a[3])
+        st_2, ml_2 = kernels.dense_pml_scan(*a[:2], codes[split:], st_1)
+        for what, st, ml in (("", st_k, ml_k), (f" split at {split}", st_2,
+                                                torch.cat([ml_1, ml_2]))):
+            require_equal(f"dense ml{what}", ml, ml_p, errs,
                           "dense_pml_scan")
-    k_ms = cuda_ms(lambda: [kernels.dense_pml_scan(*a) for a in args],
-                   reps=10)
+            for name, x, y in zip(("p", "ml"), st, st_p):
+                require_equal(f"dense state {name}{what}", x, y, errs,
+                              "dense_pml_scan")
+    say("dense", f"kernel 14 equals its plain version over all lanes of "
+                 f"the 150 bp batches and {cut_lanes} long lanes cut to "
+                 f"{cut_len} bases, in one pass and split at an odd step "
+                 f"(lanes a warp: {sorted(lpws)})")
+    # each batch's time, and the lanes a warp its launch carried; a
+    # query's time is their sum
+    per = [(cuda_ms(lambda: kernels.dense_pml_scan(*a), reps=10),
+            kernels.last_lanes_per_warp()) for a in args]
+    k_ms = sum(ms for ms, _ in per)
     timings["dense_pml_scan"] = (k_ms, plain_ms)
+    say("dense", "kernel 14 per batch [" + ", ".join(
+        f"{a[2].shape[1]} lanes x {a[2].shape[0]} ({lpw} a warp): "
+        f"{ms:.6f} ms" for a, (ms, lpw) in zip(args, per)) + f"]  ({card})")
     # kernel 14's chain: every lane steps through its batch's width
     chain_floors("dense", card, timings, table_bytes, dev, lat_us,
                  {"dense_pml_scan": [b.width for b in batches]})
@@ -4554,7 +4584,8 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
     the card (gloo) at model = 2 on a small index against the unsharded
     scans; then, counted apart, model = 1 (the NCCL group of the mesh
     phase) on phase 4's index and first 150 bp batch for the per-step
-    time, against phase 4-5's answers."""
+    time and the queued device time of its launches, against phase
+    4-5's answers."""
     import torch
     import torch.distributed as dist
 
@@ -4711,8 +4742,51 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
                        f"{b_ms:.6f} ms ({b_by}), latency floor "
                        f"{steps * TICK_US / 1e3:.6f} ms, plain "
                        f"{p_ms:.6f} ms  ({card})")
+    # the device time of the loops' launches queued back to back, without
+    # the host loop between them (the kernels' own time and the device's
+    # gaps between launches), for ranking them as kernels
+    own = {
+        "sharded_pml_gather": (
+            lambda: pml_loop(kernels.sharded_pml_gather), W + 1),
+        "sharded_search_gather": (
+            lambda: [search_loop(kernels.sharded_search_gather, z)
+                     for z in (False, True)], 2 * W)}
+    for name, (fn, steps) in own.items():
+        dev_ms = queued_ms(fn)
+        say("sharded", f"{name}: queued device time over the {steps} "
+                       f"launches of a query, back to back (the gaps "
+                       f"between launches included): "
+                       + ("not measured (the spin ended before the host "
+                          "had issued them)" if dev_ms is None else
+                          f"{dev_ms:.6f} ms = {dev_ms / steps * 1e3:.3f} "
+                          f"us a launch")
+                       + f"; the host loop {timings[name][0]:.6f} ms  "
+                       f"({card})")
     dist.destroy_process_group()
     return counts
+
+
+def queued_ms(fn, spin_cycles=SPIN_CYCLES):
+    """The device time of the launches fn makes, back to back (the gaps
+    between them and any copy fn queues included): CUDA events around fn,
+    queued behind a spin kernel that holds the stream while the host
+    issues the launches, so that the host does not pace them.  fn has
+    run before (the phase timed it).  None where the spin ended before
+    the host had issued every launch."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(spin_cycles)
+    marks[1].record()
+    t0 = time.perf_counter()
+    fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    marks[2].record()
+    torch.cuda.synchronize()
+    if marks[0].elapsed_time(marks[1]) <= issue_ms:
+        return None
+    return marks[1].elapsed_time(marks[2])
 
 
 def phase_multihost(dev, card):

@@ -512,7 +512,8 @@ def fused_zml_scan(rec_all, init_rec, r: int, sigma: int,
 def last_lanes_per_warp() -> int:
     """The lanes a warp carried in the last launch of kernel 1, 3 (the
     paired PML scan), 4 (the paired color scan), 5 (the one-step color
-    scan), 6 or 7 (count or ZML) or 10b (csrc/spread.cuh):
+    scan), 6 or 7 (count or ZML), 10b or 14 (the dense PML scan)
+    (csrc/spread.cuh):
     1 or 32, chosen by the launch from its lane count and the card's SM
     count; 0 before the first."""
     return int(_load().movi_last_lanes_per_warp())
@@ -552,6 +553,7 @@ def compose_search2_records(id_a, off_a, n_a, nu, nd, r: int, sigma: int):
     """Kernel 7's compose: the paired search table int32 [2*r*sigma^2, 6]
     from the run arrays id/offset/n int32 [r] and the next-run tables
     nu/nd int32 [sigma, r]."""
+    _pair_sigma(sigma)
     dev = id_a.device
     if dev.type != "cuda":
         raise ValueError("compose_search2_records launches on CUDA tensors "

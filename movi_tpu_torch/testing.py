@@ -35,6 +35,16 @@ def small_index(seed: int = 47, n: int = 5000):
     return text, index_from_text(text)
 
 
+def odd_index(seed: int = 1, n: int = 3000):
+    """A text of n bases over ACG (default_rng(seed)), indexed as
+    small_index: sigma = 3 and, at the defaults, r = 2,371, so that
+    r * sigma^2 is odd (the paired search table's up slab then starts 8 B
+    past a 16 B boundary)."""
+    text = np.random.default_rng(seed).choice(
+        np.frombuffer(b"ACG", np.uint8), size=n).astype(np.uint8)
+    return text, index_from_text(text)
+
+
 def small_sa_index(rate: int):
     """The 5,000-base ACGT text of tests/test_fused_sa.py
     (default_rng(17)), indexed with regular thresholds and NT splitting,
