@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from movi_tpu_torch/csrc (nineteen sources,
-thirty-four launch counters), checks each one against its plain PyTorch
+thirty-six launch counters), checks each one against its plain PyTorch
 version on the card, drives the PML, count, ZML, SA-entries, k-mer, MEM
 and Movi Color paths (`Index.query_pml`, `query_count`, `query_zml`,
 `FusedSAEngine.query`, `query_kmers`, `query_mems` (on the MEM v2
@@ -130,16 +130,20 @@ the card's name and power limit.  Phases:
               equals its plain version over all lanes; then
               parallel/dryrun.py on that rank (search, color, k-mer and
               MEM engines, all-MEMs through kernel 13c, the sharded scans)
-     sharded  kernels 15a and 15b (count and ZML) equal their plain
-              versions at steps 0 and 1 on both shards of phase 4's
-              tables, whose rows sum to the unsharded ones; two spawned
-              ranks sharing the card (gloo) run sharded_fused_pml/count/
-              zml at model = 2 on a 5,000-base index, equal to the
-              unsharded scans; then, counted apart, model = 1 over NCCL on
-              phase 4's index and first 150 bp batch: equal to phases 4-5,
-              the wall and kernel time per step (the host loop's, and the
-              device time of its launches queued back to back, gaps
-              included), the scans against their plain versions
+     sharded  kernels 15a and 15b's steps (count and ZML) equal their
+              plain versions at steps 0 and 1 on both shards of phase 4's
+              tables, whose rows sum to the unsharded ones; their scans
+              equal theirs over the whole first 150 bp batch at model 1
+              and emulated 2 and 3, in one pass and split; two spawned
+              ranks sharing the card (gloo, model = 2) run
+              sharded_fused_pml/count/zml through the scan route (the
+              peer's shard opened through CUDA IPC) on a 5,000-base
+              index, equal to the unsharded scans; then model = 1 over
+              NCCL on phase 4's index and first 150 bp batch, the scan
+              route and the step route (the mesh made to span hosts),
+              each counted apart and equal to phases 4-5: launches, walls
+              with the collective, kernel times, the step loops' device
+              time queued back to back, bounds and latency floors
      multihost  `python -m movi_tpu_torch.parallel.multihost --pml
               --classify` with 1 host and 2 hosts sharing the card on a
               50 kb two-document index saved with its engine caches: the
@@ -252,6 +256,7 @@ the JAX package.
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -338,6 +343,10 @@ CUDA_SOURCES = {
                            "movi_tpu/parallel/sharded_index.py:45"),
     "sharded_search_gather": ("movi_tpu_torch/csrc/sharded.cu",
                               "movi_tpu/parallel/sharded_index.py:91"),
+    "sharded_pml_scan": ("movi_tpu_torch/csrc/sharded.cu",
+                         "movi_tpu/parallel/sharded_index.py:45"),
+    "sharded_search_scan": ("movi_tpu_torch/csrc/sharded.cu",
+                            "movi_tpu/parallel/sharded_index.py:91"),
 }
 PML_KERNELS = ("fused_pml_scan", "compose_paired_records", "fused2_pml_scan")
 SA_KERNELS = ("fused_sa_pre_scan", "sa_mark", "sa_walk", "sa_fill")
@@ -376,7 +385,7 @@ MEM_SEED = 78             # bench.py's MEM reads
 LONG_CUT = 1500           # long lanes held to the plain machines, cut
 SPIN_CYCLES = 200_000_000  # queued_ms's torch.cuda._sleep, ~0.1 s
 TICK_US = 0.9             # a dependent step's latency (PERF.md §2): the
-#                           floors of kernels 13b/13c, 15a and 15b
+#                           floors of kernels 13b/13c
 ROW_CHAIN_STEPS = 10_000  # the links of row_latency's chains
 ROW_CHAIN_SEED = 5
 # the latency probe's ns a load when it timed kernel 12a's chain while 12a's
@@ -389,7 +398,8 @@ COMPACT_KERNELS = ("compact_pml_scan", "compact_count_scan",
 COMPACT_KINDS = {"pml": "compact_pml_scan", "rpml": "compact_pml_scan",
                  "count": "compact_count_scan", "zml": "compact_zml_scan"}
 MESH_KERNELS = PML_KERNELS + ("classify_from_ml",)
-SHARDED_KERNELS = ("sharded_pml_gather", "sharded_search_gather")
+SHARDED_KERNELS = ("sharded_pml_gather", "sharded_search_gather",
+                   "sharded_pml_scan", "sharded_search_scan")
 BIN_WIDTH = 150           # query --bin-width's default
 NULL_PERCENTILE = 59      # the null statistics of the mesh phase: thr 60
 CLASSIFY_OPS = 4          # integer operations per ml element of 16a
@@ -1316,8 +1326,9 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
                 "(kernels 1 and 3 in one pass and split)")
     # kernel 1's chain: every lane steps through the batch's width; kernel
     # 3's through its W2 pair steps
-    chain_floors("full", card, timings, 8 * slots * r, dev, lat_us,
-                 {"fused_pml_scan": [b.width for b in batches]})
+    pml_probe = chain_floors("full", card, timings, 8 * slots * r, dev,
+                             lat_us,
+                             {"fused_pml_scan": [b.width for b in batches]})
     chain_floors("full", card, timings, 16 * slots**2 * r, dev, lat_us,
                  {"fused2_pml_scan": [a[3].shape[0] for a in
                                       args["fused2_pml_scan"]]})
@@ -1413,7 +1424,8 @@ def phase_full(dev, card, errs, timings, work, lat_us, text_len=FULL_TEXT,
     say("full", f"peak device memory {torch.cuda.max_memory_allocated(dev)}"
                 f" B  ({card})")
     return counts, dict(index=index, reads=reads, n_bases=n_bases,
-                        pick=pick, oracle=oracle, pmls=res_one, text=text)
+                        pick=pick, oracle=oracle, pmls=res_one, text=text,
+                        pml_probe=pml_probe)
 
 
 def compact_breakdown(index, kind, reads, dev, k_ms, n_bases, card):
@@ -1721,8 +1733,9 @@ def phase_search(dev, card, errs, timings, work, ctx, lat_us):
     say("search", "the longest lane's dependent steps per batch: " + "; ".join(
         f"{SCAN_OF[kind]} {steps} (max {max(steps)})"
         for kind, steps in longest.items()))
-    chain_floors("search", card, timings, 32 * sigma * r, dev, lat_us,
-                 {SCAN_OF[kind]: longest[kind] for kind in ("count", "zml")})
+    ctx["search_probe"] = chain_floors(
+        "search", card, timings, 32 * sigma * r, dev, lat_us,
+        {SCAN_OF[kind]: longest[kind] for kind in ("count", "zml")})
     chain_floors("search", card, timings, 48 * sigma * sigma * r, dev,
                  lat_us, {SCAN_OF[kind]: longest[kind]
                           for kind in ("count2", "zml2")})
@@ -4578,14 +4591,116 @@ def sharded_step_pairs(dev, ctx, errs, model=2):
     return b, codes, chars
 
 
-def phase_sharded(dev, card, errs, timings, work, ctx):
-    """Model-sharded record scans: kernels 15a/15b against their plain
-    versions on two shards of phase 4's tables; two spawned ranks sharing
-    the card (gloo) at model = 2 on a small index against the unsharded
-    scans; then, counted apart, model = 1 (the NCCL group of the mesh
-    phase) on phase 4's index and first 150 bp batch for the per-step
-    time and the queued device time of its launches, against phase
-    4-5's answers."""
+def sharded_scan_checks(dev, ctx, errs, codes, chars):
+    """Kernels 15a and 15b's scans (count and ZML) against their plain
+    versions over the whole of phase 4's first 150 bp batch, on phase 4's
+    tables split for 1 rank and emulated for 2 and 3 (every shard an
+    allocation of its own on the card), in one pass and split at an odd
+    step.  The plain scans run once, at model 1: they read the same
+    table at any model (tests/test_torch_sharded_scan.py holds them
+    equal at 1, 2 and 3).  Returns their milliseconds and the split
+    step."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.engine import fused as tf
+    from movi_tpu_torch.parallel import sharded_index as tsi
+
+    index = ctx["index"]
+    fi, si = index._fused, index._search
+    W, lanes = codes.shape
+    split = W // 2 | 1
+    init_rec = si.init_rec.to(dev)
+    st0 = tf.initial_state(fi, lanes, dev)
+    plain_ms = dict.fromkeys(("sharded_pml_scan", "sharded_search_scan"),
+                             0.0)
+    key = "sharded_pml_scan"
+    for model in (1, 2, 3):
+        shards = tsi.split_shards(fi.records, model, dev)
+        tab = (shards, tsi.shard_ptrs(shards, dev), fi.sigma + 1,
+               fi.p_dollar)
+        st_k, ml_k = kernels.sharded_pml_scan(*tab, codes, st0)
+        if model == 1:
+            (st_p, ml_p), plain_ms[key] = timed_ms(
+                lambda: tsi.sharded_pml_scan_plain(shards, *tab[2:], codes,
+                                                   st0))
+        what = f"15a scan, model {model}"
+        require_equal(f"{what} ml", ml_k, ml_p, errs, key)
+        require_state_equal(what, st_k, st_p, errs, key)
+        st, ml1 = kernels.sharded_pml_scan(*tab, codes[:split], st0)
+        st, ml2 = kernels.sharded_pml_scan(*tab, codes[split:], st)
+        require_equal(f"{what} split at {split} ml", torch.cat([ml1, ml2]),
+                      ml_p, errs, key)
+        require_state_equal(f"{what} split at {split}", st, st_p, errs, key)
+        del shards, tab
+    key, want = "sharded_search_scan", {}
+    for model in (1, 2, 3):
+        shards = tsi.split_shards(si.rec_all, model, dev)
+        tab = (shards, tsi.shard_ptrs(shards, dev), si.r, si.sigma, init_rec)
+        for zml in (False, True):
+            what = f"15b scan {'ZML' if zml else 'count'}, model {model}"
+            st_k, ml_k = kernels.sharded_search_scan(*tab, chars, zml)
+            if model == 1:
+                want[zml], ms = timed_ms(
+                    lambda: tsi.sharded_search_scan_plain(
+                        shards, *tab[2:], chars, zml))
+                plain_ms[key] += ms
+            st_p, ml_p = want[zml]
+            st1, ml1 = kernels.sharded_search_scan(*tab, chars[:split], zml)
+            st2, ml2 = kernels.sharded_search_scan(*tab, chars[split:], zml,
+                                                   st1)
+            for how, st, ml in (("", st_k, ml_k),
+                                (f" split at {split}", st2,
+                                 None if ml1 is None
+                                 else torch.cat([ml1, ml2]))):
+                require_equal(f"{what}{how} state", st, st_p, errs, key)
+                if zml:
+                    require_equal(f"{what}{how} ml", ml, ml_p, errs, key)
+        del shards, tab
+    torch.cuda.empty_cache()
+    return plain_ms, split
+
+
+def sharded_queries(mesh, ctx, codes_np, chars_np, reps):
+    """phase 4's first batch through sharded_fused_pml, _count and _zml
+    on mesh: the answers of the first run, and each query's wall (host
+    clock, synchronised; the median of `reps` runs after it)."""
+    import torch
+
+    from movi_tpu_torch.parallel import sharded_index as tsi
+
+    fi, si = ctx["index"]._fused, ctx["index"]._search
+    queries = {"pml": lambda: (tsi.sharded_fused_pml(mesh, fi, codes_np),),
+               "count": lambda: tsi.sharded_fused_count(mesh, si, chars_np),
+               "zml": lambda: (tsi.sharded_fused_zml(mesh, si, chars_np),)}
+    out, walls = {}, {}
+    for name, q in queries.items():
+        out[name] = q()
+        torch.cuda.synchronize()
+        ts_ = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            q()
+            torch.cuda.synchronize()
+            ts_.append(time.perf_counter() - t0)
+        if ts_:
+            walls[name] = statistics.median(ts_)
+    return out, walls
+
+
+def phase_sharded(dev, card, errs, timings, work, ctx, lat_us):
+    """Model-sharded record scans.  The step kernels 15a/15b against
+    their plain versions on two shards of phase 4's tables; the scans
+    against theirs over the whole batch at model 1 and emulated 2 and 3;
+    two spawned ranks sharing the card (gloo, model = 2) through the scan
+    route, which opens the peer's shard through CUDA IPC, against the
+    unsharded scans; then model = 1 over NCCL (the group of the mesh
+    phase) on phase 4's index and first 150 bp batch: the scan route,
+    counted apart, and the step route (the mesh made to span hosts),
+    counted apart, each against phase 4-5's answers, with their launches,
+    device times and walls (the step route's all-reduces included)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -4598,12 +4713,20 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
                                         small_index)
 
     b, codes, chars = sharded_step_pairs(dev, ctx, errs)
-    say("sharded", "kernels 15a and 15b (count, ZML) equal their plain "
-                   "versions at steps 0 and 1 on both shards of phase 4's "
-                   "tables, and the shards' rows sum to the unsharded rows")
+    say("sharded", "kernels 15a and 15b's steps (count, ZML) equal their "
+                   "plain versions at steps 0 and 1 on both shards of "
+                   "phase 4's tables, and the shards' rows sum to the "
+                   "unsharded rows")
+    W, lanes = codes.shape
+    scan_plain, split = sharded_scan_checks(dev, ctx, errs, codes, chars)
+    say("sharded", f"kernels 15a and 15b's scans (count, ZML) equal their "
+                   f"plain versions over the {lanes} x {W} batch on phase "
+                   f"4's tables at model 1 and emulated 2 and 3, in one "
+                   f"pass and split at step {split}")
 
-    # two ranks on the one card, gloo, model = 2, against the unsharded
-    # scans on the card
+    # two ranks on the one card, gloo, model = 2: the scan route, each
+    # rank reading the other's shard through CUDA IPC; against the
+    # unsharded scans on the card
     text, six = small_index(53)
     sfi, ssi = tf.build_fused_index(six), ts.build_fused_search_index(six)
     rng = np.random.default_rng(53)
@@ -4612,10 +4735,9 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
     search_a, _ = scan_order_codes(rng, text, ssi.alphamap_query, 64, 40,
                                    -2)
     t0 = time.perf_counter()
-    res = run_ranks("movi_tpu_torch.testing:sharded_rank", 2, timeout=600,
-                    shapes=[(1, 2)], text=text, pml_alphas=pml_a,
-                    search_alphas=search_a, device="cuda",
-                    backend="gloo")[0][0]
+    ranks = run_ranks("movi_tpu_torch.testing:sharded_rank", 2, timeout=600,
+                      shapes=[(1, 2)], text=text, pml_alphas=pml_a,
+                      search_alphas=search_a, device="cuda", backend="gloo")
     t_ranks = time.perf_counter() - t0
     sfi, ssi = sfi.to(dev), ssi.to(dev)
     ml = tf.fused_pml_scan(sfi.records, sfi.sigma + 1, sfi.p_dollar,
@@ -4626,69 +4748,84 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
                                   ssi.r, ssi.sigma, ch)
     zml = ts.fused_zml_scan(ssi.rec_all, ssi.init_rec, ssi.r, ssi.sigma,
                             ch)[1]
-    for what, got, want in (("PML", res["pml"], ml),
-                            ("matched", res["count"][0], st[4]),
-                            ("count", res["count"][1], cnt),
-                            ("ZML", res["zml"], zml)):
-        if not np.array_equal(got, want.cpu().numpy()):
-            raise AssertionError(f"2-rank gloo sharded {what} differs from "
-                                 f"the unsharded scan")
-    say("sharded", f"two spawned ranks on the card (gloo, model = 2): "
-                   f"sharded_fused_pml/count/zml equal the unsharded scans "
-                   f"on 64 lanes ({t_ranks:.3f} s with start-up)")
+    one_scan = {"sharded_pml_scan": 1, "sharded_search_scan": 2,
+                "sharded_pml_gather": 0, "sharded_search_gather": 0}
+    for rank, (res,) in enumerate(ranks):
+        if res["launches"] != one_scan:
+            raise AssertionError(f"rank {rank} of the 2-rank gloo mesh "
+                                 f"launched {res['launches']}, not one "
+                                 f"scan a query")
+        for what, got, want in (("PML", res["pml"], ml),
+                                ("matched", res["count"][0], st[4]),
+                                ("count", res["count"][1], cnt),
+                                ("ZML", res["zml"], zml)):
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"2-rank gloo sharded {what} differs "
+                                     f"from the unsharded scan")
+    say("sharded", f"two spawned ranks on the card (gloo, model = 2, the "
+                   f"scan route: each rank's peer shard opened through "
+                   f"CUDA IPC): sharded_fused_pml/count/zml equal the "
+                   f"unsharded scans on 64 lanes, launches per rank "
+                   f"{ranks[0][0]['launches']} ({t_ranks:.3f} s with "
+                   f"start-up)")
 
-    # model = 1 over NCCL on phase 4's index: the counted main path (one
-    # all-reduce first, so the communicator's set-up is not timed)
+    # model = 1 over NCCL on phase 4's index: the scan route and the step
+    # route (the same mesh made to span hosts), each counted apart; one
+    # all-reduce first, so the communicator's set-up is not timed
     mesh = make_2d_mesh(1, 1, dev)
     mesh.all_reduce_model(torch.zeros(1, dtype=torch.int32, device=dev))
-    index = ctx["index"]
-    fi, si = index._fused, index._search
     codes_np, chars_np = codes.cpu().numpy(), chars.cpu().numpy()
-    W, lanes = codes.shape
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    walls = {}
-    t0 = time.perf_counter()
-    ml = tsi.sharded_fused_pml(mesh, fi, codes_np)
-    torch.cuda.synchronize()
-    walls["pml"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    matched, count = tsi.sharded_fused_count(mesh, si, chars_np)
-    torch.cuda.synchronize()
-    walls["count"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    zml = tsi.sharded_fused_zml(mesh, si, chars_np)
-    torch.cuda.synchronize()
-    walls["zml"] = time.perf_counter() - t0
-    counts = {k: kernels.launches[k] for k in SHARDED_KERNELS}
-    say("sharded", f"main-path launches {counts}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"sharded path")
     first = {name: i for i, (name, _) in enumerate(ctx["reads"])}
-    mlh, mh, ch_, zh = (t.cpu().numpy() for t in (ml, matched, count, zml))
-    for lane, (name, L) in enumerate(zip(b.names, b.lengths)):
-        i = first[name]
-        if (mlh[:L, lane].tolist() != ctx["pmls"][i][1]
-                or (int(L) - int(mh[lane]), int(ch_[lane]))
-                != ctx["count"][i][1]
-                or zh[:L, lane].tolist() != ctx["zml"][i][1]):
-            raise AssertionError(f"sharded scans of {name} differ from "
-                                 f"phases 4-5")
+    counts, walls = {}, {}
+    for route, m, kinds in (
+            ("scan", mesh, ("sharded_pml_scan", "sharded_search_scan")),
+            ("step", dataclasses.replace(mesh, model_on_one_host=False),
+             ("sharded_pml_gather", "sharded_search_gather"))):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, _ = sharded_queries(m, ctx, codes_np, chars_np, 0)
+        got = {k: kernels.launches[k] for k in SHARDED_KERNELS}
+        say("sharded", f"{route} route, main-path launches {got}")
+        for name, n in got.items():
+            if (n > 0) != (name in kinds):
+                raise AssertionError(f"the {route} route launched kernel "
+                                     f"{name} {n} times")
+        counts.update({k: got[k] for k in kinds})
+        (ml,), (matched, count), (zml,) = out["pml"], out["count"], out["zml"]
+        mlh, mh, ch_, zh = (t.cpu().numpy()
+                            for t in (ml, matched, count, zml))
+        for lane, (name, L) in enumerate(zip(b.names, b.lengths)):
+            i = first[name]
+            if (mlh[:L, lane].tolist() != ctx["pmls"][i][1]
+                    or (int(L) - int(mh[lane]), int(ch_[lane]))
+                    != ctx["count"][i][1]
+                    or zh[:L, lane].tolist() != ctx["zml"][i][1]):
+                raise AssertionError(f"the {route} route's sharded scans "
+                                     f"of {name} differ from phases 4-5")
+        walls[route] = sharded_queries(m, ctx, codes_np, chars_np, 5)[1]
+        tsi.close_tables(m)
     say("sharded", f"model = 1 ({mesh.backend}) on phase 4's index, "
-                   f"{lanes} x {W} bp: PML, count and ZML equal phases "
-                   f"4-5 on every lane; wall per step (launch + "
-                   f"all_reduce): " + ", ".join(
-                       f"{k} {w / W * 1e6:.3f} us" for k, w in walls.items())
-        + f"  ({card})")
+                   f"{lanes} x {W} bp: both routes equal phases 4-5 on "
+                   f"every lane; wall a query (median of 5, host clock): "
+                   + "; ".join(f"{route} route " + ", ".join(
+                       f"{k} {w * 1e3:.6f} ms" for k, w in ws.items())
+                       for route, ws in walls.items())
+                   + f"; the step route a step (launch + all_reduce): "
+                   + ", ".join(f"{k} {w / W * 1e6:.3f} us"
+                               for k, w in walls["step"].items())
+                   + f"  ({card})")
 
-    # kernel-only times (model = 1: the all-reduce is the identity) and
-    # the plain versions on the same inputs
+    # kernel times (model = 1: the step route's all-reduce is the
+    # identity) and the plain versions on the same inputs
+    fi, si = ctx["index"]._fused, ctx["index"]._search
     local, lo = tsi.local_shard(mesh, fi.records)
     slocal, slo = tsi.local_shard(mesh, si.rec_all)
     init_rec = si.init_rec.to(dev)
     st0 = torch.stack(tf.initial_state(fi, lanes, dev))
+    pml_tab = ([local], tsi.shard_ptrs([local], dev), fi.sigma + 1,
+               fi.p_dollar)
+    search_tab = ([slocal], tsi.shard_ptrs([slocal], dev), si.r, si.sigma,
+                  init_rec)
 
     def pml_loop(fn):
         st, rec = st0.clone(), None
@@ -4730,21 +4867,47 @@ def phase_sharded(dev, card, errs, timings, work, ctx):
     timings["sharded_search_gather"] = (
         cuda_ms(lambda: [search_loop(kernels.sharded_search_gather, z)
                          for z in (False, True)], reps=5), search_plain)
+    timings["sharded_pml_scan"] = (
+        cuda_ms(lambda: kernels.sharded_pml_scan(
+            *pml_tab, codes, tf.initial_state(fi, lanes, dev)), reps=20),
+        scan_plain["sharded_pml_scan"])
+    timings["sharded_search_scan"] = (
+        cuda_ms(lambda: [kernels.sharded_search_scan(*search_tab, chars, z)
+                         for z in (False, True)], reps=20),
+        scan_plain["sharded_search_scan"])
     add_work(work, "sharded_pml_gather", *scan_work(codes, 8, 4, 12))
     add_work(work, "sharded_search_gather", *scan_work(chars, 32, 0, 24))
     add_work(work, "sharded_search_gather", *scan_work(chars, 32, 4, 24))
+    add_work(work, "sharded_pml_scan", *scan_work(codes, 8, 4, 12))
+    st_count = kernels.sharded_search_scan(*search_tab, chars, False)[0]
+    add_work(work, "sharded_search_scan",
+             *search_work("count", chars, st_count))
+    add_work(work, "sharded_search_scan",
+             *search_work("zml", chars, st_count))
+    longest = int(count_steps("count", st_count).max())
     for name, steps in (("sharded_pml_gather", W + 1),
-                        ("sharded_search_gather", 2 * W)):
+                        ("sharded_search_gather", 2 * W),
+                        ("sharded_pml_scan", 1),
+                        ("sharded_search_scan", 2)):
         k_ms, p_ms = timings[name]
         b_ms, b_by = bound(*work[name])
         say("sharded", f"{name}: {k_ms:.6f} ms a query ({steps} launches, "
                        f"{k_ms / steps * 1e3:.3f} us a launch), bound "
-                       f"{b_ms:.6f} ms ({b_by}), latency floor "
-                       f"{steps * TICK_US / 1e3:.6f} ms, plain "
-                       f"{p_ms:.6f} ms  ({card})")
-    # the device time of the loops' launches queued back to back, without
-    # the host loop between them (the kernels' own time and the device's
-    # gaps between launches), for ranking them as kernels
+                       f"{b_ms:.6f} ms ({b_by}), plain {p_ms:.6f} ms  "
+                       f"({card})")
+    # the latency floors: 15a's chain is the batch's width; 15b's the
+    # count's longest lane (the step loop's W-1: it gathers every step)
+    # and ZML's W-1 steps after the first char
+    chain_floors("sharded", card, timings, 8 * (fi.sigma + 1) * fi.r, dev,
+                 lat_us, {"sharded_pml_gather": [W],
+                          "sharded_pml_scan": [W]}, probe=ctx["pml_probe"])
+    chain_floors("sharded", card, timings, 32 * si.sigma * si.r, dev,
+                 lat_us, {"sharded_search_gather": [W - 1, W - 1],
+                          "sharded_search_scan": [longest, W - 1]},
+                 probe=ctx["search_probe"])
+    # the device time of the step loops' launches queued back to back,
+    # without the host loop between them (the kernels' own time and the
+    # device's gaps between launches), for ranking them as kernels
     own = {
         "sharded_pml_gather": (
             lambda: pml_loop(kernels.sharded_pml_gather), W + 1),
@@ -5080,7 +5243,8 @@ def main() -> int:
     mesh_counts = phase_mesh(dev, card, errs, timings, work, ctx)
     counts["classify_from_ml"] = mesh_counts["classify_from_ml"]
     lap("mesh")
-    counts.update(phase_sharded(dev, card, errs, timings, work, ctx))
+    counts.update(phase_sharded(dev, card, errs, timings, work, ctx,
+                                lat_us))
     del ctx
     lap("sharded")
     phase_multihost(dev, card)

@@ -1,5 +1,5 @@
 // How a batch's lanes are laid over the card's warps (kernels 1, 3, 4,
-// 5, 6, 7, 10b and 14).
+// 5, 6, 7, 10b, 14, 15a and 15b).
 //
 // A lane is one thread's chain of dependent row loads, and a warp issues
 // in step: it waits each step on the slowest of its lanes' rows.  A batch
@@ -22,7 +22,7 @@ __host__ __device__ inline int lanes_per_warp(int lanes, int sms) {
 }
 
 // The lanes a warp carried in this library's last launch of kernel 1, 3,
-// 4, 5, 6, 7, 10b or 14 (0 before the first).
+// 4, 5, 6, 7, 10b, 14, 15a or 15b (0 before the first).
 inline int& last_lanes_per_warp() {
     static int lpw = 0;
     return lpw;

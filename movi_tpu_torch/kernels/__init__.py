@@ -47,7 +47,8 @@ launches = {"fused_pml_scan": 0, "compose_paired_records": 0,
             "pos2rba_build": 0, "run_dir_build": 0, "mem1_scan": 0,
             "all_mem1_scan": 0,
             "dense_pml_scan": 0, "sharded_pml_gather": 0,
-            "sharded_search_gather": 0, "classify_from_ml": 0}
+            "sharded_search_gather": 0, "sharded_pml_scan": 0,
+            "sharded_search_scan": 0, "classify_from_ml": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -73,7 +74,7 @@ _SIGNATURES = {
     "movi_fused2_pml_scan": [_P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _P],
     # (): the lanes a warp carried in the last launch of kernel 1, 3, 4,
-    # 5, 6, 7 or 10b
+    # 5, 6, 7, 10b, 14, 15a or 15b
     "movi_last_lanes_per_warp": [],
     "movi_fused_count_scan": _SEARCH,
     "movi_fused_zml_scan": _SEARCH,
@@ -153,6 +154,13 @@ _SIGNATURES = {
     # t, zml, rec_in or NULL, state, ml or NULL, rec_out, stream)
     "movi_sharded_search_step": [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I,
                                  _I, *[_P] * 5],
+    # (shard addresses, model, shard_len, codes, W, lanes, slots, pd_run,
+    # pd_off, 3 state in, 3 state out, ml, stream)
+    "movi_sharded_pml_scan": [_P, _I, _LL, _P, *[_I] * 5, *[_P] * 8],
+    # (shard addresses, model, shard_len, r, sigma, init_rec, chars, W,
+    # lanes, first, zml, state in or NULL, state out, ml or NULL, stream)
+    "movi_sharded_search_scan": [_P, _I, _LL, _I, _I, _P, _P, *[_I] * 4,
+                                 *[_P] * 4],
     # (ml, lengths, W, lanes, bin_width, thr, found, above, below, stream)
     "movi_classify_from_ml": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
@@ -512,8 +520,8 @@ def fused_zml_scan(rec_all, init_rec, r: int, sigma: int,
 def last_lanes_per_warp() -> int:
     """The lanes a warp carried in the last launch of kernel 1, 3 (the
     paired PML scan), 4 (the paired color scan), 5 (the one-step color
-    scan), 6 or 7 (count or ZML), 10b or 14 (the dense PML scan)
-    (csrc/spread.cuh):
+    scan), 6 or 7 (count or ZML), 10b, 14 (the dense PML scan), 15a or
+    15b (the sharded scans) (csrc/spread.cuh):
     1 or 32, chosen by the launch from its lane count and the card's SM
     count; 0 before the first."""
     return int(_load().movi_last_lanes_per_warp())
@@ -1433,3 +1441,93 @@ def classify_from_ml(ml: torch.Tensor, lengths: torch.Tensor,
     _raise_on(code, "classify_from_ml")
     launches["classify_from_ml"] += 1
     return found, above, below
+
+
+def _check_shards(counter: str, shards, ptrs, words: int, dev):
+    """The shared checks of the sharded scans: shards, every rank's shard
+    in model order, int32 [shard_len, words] CUDA tensors of one length
+    (a peer's may lie on another card), and ptrs their addresses (not
+    read back here), int64 [model] on the launch device.  Returns
+    shard_len."""
+    if dev.type != "cuda":
+        raise ValueError(f"{counter} launches on CUDA tensors only")
+    if len(shards) == 0:
+        raise ValueError("a sharded table needs at least one shard")
+    for m, s in enumerate(shards):
+        if s.device.type != "cuda":
+            raise ValueError(f"shard {m} is on {s.device}, not a card")
+        if s.dim() != 2 or s.shape[1] != words:
+            raise ValueError(f"shard {m} must be [shard_len, {words}]")
+        _check(s, f"shard {m}", torch.int32, s.device)
+        if s.shape[0] != shards[0].shape[0]:
+            raise ValueError(f"shard {m} has {s.shape[0]} rows, shard 0 "
+                             f"{shards[0].shape[0]}: they must be equal")
+    if shards[0].shape[0] < 1:
+        raise ValueError("the shards must have rows")
+    _check(ptrs, "shard table", torch.int64, dev, (len(shards),))
+    return shards[0].shape[0]
+
+
+def sharded_pml_scan(shards, ptrs: torch.Tensor, slots: int, p_dollar,
+                     codes: torch.Tensor, state):
+    """Kernel 15a, the model-sharded PML scan in one launch: kernel 1's
+    scan over codes [W, lanes] (uint8 slots) from state (idx, off, ml)
+    int32 [lanes], the record of key idx*slots + code read from shard
+    key // shard_len of shards (every rank's, model order; zero past the
+    last), whose addresses ptrs holds.  Returns (state, ml [W, lanes])."""
+    dev = codes.device
+    shard_len = _check_shards("sharded_pml_scan", shards, ptrs, 2, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [steps, lanes]")
+    _check(codes, "codes", torch.uint8, dev)
+    W, lanes = codes.shape
+    if len(state) != 3:
+        raise ValueError("state is (idx, off, ml)")
+    for i, s in enumerate(state):
+        _check(s, f"state[{i}]", torch.int32, dev, (lanes,))
+    new_state = tuple(torch.empty_like(s) for s in state)
+    ml = torch.empty((W, lanes), dtype=torch.int32, device=dev)
+    lib = _load()
+    code = lib.movi_sharded_pml_scan(
+        ptrs.data_ptr(), len(shards), shard_len, codes.data_ptr(), W, lanes,
+        slots, int(p_dollar[0]), int(p_dollar[1]),
+        *[s.data_ptr() for s in state], *[s.data_ptr() for s in new_state],
+        ml.data_ptr(), _stream(dev))
+    _raise_on(code, "sharded_pml_scan")
+    launches["sharded_pml_scan"] += 1
+    return new_state, ml
+
+
+def sharded_search_scan(shards, ptrs: torch.Tensor, r: int, sigma: int,
+                        init_rec: torch.Tensor, chars: torch.Tensor,
+                        zml: bool, state=None):
+    """Kernel 15b, the model-sharded count (zml False) or ZML scan in one
+    launch: kernel 6's scan over chars int8 [W, lanes], its rows read
+    from the shards as sharded_pml_scan's.  state None starts from row 0
+    of chars (init_rec int32 [sigma+1, 4]); otherwise the scan continues
+    from state int32 [6, lanes].  Returns (state, ZML's ml [W, lanes] or
+    None)."""
+    dev = chars.device
+    shard_len = _check_shards("sharded_search_scan", shards, ptrs, 4, dev)
+    _check(init_rec, "init_rec", torch.int32, dev, (sigma + 1, 4))
+    if chars.dim() != 2:
+        raise ValueError("chars must be [steps, lanes]")
+    _check(chars, "chars", torch.int8, dev)
+    _first_char_needed(state, chars)
+    W, lanes = chars.shape
+    if state is not None:
+        _check(state, "state", torch.int32, dev, (SEARCH_STATE_ROWS, lanes))
+    new_state = torch.empty((SEARCH_STATE_ROWS, lanes), dtype=torch.int32,
+                            device=dev)
+    ml = (torch.empty((W, lanes), dtype=torch.int32, device=dev) if zml
+          else None)
+    lib = _load()
+    code = lib.movi_sharded_search_scan(
+        ptrs.data_ptr(), len(shards), shard_len, r, sigma,
+        init_rec.data_ptr(), chars.data_ptr(), W, lanes, int(state is None),
+        int(zml), None if state is None else state.data_ptr(),
+        new_state.data_ptr(), None if ml is None else ml.data_ptr(),
+        _stream(dev))
+    _raise_on(code, "sharded_search_scan")
+    launches["sharded_search_scan"] += 1
+    return new_state, ml

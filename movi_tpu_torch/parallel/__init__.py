@@ -13,11 +13,17 @@ gloo, since NCCL refuses two ranks on one device.  Nothing here falls
 back to another backend or device.  A one-rank mesh needs no process
 group: without `torch.distributed` initialised, `make_mesh(1)` is that
 mesh, and its collectives are the identity.
+
+`make_2d_mesh` also gathers every rank's host name once and records
+whether this rank's 'model' group lies on one host: there the sharded
+scans read their peers' shards where they lie (parallel/sharded_index.py)
+instead of exchanging rows every step.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import socket
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -55,6 +61,10 @@ class Mesh:
     backend: Optional[str]      # None for the one-rank mesh
     data_group: object = None   # the ranks of this rank's 'data' column
     model_group: object = None  # the ranks of this rank's 'model' row
+    model_on_one_host: bool = True  # every rank of the 'model' row
+    # the sharded record tables made on this mesh (sharded_index.py)
+    tables: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
 
     def lane_slice(self, lanes: int) -> slice:
         """This rank's lanes of a batch of `lanes`: the JAX rule that
@@ -95,12 +105,18 @@ class Mesh:
         return torch.cat(parts, dim=dim).to(device=t.device, dtype=t.dtype)
 
 
+def host_name() -> str:
+    """This process's host name, as the mesh compares it."""
+    return socket.gethostname()
+
+
 def make_2d_mesh(data: int, model: int, device: DeviceLike = None,
                  backend: Optional[str] = None) -> Mesh:
     """The (data, model) grid over the ranks of the initialised default
     process group (world size data * model; every rank calls this, in
     the same order).  The axis groups take `backend`, or the one of
-    `device`."""
+    `device`; every rank's host name is gathered once over the default
+    group."""
     if data < 1 or model < 1:
         raise ValueError(f"mesh axes must be positive, got ({data}, "
                          f"{model})")
@@ -131,7 +147,11 @@ def make_2d_mesh(data: int, model: int, device: DeviceLike = None,
                            backend=be)
         if dd == d:
             model_group = g
-    return Mesh(data, model, d, m, dev, be, data_group, model_group)
+    hosts = [None] * world
+    dist.all_gather_object(hosts, host_name())
+    one_host = len(set(hosts[d * model:(d + 1) * model])) == 1
+    return Mesh(data, model, d, m, dev, be, data_group, model_group,
+                one_host)
 
 
 def make_mesh(n_devices: Optional[int] = None, device: DeviceLike = None,

@@ -48,8 +48,8 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None,
                        ShardedMemEngine, ShardedPMLEngine,
                        ShardedSearchEngine)
     from .multihost import bpf_header, merge_parts
-    from .sharded_index import (sharded_fused_count, sharded_fused_pml,
-                                sharded_fused_zml)
+    from .sharded_index import (close_tables, sharded_fused_count,
+                                sharded_fused_pml, sharded_fused_zml)
 
     def host(t):
         return t.cpu().numpy()
@@ -139,6 +139,7 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None,
             "model-sharded count disagrees")
     z_sh = host(mesh2.gather(sharded_fused_zml(mesh2, si, al_s.T), 1))
     require(np.array_equal(z_sh, zml), "model-sharded ZML disagrees")
+    close_tables(mesh2)
 
     # long reads through the data-parallel PML, count, ZML and MEM engines
     WL = 1536

@@ -4,14 +4,26 @@ scans.
 Port of movi_tpu/parallel/sharded_index.py.  When the record table
 exceeds one card, its rows are padded to a multiple of the 'model' axis
 and split: the rank at model coordinate m holds rows [m*shard_len,
-(m+1)*shard_len); read lanes stay data-parallel on 'data'.  Every step,
-each rank gathers the rows of its lanes' keys that it owns (the rest
-zero), one all_reduce(SUM) over the 'model' group gives every rank the
-whole records, and the step math runs.  One launch a step does the math
-of the previous step and the gather of the next (kernels 15a and 15b,
-csrc/sharded.cu); the plain PyTorch versions below run for CPU tensors.
-The host loop between launches is the collective, so the scans are
-launch- and collective-bound by design.
+(m+1)*shard_len); read lanes stay data-parallel on 'data'.  A table is
+split once per mesh (`shard_table`) and kept there until `close_tables`.
+
+Two routes, taken from the mesh before any launch (`scan_route`):
+
+- The scans, for CUDA tensors where the 'model' group lies on one host.
+  Every rank of a group holds the same lanes and the same state, so the
+  all-reduce only carried each row from the rank that owns it.  Here
+  each rank opens its peers' shards once (CUDA IPC through PyTorch's own
+  tensor sharing; a one-rank group opens none) and a scan is one launch
+  of kernel 15a or 15b (csrc/sharded.cu) that reads every row from the
+  shard that holds it, with no collective.
+- The steps, for a group that spans hosts and for CPU tensors.  Every
+  step, each rank gathers the rows of its lanes' keys that it owns (the
+  rest zero), one all_reduce(SUM) over the 'model' group gives every
+  rank the whole records, and the step math runs.  One launch a step
+  does the math of the previous step and the gather of the next (the
+  step kernels of csrc/sharded.cu); the plain PyTorch versions below run
+  for CPU tensors.  This route is launch- and collective-bound by
+  design.
 
 The count's interval size is computed in 64 bits (the JAX version takes
 it from int32 all_p and wraps past 2^31 occurrences, ROADMAP §3).
@@ -19,12 +31,19 @@ it from int32 all_p and wraps past 2^31 occurrences, ROADMAP §3).
 
 from __future__ import annotations
 
+import inspect
+from dataclasses import dataclass
+from typing import List, Optional
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import kernels
-from ..engine.fused import FusedIndex, fused_step_math
-from ..engine.fused_search import _lf_from_rec, init_interval
+from ..engine.fused import (FusedIndex, fused_pml_scan_plain,
+                            fused_step_math, initial_state)
+from ..engine.fused_search import (_lf_from_rec, fused_count_scan_plain,
+                                   fused_zml_scan_plain, init_interval)
 from . import Mesh, make_2d_mesh  # noqa: F401  (make_2d_mesh: the API)
 
 PML_STATE_ROWS = 3        # (idx, off, ml)
@@ -48,6 +67,180 @@ def local_shard(mesh: Mesh, records: torch.Tensor):
     shard_len = records.shape[0] // mesh.model
     lo = mesh.m * shard_len
     return records[lo:lo + shard_len].contiguous().to(mesh.device), lo
+
+
+def scan_route(mesh: Mesh, device) -> bool:
+    """Whether the scans on `device` run as one launch each: CUDA tensors
+    and a 'model' group on one host.  Otherwise (CPU tensors, or a group
+    that spans hosts) the step loop with its all-reduces runs."""
+    return torch.device(device).type == "cuda" and mesh.model_on_one_host
+
+
+@dataclass
+class ShardTable:
+    """A record table split over a mesh's 'model' axis: this rank's rows
+    `local` (rows [lo, lo + shard_len) of the padded table) and, on the
+    scan route, every rank's shard in model order (this rank's `local`, a
+    peer's opened through IPC) with their addresses on the device (ptrs,
+    int64 [model])."""
+    local: torch.Tensor
+    lo: int
+    shards: Optional[List[torch.Tensor]] = None
+    ptrs: Optional[torch.Tensor] = None
+
+
+def shard_ptrs(shards, device) -> torch.Tensor:
+    """The shards' addresses, int64 [model] on `device`."""
+    return torch.tensor([s.data_ptr() for s in shards], dtype=torch.int64,
+                        device=device)
+
+
+def _open_shards(mesh: Mesh, local: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's shard in model order: each rank exports its own once
+    (torch.multiprocessing's CUDA IPC handle, which covers an offset
+    inside the allocator's block) and opens its peers'; the handles go
+    round the 'model' group once.  A peer's shard on another card of the
+    host is read over NVLink.  A handle that does not open raises with
+    the CUDA error."""
+    if mesh.model == 1:
+        return [local]
+    from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
+                                                  reduce_tensor)
+
+    handles = [None] * mesh.model
+    dist.all_gather_object(handles, reduce_tensor(local),
+                           group=mesh.model_group)
+    # a handle opens into the context of the device it names, with peer
+    # access enabled as needed (cudaIpcMemLazyEnablePeerAccess): name this
+    # rank's, so that its kernels may read a shard on another card
+    at = list(inspect.signature(rebuild_cuda_tensor).parameters) \
+        .index("storage_device")
+    shards = []
+    for m, (rebuild, args) in enumerate(handles):
+        if m == mesh.m:
+            shards.append(local)
+            continue
+        args = list(args)
+        args[at] = local.device.index
+        shards.append(rebuild(*args))
+    return shards
+
+
+def shard_table(mesh: Mesh, records: torch.Tensor) -> ShardTable:
+    """records' ShardTable on mesh, made at its first use and kept on the
+    mesh (with records, so that its key stays its own) until
+    close_tables.  On the scan route with several ranks this is a
+    collective over 'model': the ranks of a group make their tables in
+    the same order."""
+    hit = mesh.tables.get(id(records))
+    if hit is not None:
+        return hit[1]
+    local, lo = local_shard(mesh, records)
+    table = ShardTable(local, lo)
+    if scan_route(mesh, local.device):
+        table.shards = _open_shards(mesh, local)
+        table.ptrs = shard_ptrs(table.shards, mesh.device)
+    mesh.tables[id(records)] = (records, table)
+    return table
+
+
+def close_tables(mesh: Mesh):
+    """Release the mesh's tables, a collective over 'model' where a table
+    holds peers' shards: every rank's queued work finishes and the group
+    meets at a barrier before any rank closes a peer's shard or frees its
+    own, so that no kernel still reads a shard when it goes."""
+    opened = any(t.shards is not None and len(t.shards) > 1
+                 for _, t in mesh.tables.values())
+    if opened:
+        torch.cuda.synchronize(mesh.device)
+        dist.barrier(group=mesh.model_group)
+    mesh.tables.clear()
+
+
+def split_shards(records: torch.Tensor, model: int,
+                 device=None) -> List[torch.Tensor]:
+    """records [rows, words] padded to a multiple of model and split into
+    `model` tensors of their own, in model order, on `device` (default
+    records'): the shards of `model` ranks emulated in one process."""
+    padded = _pad_records(records, model)
+    n = padded.shape[0] // model
+    return [padded[m * n:(m + 1) * n].to(device or records.device).clone()
+            for m in range(model)]
+
+
+def _shard_rows(shards, keys: torch.Tensor) -> torch.Tensor:
+    """The rows of keys (int64) of the padded table that the shards split
+    in model order: row k from shard k // shard_len, zero past the last
+    shard."""
+    n = shards[0].shape[0]
+    out = shards[0].new_zeros((keys.shape[0], shards[0].shape[1]))
+    owner = torch.div(keys, n, rounding_mode="floor")
+    for m, shard in enumerate(shards):
+        own = owner == m
+        out[own] = shard[keys[own] - m * n]
+    return out
+
+
+class _ShardedTable:
+    """The padded table that the shards split, indexed by int64 keys as
+    the unsharded plain scans index their records."""
+
+    def __init__(self, shards):
+        self.shards = shards
+
+    def __getitem__(self, keys: torch.Tensor) -> torch.Tensor:
+        return _shard_rows(self.shards, keys)
+
+
+def sharded_pml_scan_plain(shards, slots: int, p_dollar,
+                           codes: torch.Tensor, state):
+    """Plain PyTorch version of kernel 15a's scan: the one-step PML scan
+    over codes [W, lanes] from state (idx, off, ml) int32 [lanes], each
+    step's records read from the shards (every rank's, model order).
+    Returns (state, ml [W, lanes])."""
+    return fused_pml_scan_plain(_ShardedTable(shards), slots, p_dollar,
+                                codes, state)
+
+
+def sharded_search_scan_plain(shards, r: int, sigma: int,
+                              init_rec: torch.Tensor, chars: torch.Tensor,
+                              zml: bool, state=None):
+    """Plain PyTorch version of kernel 15b's scan: the one-step count
+    (zml False) or ZML scan over chars int8 [W, lanes] with its rows read
+    from the shards, from row 0 of chars (state None) or from state [6,
+    lanes].  Returns (state, ZML's ml [W, lanes] or None)."""
+    table = _ShardedTable(shards)
+    if zml:
+        return fused_zml_scan_plain(table, init_rec, r, sigma, chars, state)
+    no_p = torch.zeros(r + 1, dtype=torch.int32, device=chars.device)
+    return fused_count_scan_plain(table, init_rec, no_p, r, sigma, chars,
+                                  state)[0], None
+
+
+def sharded_pml_scan(shards, ptrs, slots: int, p_dollar,
+                     codes: torch.Tensor, state):
+    """The sharded PML scan: kernel 15a on CUDA tensors, the plain
+    version on CPU tensors."""
+    if codes.device.type == "cuda":
+        return kernels.sharded_pml_scan(shards, ptrs, slots, p_dollar,
+                                        codes, state)
+    if codes.device.type != "cpu":
+        raise ValueError(f"no sharded scan for device {codes.device}")
+    return sharded_pml_scan_plain(shards, slots, p_dollar, codes, state)
+
+
+def sharded_search_scan(shards, ptrs, r: int, sigma: int,
+                        init_rec: torch.Tensor, chars: torch.Tensor,
+                        zml: bool, state=None):
+    """The sharded count or ZML scan: kernel 15b on CUDA tensors, the
+    plain version on CPU tensors."""
+    if chars.device.type == "cuda":
+        return kernels.sharded_search_scan(shards, ptrs, r, sigma, init_rec,
+                                           chars, zml, state)
+    if chars.device.type != "cpu":
+        raise ValueError(f"no sharded scan for device {chars.device}")
+    return sharded_search_scan_plain(shards, r, sigma, init_rec, chars, zml,
+                                     state)
 
 
 def _owned(local_rec: torch.Tensor, lo: int, keys: torch.Tensor):
@@ -165,19 +358,23 @@ def _lane_codes(mesh: Mesh, alphas_t, dtype) -> torch.Tensor:
 def sharded_fused_pml(mesh: Mesh, fi: FusedIndex, alphas_t) -> torch.Tensor:
     """alphas_t: int [W, lanes] slots (sigma = illegal), lanes divisible
     by 'data'.  Returns this rank's ml int32 [W, lanes/data], computed
-    with the record table sharded over 'model' (kernel 15a, W+1 launches
-    and W all-reduces)."""
-    local, lo = local_shard(mesh, fi.records)
+    with the record table sharded over 'model': one launch of kernel 15a
+    on the scan route, else W+1 step launches and W all-reduces."""
+    table = shard_table(mesh, fi.records)
     codes = _lane_codes(mesh, alphas_t, np.uint8)
     W, lanes = codes.shape
+    if scan_route(mesh, mesh.device):
+        return sharded_pml_scan(table.shards, table.ptrs, fi.sigma + 1,
+                                fi.p_dollar, codes,
+                                initial_state(fi, lanes, mesh.device))[1]
     state = torch.tensor([fi.start_idx, fi.start_offset, 0],
                          dtype=torch.int32, device=mesh.device)[:, None] \
         .repeat(1, lanes)
     ml = torch.empty((W, lanes), dtype=torch.int32, device=mesh.device)
     rec = None
     for t in range(W + 1):
-        rec = sharded_pml_gather(local, lo, fi.sigma + 1, fi.p_dollar,
-                                 codes, t, rec, state, ml)
+        rec = sharded_pml_gather(table.local, table.lo, fi.sigma + 1,
+                                 fi.p_dollar, codes, t, rec, state, ml)
         if rec is not None:
             mesh.all_reduce_model(rec)
     return ml
@@ -186,23 +383,26 @@ def sharded_fused_pml(mesh: Mesh, fi: FusedIndex, alphas_t) -> torch.Tensor:
 def _sharded_search_scan(mesh: Mesh, si, alphas_t, zml: bool):
     """The backward-search scan (count, or ZML with zml) with the one-step
     search records sharded over 'model': this rank's state [6,
-    lanes/data] and, for ZML, ml [W, lanes/data] (kernel 15b, W launches
-    and W-1 all-reduces)."""
-    local, lo = local_shard(mesh, si.rec_all)
+    lanes/data] and, for ZML, ml [W, lanes/data] (one launch of kernel
+    15b on the scan route, else W step launches and W-1 all-reduces)."""
+    table = shard_table(mesh, si.rec_all)
     init_rec = si.init_rec.to(mesh.device)   # tiny: on every rank
     chars = _lane_codes(mesh, alphas_t, np.int8)
     W, lanes = chars.shape
     if W == 0:
         raise ValueError("a scan from the first char needs at least one "
                          "step")
+    if scan_route(mesh, mesh.device):
+        return sharded_search_scan(table.shards, table.ptrs, si.r,
+                                   si.sigma, init_rec, chars, zml)
     state = torch.empty((SEARCH_STATE_ROWS, lanes), dtype=torch.int32,
                         device=mesh.device)
     ml = (torch.empty((W, lanes), dtype=torch.int32, device=mesh.device)
           if zml else None)
     rec = None
     for t in range(W):
-        rec = sharded_search_gather(local, lo, si.r, si.sigma, init_rec,
-                                    chars, t, zml, rec, state, ml)
+        rec = sharded_search_gather(table.local, table.lo, si.r, si.sigma,
+                                    init_rec, chars, t, zml, rec, state, ml)
         if rec is not None:
             mesh.all_reduce_model(rec)
     return state, ml
@@ -214,11 +414,14 @@ def sharded_fused_count(mesh: Mesh, si, alphas_t):
     (matched int32, count int64) [lanes/data], as
     engine/fused_search.fused_count_scan's (the count in 64 bits)."""
     state, _ = _sharded_search_scan(mesh, si, alphas_t, False)
-    all_p = si.all_p.to(device=mesh.device, dtype=torch.int64)
     rs, os_, re, oe, matched = (state[i] for i in range(5))
-    abs_s = all_p[rs.to(torch.int64)] + os_
-    abs_e = all_p[re.to(torch.int64)] + oe
-    return matched, torch.where(matched > 0, abs_e - abs_s + 1, 0)
+    # two entries of all_p a lane, read where all_p lies (the whole of it
+    # need not move to the card for each query)
+    ends = si.all_p[torch.stack([rs, re]).to(si.all_p.device,
+                                             torch.int64)]
+    abs_s, abs_e = ends.to(mesh.device, torch.int64).unbind(0)
+    return matched, torch.where(matched > 0, abs_e + oe - abs_s - os_ + 1,
+                                0)
 
 
 def sharded_fused_zml(mesh: Mesh, si, alphas_t) -> torch.Tensor:

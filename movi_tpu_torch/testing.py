@@ -616,13 +616,46 @@ def sharded_rank(rank: int, world: int, init_method: str, shapes, text,
                  pml_alphas, search_alphas, device: str = "cpu",
                  backend: Optional[str] = None):
     """A rank of sharded_results on each (data, model) mesh of `shapes`
-    (each data * model = world), in order: [results per shape]."""
+    (each data * model = world), in order: [results per shape], each with
+    the launches of the sharded kernels (scans and steps) it made."""
+    from . import kernels
     from .parallel import make_2d_mesh
+    from .parallel.sharded_index import close_tables
 
     _joined(rank, world, init_method, device, backend)
     try:
-        return [sharded_results(make_2d_mesh(d, m, device, backend), text,
-                                pml_alphas, search_alphas)
-                for d, m in shapes]
+        out = []
+        for d, m in shapes:
+            mesh = make_2d_mesh(d, m, device, backend)
+            kernels.reset_launches()
+            res = sharded_results(mesh, text, pml_alphas, search_alphas)
+            res["launches"] = {k: kernels.launches[k] for k in (
+                "sharded_pml_scan", "sharded_search_scan",
+                "sharded_pml_gather", "sharded_search_gather")}
+            out.append(res)
+            close_tables(mesh)
+        return out
     finally:
+        _left()
+
+
+def mesh_hosts_rank(rank: int, world: int, init_method: str, cases):
+    """Ranks of make_2d_mesh on the CPU (gloo), one mesh per (shape,
+    names) of `cases`: whether this rank's 'model' group lies on one
+    host, where rank i reports host name names[i] (its own where names
+    is None)."""
+    from . import parallel
+
+    own = parallel.host_name
+    _joined(rank, world, init_method, "cpu", None)
+    try:
+        out = []
+        for shape, names in cases:
+            parallel.host_name = own if names is None else (
+                lambda: names[rank])
+            out.append(parallel.make_2d_mesh(*shape, "cpu")
+                       .model_on_one_host)
+        return out
+    finally:
+        parallel.host_name = own
         _left()

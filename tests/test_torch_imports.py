@@ -255,6 +255,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                      "all_mem1_scan",
                                      "dense_pml_scan", "sharded_pml_gather",
                                      "sharded_search_gather",
+                                     "sharded_pml_scan",
+                                     "sharded_search_scan",
                                      "classify_from_ml"}
 
 
