@@ -373,6 +373,7 @@ KMER_KERNELS = ("kmer_member_scan", "kmer_count_scan",
 KMER_K = 31               # query --k's default
 KMER_LANES = 16384        # the screening reads of the k-mer phase
 KMER_SEED = 77
+SMALL_PAN_LEN = 20_000    # the small k-mer phase's 8-genome pangenome
 MEM_KERNELS = ("mem2_scan", "all_mem2_scan", "kmer2_right_scan",
                "kmer2_left_scan")
 MEM1_KERNELS = ("pos2rba_build", "run_dir_build", "mem1_scan",
@@ -1736,9 +1737,9 @@ def phase_search(dev, card, errs, timings, work, ctx, lat_us):
     ctx["search_probe"] = chain_floors(
         "search", card, timings, 32 * sigma * r, dev, lat_us,
         {SCAN_OF[kind]: longest[kind] for kind in ("count", "zml")})
-    chain_floors("search", card, timings, 48 * sigma * sigma * r, dev,
-                 lat_us, {SCAN_OF[kind]: longest[kind]
-                          for kind in ("count2", "zml2")})
+    ctx["search2_probe"] = chain_floors(
+        "search", card, timings, 48 * sigma * sigma * r, dev, lat_us,
+        {SCAN_OF[kind]: longest[kind] for kind in ("count2", "zml2")})
     # the compose reads the run arrays and next-run tables, writes the table
     add_work(work, "compose_search2_records",
              4 * r * (3 + 2 * sigma) + 24 * 2 * r * sigma * sigma,
@@ -2277,6 +2278,25 @@ def kmer_count_pair(paired, idx, slots, lane, start, k, what, errs):
     return got, plain_ms, win, (key, kern, args)
 
 
+def kmer_count_rows(paired, idx, got, win, k, what, errs):
+    """The row tally of kernel 9b or 7b (engine kmer_count_rows_plain,
+    fused2_kmer_count_rows_plain: each step decoded as the kernel decodes
+    it, one row where the interval lies in one run and the rule allows)
+    over the windows win [k, nk]; its (found, count) must equal the
+    kernel's `got`.  Returns the rows each k-mer loads."""
+    from movi_tpu_torch.engine import fused_kmer as tk
+    from movi_tpu_torch.engine import fused_search2 as ts2
+
+    tally, key = ((ts2.fused2_kmer_count_rows_plain, "fused2_kmer_count_scan")
+                  if paired else (tk.kmer_count_rows_plain,
+                                  "kmer_count_scan"))
+    *res, rows = tally(idx.rec_all, idx.init_rec, idx.all_p, idx.r,
+                       idx.sigma, win, k)
+    for name, a, b in zip(("found", "count"), got, res):
+        require_equal(f"{what} {key} row tally {name}", a, b, errs, key)
+    return rows
+
+
 def kmer_count_steps(si, win, k):
     """The backward-search steps kernel 9b takes for each k-mer of win
     [k, nk] (up to its first empty step; none with an illegal char).  A
@@ -2299,6 +2319,13 @@ def kmer_count_steps(si, win, k):
                            zip((nrs, nos, nre, noe), (rs, os_, re, oe)))
         dead = dead | empty
     return steps
+
+
+def pair_steps(steps):
+    """Kernel 7b's pair steps for kernel 9b's steps a k-mer."""
+    import torch
+
+    return torch.where(steps > 0, (steps - 1) // 2 + 1, 0)
 
 
 def kmer_batch_inputs(batch, amap, k, dev):
@@ -2331,7 +2358,8 @@ def phase_small_kmer(dev, errs):
     from movi_tpu_torch.engine import fused_search as ts
     from movi_tpu_torch.engine import fused_search2 as ts2
     from movi_tpu_torch.io.fastx import left_aligned_slots, make_batches
-    from movi_tpu_torch.testing import ACGT, index_from_text, kmer_reads
+    from movi_tpu_torch.testing import (ACGT, index_from_text, kmer_reads,
+                                        pangenome)
 
     fw = np.random.default_rng(9).choice(ACGT, size=2500).astype(np.uint8)
     text = np.concatenate([fw, revcomp(fw)])
@@ -2369,6 +2397,31 @@ def phase_small_kmer(dev, errs):
             check_kmer_oracle(f"small counts k={kc}", reads,
                               list(zip(batch.names, eng.query_batch(batch))),
                               oracle, kc, True)
+    # a repetitive pangenome: long runs, and mid intervals that straddle
+    # two runs, where the one-row step and its fallback both run
+    pan = np.concatenate(pangenome(8, SMALL_PAN_LEN))
+    pix = index_from_text(pan)
+    preads = kmer_reads(pan, seed=5)
+    pbatch = next(make_batches(preads, lanes=len(preads),
+                               bucket_widths=False))
+    pidx = {False: ts.build_fused_search_index(pix).to(dev),
+            True: ts2.build_fused_search2_index(pix, dev)}
+    shares = []
+    for kc in (8, 15, 31):
+        slots, lane, start = kmer_batch_inputs(
+            pbatch, ts.search_alphamap(pix), kc, dev)
+        steps = None
+        for paired, idx in pidx.items():
+            got, _, win, _ = kmer_count_pair(paired, idx, slots, lane, start,
+                                             kc, f"small pangenome k={kc}",
+                                             errs)
+            rows = kmer_count_rows(paired, idx, got, win, kc,
+                                   f"small pangenome k={kc}", errs)
+            if steps is None:
+                steps = kmer_count_steps(pidx[False], win, kc)
+            n = int((pair_steps(steps) if paired else steps).sum())
+            shares.append(f"{'7b' if paired else '9b'} k={kc} "
+                          f"{int(rows.sum()) / max(2 * n, 1):.3f}")
     # the forward-only index: ftab-6 anchors keep fw-only validity
     rng = np.random.default_rng(31)
     fwo = rng.choice(ACGT, size=2500)
@@ -2387,9 +2440,12 @@ def phase_small_kmer(dev, errs):
                        f"runs equal one pass; longest lane {ticks} ticks), "
                        f"9b and 7b (k 8, 15, 31) equal plain on "
                        f"{len(reads)} reads (width {batch.width}, with N, "
-                       f"shorter than k); membership and both count engines "
-                       f"equal AdvancedEngine, the forward-only ftab-6 "
-                       f"index too")
+                       f"shorter than k), and on the {len(pan)}-base "
+                       f"pangenome (r={pix.r}, {pbatch.lanes} reads; their "
+                       f"row tallies too, rows over two a step: "
+                       f"{', '.join(shares)}); membership and both count "
+                       f"engines equal AdvancedEngine, the forward-only "
+                       f"ftab-6 index too")
 
 
 def kmer_breakdown(index, reads, k, kw, dev, k_ms, n_windows, card):
@@ -2550,6 +2606,9 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lat_us,
     plain_ms = dict.fromkeys(KMER_KERNELS, 0.0)
     longest, n_ticks, n_steps = [], 0, 0
     chains = {"kmer_member_scan": [], "kmer_count_scan": []}
+    pair_chain = []
+    n_rows = dict.fromkeys(("kmer_count_scan", "fused2_kmer_count_scan"), 0)
+    two_rows = dict(n_rows)
     for b in batches + [cut]:
         al8 = torch.from_numpy(left_aligned_slots(b, si.alphamap_query,
                                                   fill=-1)
@@ -2588,7 +2647,7 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lat_us,
         slots, lane, start = kmer_batch_inputs(b, si.alphamap_query, k, dev)
         steps = None
         for paired, idx in ((False, si0), (True, s2)):
-            _, ms, win, (name, fn, a) = kmer_count_pair(
+            got, ms, win, (name, fn, a) = kmer_count_pair(
                 paired, idx, slots, lane, start, k, "full", errs)
             plain_ms[name] += ms
             runs[name].append((fn, a))
@@ -2596,12 +2655,19 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lat_us,
                 steps = kmer_count_steps(si0, win, k)
                 n_steps += int(steps.sum())
                 chains["kmer_count_scan"].append(int(steps.max()))
-            n = int(torch.where(steps > 0, (steps - 1) // 2 + 1, 0).sum()
-                    if paired else steps.sum())
+            if paired:
+                pair_chain.append(int(pair_steps(steps).max()))
+            n = int((pair_steps(steps) if paired else steps).sum())
+            rows = int(kmer_count_rows(paired, idx, got, win, k, "full",
+                                       errs).sum())
+            n_rows[name] += rows
+            two_rows[name] += 2 * n
             # the slots read once; per k-mer its (lane, start), the count's
-            # two run starts and (found, count); per step its two rows
+            # two run starts and (found, count); per step the rows this
+            # run's data needs (the row tally: one where the interval lies
+            # in one run and the rule allows, else two)
             add_work(work, name, slots.numel() + lane.numel() * (8 + 8 + 5)
-                     + n * 2 * (24 if paired else 16), n * OPS_PER_ROW)
+                     + rows * (24 if paired else 16), n * OPS_PER_ROW)
     say("k-mer", f"kernels 9a, 9b, 7b and 10a equal their plain versions "
                  f"over all lanes (9a: the 150 bp batches and {cut_lanes} "
                  f"long lanes cut to {cut_len} bases, in one pass and "
@@ -2611,9 +2677,24 @@ def phase_kmer(dev, card, errs, timings, work, ctx, lat_us,
                  f"{chains['kmer_member_scan']} step ticks; counts: "
                  f"{n_steps} one-step steps, the longest k-mer "
                  f"{chains['kmer_count_scan']} steps one-step, "
-                 f"{(k - 2) // 2 + 1} pair steps paired")
+                 f"{pair_chain} pair steps paired")
+    for name, size in (("kmer_count_scan", 16), ("fused2_kmer_count_scan",
+                                                 24)):
+        nbytes, nops = work[name]
+        two = bound(nbytes + (two_rows[name] - n_rows[name]) * size, nops)
+        say("k-mer", f"{name} rows (the row tally): {n_rows[name]} of the "
+                     f"{two_rows[name]} two a step would load "
+                     f"({n_rows[name] / two_rows[name]:.6f}); the bound "
+                     f"counts {n_rows[name] * size} B of rows, two a step "
+                     f"{two_rows[name] * size} B (the bound at two rows a "
+                     f"step {two[0]:.6f} ms)  ({card})")
     chain_floors("k-mer", card, timings, si.rec_all.numel() * 4, dev, lat_us,
                  chains)
+    # 7b's chain over the paired search table: phase search's probe of a
+    # buffer of that table's size, where it ran
+    chain_floors("k-mer", card, timings, s2.rec_all.numel() * 4, dev, lat_us,
+                 {"fused2_kmer_count_scan": pair_chain},
+                 probe=ctx.get("search2_probe"))
     shapes = [tuple(b.seqs.shape) for b in batches]
     for name in KMER_KERNELS:
         rs = runs[name]

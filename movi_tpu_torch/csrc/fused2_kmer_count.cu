@@ -2,15 +2,18 @@
 //
 // Replaces movi_tpu/engine/fused_search2.py fused2_kmer_count_scan.
 //
-// Bound on this card: the latency of ceil((k-1)/2) dependent pair steps
-// per k-mer, each two random 24 B rows (one per direction) from a paired
-// table far past the L2 (3.8 GB at five million runs); half the dependent
-// steps of kernel 9b.  Design: one thread per k-mer reads its k chars from
-// the read-order int8 slots (no [k, nk] window matrix), inits from the
-// last char, and takes the k-1 extensions as composed pairs with
-// bs2_step; an odd tail's second char is the beyond-read sentinel, which
-// takes the mid-pair interval and does not kill the k-mer.  A lane stops
-// at its first empty step (its result is fixed then).
+// Bound on this card: the rate of random 24 B row gathers from a paired
+// table far past the L2 (3.8 GB at five million runs); each k-mer's
+// ceil((k-1)/2) dependent pair steps are few against the threads in
+// flight.  Design: one thread per k-mer reads its k chars from the
+// read-order int8 slots (no [k, nk] window matrix), inits from the last
+// char, and takes the k-1 extensions as composed pairs; an odd tail's
+// second char is the beyond-read sentinel, which takes the mid-pair
+// interval and does not kill the k-mer.  A lane stops at its first empty
+// step (its result is fixed then).  A step loads one row where one is
+// enough (pair_count_step): once the interval lies in one run, which most
+// deep steps do, the down row decides the step or stands in for the up
+// row.  A row is read as two loads, its 16 B-aligned half as an int4.
 
 #include <cuda_runtime.h>
 
@@ -21,6 +24,62 @@
 namespace {
 
 using movi::Interval;
+using movi::Rec6;
+
+// A 24 B row at byte 24*row of a table whose base is 8 B aligned: rows of
+// one parity start at a 16 B boundary (p0, the base's bit 3, says which),
+// so each row is an int4 at its aligned 16 bytes and an int2 at the other
+// 8, both issued before either is used.
+__device__ __forceinline__ Rec6 load_row(const int* __restrict__ rec_all,
+                                         int64_t row, int p0) {
+    const int* p = rec_all + row * 6;
+    const bool lead8 = (((int)row ^ p0) & 1) != 0;  // int2 first
+    const int4 q = *reinterpret_cast<const int4*>(p + (lead8 ? 2 : 0));
+    const int2 d = *reinterpret_cast<const int2*>(p + (lead8 ? 0 : 4));
+    return lead8 ? Rec6{{d.x, d.y, q.x, q.y, q.z, q.w}}
+                 : Rec6{{q.x, q.y, q.z, q.w, d.x, d.y}};
+}
+
+// A pair step of kernel 7b for the pair a12 (a1 legal), as bs2_step
+// decides it, loading the up row only where the down row cannot stand in
+// for it.  Where the directions' first micro-step keeps its run (u1, word
+// 0's bit 25, the same bit in both tables: run rs holds a1), both tables
+// hold the same words 0 and 3, and where a branch keeps its run (its u2)
+// the same words of that branch (engine/fused_search2.py
+// _compose_search2_chunk: fields() is a function of the runs alone
+// there).  So where rs == re:
+//  - u1 = 0: the first micro-step leaves rs's run at both ends, whose
+//    offsets it ignores, and the mid interval is crossed (the next a1-run
+//    below re maps before the next one above rs, and the sentinels,
+//    SENT_HI on the start side and (0, 0) on the end side, cross too):
+//    e1, from the down row alone;
+//  - u1 = 1 and the end's branch (ff1 = B1 + oe >= C1) keeps its run: the
+//    end decodes from the down row;
+//  - otherwise the up row is loaded once the down row has landed.
+// Where rs != re both rows are in flight together: the up row's loads sit
+// in a short branch that waits on nothing before them.
+__device__ __forceinline__ void pair_count_step(
+    const int* __restrict__ rec_all, int r, int S2, int p0,
+    const Interval& cur, int a12, bool l2, Interval& mid, Interval& fin,
+    bool& e1, bool& e2) {
+    const int a = movi::clampi(a12, 0, S2 - 1);
+    const int64_t up = ((int64_t)r + movi::clampi(cur.re, 0, r - 1)) * S2 + a;
+    const bool one = cur.rs == cur.re;
+    const Rec6 rd =
+        load_row(rec_all, (int64_t)movi::clampi(cur.rs, 0, r - 1) * S2 + a,
+                 p0);
+    Rec6 ru{{0, 0, 0, 0, 0, 0}};
+    if (!one) ru = load_row(rec_all, up, p0);
+    const int w0 = rd.w[0], w3 = rd.w[3];
+    const bool u1 = ((w0 >> 25) & 1) != 0;
+    const bool hi = (w3 & movi::S2_GUARD) + cur.oe >=
+                    ((w3 >> 12) & movi::S2_GUARD);
+    const bool u2 = ((w0 >> (hi ? 27 : 26)) & 1) != 0;
+    if (one && u1 && !u2) ru = load_row(rec_all, up, p0);
+    movi::bs2_decode(movi::PairRows{rd, one && u2 ? rd : ru}, cur, true, l2,
+                     mid, fin, e1, e2);
+    e1 = e1 || (one && !u1);
+}
 
 __global__ void fused2_kmer_count_kernel(
     const int* __restrict__ rec_all, const int4* __restrict__ init_rec_g,
@@ -35,6 +94,7 @@ __global__ void fused2_kmer_count_kernel(
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= nk) return;
     const int S2 = sigma * sigma;
+    const int p0 = (int)((reinterpret_cast<uintptr_t>(rec_all) >> 3) & 1);
     const int8_t* w = slots + (int64_t)lane_of[i] * W + start_of[i];
     bool dead = false;
     for (int j = 0; j < k; ++j) dead |= w[j] < 0;
@@ -46,9 +106,9 @@ __global__ void fused2_kmer_count_kernel(
         const bool l2 = a2 >= 0;
         Interval mid, fin;
         bool e1, e2;
-        movi::bs2_step(rec_all, r, S2, iv,
-                       (a1 > 0 ? a1 : 0) * sigma + (a2 > 0 ? a2 : 0), a1 >= 0,
-                       l2, mid, fin, e1, e2);
+        pair_count_step(rec_all, r, S2, p0, iv,
+                        a1 * sigma + (a2 > 0 ? a2 : 0), l2, mid, fin, e1,
+                        e2);
         if (e1) {
             dead = true;
         } else if (e2) {

@@ -37,8 +37,12 @@
 //  - 9b: one thread per k-mer reads its k chars from the read-order int8
 //    slots by (lane, start) (an int32 [k, nk] window matrix would be 13x
 //    the bytes at k = 31), inits
-//    from the last char and takes up to k-1 bs_steps, stopping at the
-//    first empty one (its result is fixed then).
+//    from the last char and takes up to k-1 steps, stopping at the
+//    first empty one (its result is fixed then).  Its bound is the rate
+//    of random row gathers from a table past the L2, so a step loads one
+//    row where one is enough (count_step): once the interval lies in one
+//    run (rs == re), which most deep steps do, the up row is the down row
+//    or changes no answer.
 //  - 10a: one thread per (lane, position) widens the slot and, with fk,
 //    writes the fk-mer code ending there (-1 where a char is illegal or
 //    p < fk-1): elementwise, bound by its bytes.
@@ -275,6 +279,29 @@ __global__ void kmer_member_kernel(
     work[2 * lanes + lane] = steps;
 }
 
+// A step of kernel 9b.  A record is a function of its destination run
+// only, and the next-run tables are inclusive, so where rs == re the up
+// row of (a, re) is the down row of (a, rs) when run rs holds a, and when
+// it does not, rd.x > re makes the step empty whatever the up row holds.
+// There the down row alone is loaded and step_decode reads both ends
+// (emptiness and the os1/oe1 rules) from it; elsewhere both rows are
+// issued together, as bs_rows does.  The up load is predicated, not
+// branched around, so a warp issues both kinds of lanes' rows at once.
+__device__ __forceinline__ bool count_step(const int4* __restrict__ rec_all,
+                                           int r, int sigma,
+                                           const Interval& cur, int a,
+                                           Interval& nxt) {
+    const int64_t a_s = a > 0 ? a : 0;
+    const bool one = cur.rs == cur.re;
+    const int4 rd = rec_all[a_s * r + movi::clampi(cur.rs, 0, r - 1)];
+    int4 ru = make_int4(0, 0, 0, 0);
+    if (!one) {
+        ru = rec_all[(sigma + a_s) * r + movi::clampi(cur.re, 0, r - 1)];
+    }
+    return movi::step_decode(movi::StepRows{rd, one ? rd : ru}, r, cur, a,
+                             nxt);
+}
+
 __global__ void kmer_count_kernel(
     const int4* __restrict__ rec_all, const int4* __restrict__ init_rec_g,
     const int* __restrict__ all_p, const int8_t* __restrict__ slots, int W,
@@ -294,7 +321,7 @@ __global__ void kmer_count_kernel(
     // extend with kmer[k-2] ... kmer[0]; a dead lane's result is fixed
     for (int j = k - 2; j >= 0 && !dead; --j) {
         Interval nxt;
-        if (movi::bs_step(rec_all, r, sigma, iv, w[j], nxt)) {
+        if (count_step(rec_all, r, sigma, iv, w[j], nxt)) {
             dead = true;
         } else {
             iv = nxt;

@@ -37,7 +37,7 @@ from .. import kernels
 from ..device import DeviceLike, resolve_device
 from .fused_mem2 import prep_alc
 from .fused_search import (FusedSearchIndex, _lf_from_rec, fused_bs_step,
-                           init_interval)
+                           init_interval, step_decode)
 
 # the membership machine's per-lane registers, in the kernel's row order
 KMER_STATE_KEYS = kernels.KMER_STATE_KEYS
@@ -266,6 +266,36 @@ def kmer_count_scan_plain(rec_all, init_rec, all_p, r: int, sigma: int,
                            zip((nrs, nos, nre, noe), (rs, os_, re, oe)))
         dead = dead | empty
     return count_result(all_p, rs, os_, re, oe, ~dead & legal)
+
+
+def kmer_count_rows_plain(rec_all, init_rec, all_p, r: int, sigma: int,
+                          alphas: torch.Tensor, k: int):
+    """Kernel 9b's rows: kmer_count_scan_plain with each step decoded as
+    the kernel decodes it, from the down row alone where the interval
+    lies in one run (rs == re; there the up row is the down row, or the
+    step is empty), from both rows elsewhere.  Returns (found bool [nk],
+    count int32 [nk], rows int32 [nk]: the 16 B rows each k-mer's steps
+    load).  Nothing on the card's path calls it: chip_smoke.py counts the
+    kernel's bytes with it."""
+    a = alphas.to(torch.int32)
+    legal = (a >= 0).all(dim=0)
+    rs, os_, re, oe = init_interval(init_rec, a[k - 1])
+    dead = ~legal
+    rows = torch.zeros_like(rs)
+    for j in range(k - 2, -1, -1):
+        a_s = a[j].clamp(min=0).to(torch.int64)
+        one = rs == re
+        rd = rec_all[a_s * r + rs.clamp(0, r - 1)]
+        ru = torch.where(one[:, None], rd,
+                         rec_all[(sigma + a_s) * r + re.clamp(0, r - 1)])
+        nrs, nos, nre, noe, empty = step_decode(rd, ru, r, rs, os_, re, oe,
+                                                a[j])
+        rows += torch.where(dead, 0, torch.where(one, 1, 2)).to(torch.int32)
+        ok = ~dead & ~empty
+        rs, os_, re, oe = (torch.where(ok, n, c) for n, c in
+                           zip((nrs, nos, nre, noe), (rs, os_, re, oe)))
+        dead = dead | empty
+    return (*count_result(all_p, rs, os_, re, oe, ~dead & legal), rows)
 
 
 def kmer_windows(slots: torch.Tensor, lane: torch.Tensor,

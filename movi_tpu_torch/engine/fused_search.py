@@ -139,6 +139,12 @@ def fused_bs_step(rec_all: torch.Tensor, r: int, sigma: int, rs, os_, re,
     a_s = a.clamp(min=0).to(torch.int64)
     rd = rec_all[a_s * r + rs.clamp(0, r - 1)]
     ru = rec_all[(sigma + a_s) * r + re.clamp(0, r - 1)]
+    return step_decode(rd, ru, r, rs, os_, re, oe, a)
+
+
+def step_decode(rd, ru, r: int, rs, os_, re, oe, a):
+    """The step's result from its down row rd and up row ru [lanes, 4]:
+    (rs', os', re', oe', empty)."""
     drs = rd[:, 0]
     dre = ru[:, 0]
     empty = (a < 0) | (drs >= r) | (drs > re)

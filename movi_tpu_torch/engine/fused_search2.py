@@ -278,6 +278,12 @@ def fused2_bs_step(rec_all: torch.Tensor, r: int, sigma: int, rs, os_, re,
     a12c = a12.clamp(0, S2 - 1).to(torch.int64)
     rd = rec_all[rs.clamp(0, r - 1).to(torch.int64) * S2 + a12c]
     ru = rec_all[(r + re.clamp(0, r - 1).to(torch.int64)) * S2 + a12c]
+    return bs2_decode(rd, ru, os_, oe, l1, l2)
+
+
+def bs2_decode(rd, ru, os_, oe, l1, l2):
+    """The pair step's result from its down row rd and up row ru [lanes,
+    6]: (mid interval, final interval, empty1, empty2)."""
     ms_run, ms_off, fs_run, fs_off = _decode_dir(rd, os_)
     me_run, me_off, fe_run, fe_off = _decode_dir(ru, oe)
     empty1 = ~l1 | _crossed(ms_run, ms_off, me_run, me_off)
@@ -433,6 +439,58 @@ def fused2_kmer_count_scan_plain(rec_all, init_rec, all_p, r: int,
         rs, os_, re, oe = (torch.where(ok2, f, torch.where(ok1, m, c))
                            for c, m, f in zip((rs, os_, re, oe), mid, fin))
     return count_result(all_p, rs, os_, re, oe, ~dead & legal)
+
+
+def one_row_rule(rd: torch.Tensor, oe):
+    """Kernel 7b's rule on the down rows rd [lanes, 6] of one-run steps
+    (rs == re), the end offsets oe: (empty, stand_in).  empty where the
+    first micro-step leaves the run (u1 = 0): the mid interval is crossed
+    whatever the up row holds.  stand_in where u1 = 1 and the end's branch
+    (ff1 = B1 + oe >= C1) keeps its run (its u2): the up row's words that
+    the end's decode reads equal the down row's."""
+    w0, w3 = rd[:, 0], rd[:, 3]
+    u1 = ((w0 >> 25) & 1) == 1
+    hi = (w3 & GUARD) + oe >= ((w3 >> 12) & GUARD)
+    u2 = (torch.where(hi, w0 >> 27, w0 >> 26) & 1) == 1
+    return ~u1, u1 & u2
+
+
+def fused2_kmer_count_rows_plain(rec_all, init_rec, all_p, r: int,
+                                 sigma: int, alphas: torch.Tensor, k: int):
+    """Kernel 7b's rows: fused2_kmer_count_scan_plain with each pair step
+    decided as the kernel decides it.  Where the interval lies in one run
+    (rs == re), the down row alone where one_row_rule says it is enough
+    (the step empty, or the end decoded from the down row), else the up
+    row too.  Returns (found bool [nk], count int32 [nk], rows int32 [nk]:
+    the 24 B rows each k-mer's pair steps load).  Nothing on the card's
+    path calls it: chip_smoke.py counts the kernel's bytes with it."""
+    a = alphas.to(torch.int32)
+    legal = (a >= 0).all(dim=0)
+    rs, os_, re, oe = init_interval(init_rec, a[k - 1])
+    dead = ~legal
+    rows = torch.zeros_like(rs)
+    S2 = sigma * sigma
+    a1s, a2s = _pair_rows(a[:-1].flip(0))
+    for a1, a2 in zip(a1s, a2s):
+        l2 = a2 >= 0
+        a12 = (a1.clamp(min=0) * sigma + a2.clamp(min=0)).to(torch.int64)
+        one = rs == re
+        rd = rec_all[rs.clamp(0, r - 1).to(torch.int64) * S2 + a12]
+        empty, stand_in = one_row_rule(rd, oe)
+        empty, stand_in = one & empty, one & stand_in
+        ru = torch.where(stand_in[:, None], rd, rec_all[
+            (r + re.clamp(0, r - 1).to(torch.int64)) * S2 + a12])
+        mid, fin, e1, e2 = bs2_decode(rd, ru, os_, oe, a1 >= 0, l2)
+        e1 = e1 | empty
+        alive = ~dead
+        rows += torch.where(alive, torch.where(empty | stand_in, 1, 2), 0
+                            ).to(torch.int32)
+        ok1 = alive & ~e1
+        ok2 = ok1 & ~e2
+        dead = dead | (alive & (e1 | (l2 & ~e1 & e2)))
+        rs, os_, re, oe = (torch.where(ok2, f, torch.where(ok1, m, c))
+                           for c, m, f in zip((rs, os_, re, oe), mid, fin))
+    return (*count_result(all_p, rs, os_, re, oe, ~dead & legal), rows)
 
 
 def fused2_kmer_count_scan(s2: FusedSearch2Index, slots: torch.Tensor,
