@@ -127,7 +127,10 @@ the card's name and power limit.  Phases:
               on-device classification (kernels 1 or 3, then 16a),
               counted apart: ml equals phase 4's answers and found/above/
               below the host Classifier's on every read, kernel 16a
-              equals its plain version over all lanes; then
+              equals its plain version over all lanes (time per batch,
+              and torch.amax over a batch's bins for comparison) and on
+              synthetic edge shapes (lengths 0 to W, bin widths 1 to
+              above W, 2^18 + 5 lanes, four thresholds); then
               parallel/dryrun.py on that rank (search, color, k-mer and
               MEM engines, all-MEMs through kernel 13c, the sharded scans)
      sharded  kernels 15a and 15b's steps (count and ZML) equal their
@@ -157,7 +160,8 @@ the card's name and power limit.  Phases:
               pass), on the first-run-longer-than-one index and on
               junction-spanning reads of a multi-document index too;
               kernels 11a and 11b (k 5, 11, 31; p 1 too) on the index of
-              tests/test_fused_kmer2.py; the MEM and bidirectional count
+              tests/test_fused_kmer2.py, 11b also equal to its row tally
+              (engine kmer2_left_rows_plain); the MEM and bidirectional count
               engines equal AdvancedEngine
      small MEM v1  the same index, reads with N, '#', shorter than L and
               past 512 bases, and the first-run-longer-than-one index
@@ -182,7 +186,10 @@ the card's name and power limit.  Phases:
               oracle in the small phase), kernels 10b/10c equal their
               plain versions over the 150 bp batches and 8 long lanes cut
               to 1,500 bases, in one pass and split, 11a/11b over every
-              group, timings, bounds from the rows really loaded, latency
+              group (11b also its row tally, whose rows and pair steps
+              give its bytes and floor: the rows its steps need, one
+              where the one-row rule allows), timings, bounds from the
+              rows really loaded, latency
               floors (as phase k-mer's, on the MEM table) and warm
               breakdowns
      MEM v1   phase MEM's index and reads through Index.query_mems (BML
@@ -2769,54 +2776,21 @@ def mem_machine_pair(m2, alc, state, ticks, what, errs, L=0, use_ftab=False,
     return got, plain_ms, (fn, args)
 
 
-def kmer2_left_steps(m2, s2, alive, fs, fe, slots, own, anchor, k, p):
-    """The paired steps kernel 11b takes for each live (depth, group)
-    partial (up to its death; the pad second char of an odd depth's last
-    pair takes its step), and the live partials' count."""
+def live_partials(alive, anchor, p):
+    """The (depth, group) partials kernel 11b walks: alive after step
+    k-2-d and d <= anchor."""
     import torch
 
-    from movi_tpu_torch.engine import fused_search2 as ts2
-    from movi_tpu_torch.engine.fused_mem2 import mem2_resolve
-
-    G = own.shape[0]
-    dev = own.device
-    d = torch.arange(p, device=dev)[:, None].expand(p, G)
-    live = alive.flip(0)[:p] & (d <= anchor[None, :].to(torch.int64))
-    dl, gl = torch.nonzero(live, as_tuple=True)
-    row = (k - 2 - dl) * G + gl
-    rs, os_ = mem2_resolve(m2, fs.reshape(-1)[row])
-    re, oe = mem2_resolve(m2, fe.reshape(-1)[row])
-    W = slots.shape[1]
-    base = own[gl].to(torch.int64) * W
-    anc = anchor[gl].to(torch.int64)
-    dead = torch.zeros_like(dl, dtype=torch.bool)
-    steps = torch.zeros_like(dl)
-    for j in range(0, p - 1, 2):
-        act = ~dead & (j < dl)
-        a1 = slots.reshape(-1)[base + (anc - 1 - j).clamp(min=0)].to(
-            torch.int32)
-        a2 = torch.where(j + 1 < dl,
-                         slots.reshape(-1)[base + (anc - 2 - j).clamp(min=0)]
-                         .to(torch.int32), -2)
-        legal1 = a1 >= 0
-        steps += (act & legal1).to(steps.dtype)
-        mid, fin, e1, e2 = ts2.fused2_bs_step(
-            s2.rec_all, s2.r, s2.sigma, rs, os_, re, oe,
-            a1.clamp(min=0) * s2.sigma + a2.clamp(min=0), legal1, a2 >= 0)
-        die = act & (~legal1 | e1 | (a2 == -1) | ((a2 >= 0) & e2))
-        keep = act & ~die
-        rs, os_, re, oe = (torch.where(keep & (a2 >= 0), f,
-                                       torch.where(keep, mv, cv))
-                           for cv, mv, f in zip((rs, os_, re, oe), mid, fin))
-        dead |= die
-    return steps, int(live.sum())
+    d = torch.arange(p, device=anchor.device)[:, None]
+    return int((alive.flip(0)[:p] & (d <= anchor[None, :])).sum())
 
 
 def kmer2_pair(m2, s2, slots, own, anchor, k, p, what, errs):
     """Kernels 11a and 11b and their plain versions on the same groups:
-    alive, fw_abs_s and fw_abs_e [k-1, G], then found and count [p, G].
-    Returns the kernels' outputs, the plain versions' milliseconds and
-    the kernels' (fn, args)."""
+    alive, fw_abs_s and fw_abs_e [k-1, G], then found and count [p, G],
+    which also equal kernel 11b's plain row tally's.  Returns the kernels'
+    outputs, the tally's rows and pair steps [p, G], the plain versions'
+    milliseconds and the kernels' (fn, args)."""
     from movi_tpu_torch import kernels
     from movi_tpu_torch.engine import fused_kmer as tk
     from movi_tpu_torch.engine import fused_kmer2 as tk2
@@ -2837,7 +2811,12 @@ def kmer2_pair(m2, s2, slots, own, anchor, k, p, what, errs):
     for name, a, b in zip(("found", "count"), left, want):
         require_equal(f"{what} k={k} 11b {name}", a, b, errs,
                       "kmer2_left_scan")
-    return right, left, (r_ms, l_ms), (
+    tally = tk2.kmer2_left_rows_plain(m2, s2, *right, slots, own, anchor, k,
+                                      p)
+    for name, a, b in zip(("found", "count"), left, tally):
+        require_equal(f"{what} k={k} 11b {name} (row tally)", a, b, errs,
+                      "kmer2_left_scan")
+    return right, left, tally[2:], (r_ms, l_ms), (
         (kernels.kmer2_right_scan, r_args), (kernels.kmer2_left_scan, l_args))
 
 
@@ -2988,7 +2967,8 @@ def phase_small_mem2(dev, errs):
                      f"{batch.width}, with N, '#', shorter than L), split "
                      f"runs equal one pass, longest lane {ticks} ticks; the "
                      f"first-run-longer-than-one and junction indexes too; "
-                     f"kernels 11a and 11b (k 5, 11, 31) equal plain on "
+                     f"kernels 11a and 11b (k 5, 11, 31; p 1 too) equal "
+                     f"plain, and 11b its row tally, on "
                      f"{len(kreads)} reads; the MEM and bidirectional count "
                      f"engines equal AdvancedEngine (junction reads at fk=6 "
                      f"included), and so does AdvancedEngine with numpy run "
@@ -3201,11 +3181,11 @@ def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
                      ticks * 2 * OPS_PER_ROW)
     s2 = index._paired_search
     p = KMER_K // 2
-    steps_r = steps_l = 0
+    steps_r = steps_l = rows_l = 0
     for b in kbatches:
         slots, own, anchor = keng.prepare(b)
-        right, left, (r_ms, l_ms), (r_run, l_run) = kmer2_pair(
-            m2, s2, slots, own, anchor, KMER_K, p, "full", errs)
+        right, left, (rows, steps), (r_ms, l_ms), (r_run, l_run) = \
+            kmer2_pair(m2, s2, slots, own, anchor, KMER_K, p, "full", errs)
         plain_ms["kmer2_right_scan"] += r_ms
         plain_ms["kmer2_left_scan"] += l_ms
         runs["kmer2_right_scan"].append(r_run)
@@ -3223,25 +3203,28 @@ def phase_mem(dev, card, errs, timings, work, lat_us, half_len=MEM_RC_HALF,
                  slots.numel() + 8 * G + 64 * n_r + 9 * (KMER_K - 1) * G,
                  n_r * OPS_PER_ROW)
         # 11b: per live partial its two pos2rba rows (32 B sectors), its
-        # abs ends, then its pair steps; per (depth, group) the alive flag
-        # and (found, count)
-        n_l, live = kmer2_left_steps(m2, s2, *right, slots, own, anchor,
-                                     KMER_K, p)
+        # abs ends, then the 24 B rows of its pair steps (the row tally's);
+        # per (depth, group) the alive flag and (found, count)
+        live = live_partials(right[0], anchor, p)
         # a partial's chain: its pos2rba rows, then its pair steps
-        chains["kmer2_left_scan"].append(1 + int(n_l.max()))
-        n_l = int(n_l.sum())
+        chains["kmer2_left_scan"].append(1 + int(steps.max()))
+        n_l, n_rows = int(steps.sum()), int(rows.sum())
         steps_l += n_l
+        rows_l += n_rows
         add_work(work, "kmer2_left_scan",
-                 slots.numel() + 8 * G + live * (64 + 8) + 48 * n_l
+                 slots.numel() + 8 * G + live * (64 + 8) + 24 * n_rows
                  + p * G * (1 + 5), (n_l + live) * OPS_PER_ROW)
     say("MEM", f"kernels 10b, 10c, 11a and 11b equal their plain versions "
                f"(10b/10c over all lanes of the 150 bp batches and "
                f"{cut_lanes} long lanes cut to {cut_len} bases, in one pass "
-               f"and split; 11a/11b over every group); the longest lane per "
+               f"and split; 11a/11b over every group, 11b also its row "
+               f"tally); the longest lane per "
                f"batch: 10b {longest['mem2_scan']} ticks, 10c "
                f"{longest['all_mem2_scan']} ticks; rows: 10b "
                f"{rows_of['mem2_scan']}, 10c {rows_of['all_mem2_scan']}; "
-               f"steps: 11a {steps_r}, 11b {steps_l}")
+               f"steps: 11a {steps_r}, 11b {steps_l} pair steps and "
+               f"{rows_l} rows (the row tally; {rows_l / (2 * steps_l):.6f} "
+               f"of two a pair step)")
     chain_floors("MEM", card, timings, m2.rec_all.numel() * 4, dev, lat_us,
                  chains)
     shapes = {"mem": [tuple(b.seqs.shape) for b in batches],
@@ -4502,6 +4485,47 @@ def classify_work(ml, lens):
     return 4 * loaded + lanes * (4 + 1 + 8), ml.numel() * CLASSIFY_OPS
 
 
+def classify_edges(dev, errs, thr):
+    """Kernel 16a against its plain version on seeded synthetic batches of
+    its edge shapes: W below, equal to and above the bin width and not a
+    multiple of it, bin width 1 and 5; lengths 0, 1, bw-1, bw, bw+1, W-1
+    and W among random ones; lanes not a multiple of 32, a partial batch
+    of a few hundred lanes, 8,192 lanes of 10,000 one-row bins (a block
+    walks its bins a chunk at a time) and 2^18 + 5 lanes (one slice a
+    tile); thresholds -1, 0, `thr` and above every
+    value.  Returns the shapes' count."""
+    import torch
+
+    from movi_tpu_torch import kernels
+    from movi_tpu_torch.parallel import mesh as tmesh
+
+    top = 2 * thr
+    shapes = [(100, 150, 45), (150, 150, 45), (400, 150, 45),
+              (450, 150, 64), (20, 1, 33), (37, 5, 45), (150, 150, 300),
+              (10_000, 150, 40), (10_000, 1, 8192), (300, 150, (1 << 18) + 5)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for W, bw, lanes in shapes:
+        edges = torch.tensor(sorted({min(max(x, 0), W) for x in
+                                     (0, 1, bw - 1, bw, bw + 1, W - 1, W)}),
+                             dtype=torch.int32, device=dev)
+        lens = torch.randint(0, W + 1, (lanes,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[:len(edges)] = edges
+        ml = torch.randint(0, top + 1, (W, lanes), generator=gen,
+                           device=dev, dtype=torch.int32)
+        for t in (-1, 0, thr, top + 1):
+            got = kernels.classify_from_ml(ml, lens, bw, t)
+            want = tmesh.classify_from_ml_plain(ml, lens, bw, t)
+            for name, x, y in zip(("found", "above", "below"), got, want):
+                require_equal(f"classify edges {W} x {lanes} lanes, bin "
+                              f"width {bw}, thr {t}: {name}", x, y, errs,
+                              "classify_from_ml")
+        del ml, lens
+    torch.cuda.empty_cache()
+    return len(shapes)
+
+
 def phase_mesh(dev, card, errs, timings, work, ctx):
     """A process group of one rank on the card (NCCL): ShardedPMLEngine
     one-step and paired with on-device classification over phase 4's
@@ -4589,10 +4613,38 @@ def phase_mesh(dev, card, errs, timings, work, ctx):
                    reps=10)
     timings["classify_from_ml"] = (k_ms, plain_ms)
     b_ms, b_by = bound(*work["classify_from_ml"])
+    # beside the host-paced times (a wrapper call costs the host tens of
+    # microseconds), the device's: the launches queued behind a spin
+    def device_ms(batch_args, reps=10):
+        ms = queued_ms(lambda: [kernels.classify_from_ml(*a)
+                                for _ in range(reps) for a in batch_args])
+        return float("nan") if ms is None else ms / reps
+
+    per = ", ".join(
+        f"{a[0].shape[1]} lanes x {a[0].shape[0]}: "
+        f"{cuda_ms(lambda: kernels.classify_from_ml(*a), reps=10):.6f} ms "
+        f"(device {device_ms([a]):.6f})" for a in args)
+    dev_ms = device_ms(args)
+    # for comparison only: the bins' maxima alone, one torch.amax over the
+    # [nb, bin_width, lanes] view of a batch whose W is a multiple of it
+    ml0 = next(a[0] for a in args if a[0].shape[0] % BIN_WIDTH == 0)
+    view = ml0.view(ml0.shape[0] // BIN_WIDTH, BIN_WIDTH, ml0.shape[1])
+    amax_ms = cuda_ms(lambda: torch.amax(view, dim=1), reps=10)
+    amax_dev = queued_ms(lambda: [torch.amax(view, dim=1)
+                                  for _ in range(10)])
+    amax_dev = float("nan") if amax_dev is None else amax_dev / 10
+    n_edges = classify_edges(dev, errs, thr)
     say("mesh", f"kernel 16a over the {len(batches)} batches: {k_ms:.6f} "
-                f"ms a query, bound {b_ms:.6f} ms ({b_by}), plain "
-                f"{plain_ms:.6f} ms (all lanes)  ({card})")
-    del out, args
+                f"ms a query (device {dev_ms:.6f}), bound {b_ms:.6f} ms "
+                f"({b_by}), plain "
+                f"{plain_ms:.6f} ms (all lanes); per batch [{per}]; "
+                f"torch.amax over the [{view.shape[0]}, {BIN_WIDTH}, "
+                f"{view.shape[2]}] view of a batch (the bins' maxima alone) "
+                f"{amax_ms:.6f} ms (device {amax_dev:.6f}); equal to its "
+                f"plain version on "
+                f"{n_edges} synthetic edge shapes at 4 thresholds each  "
+                f"({card})")
+    del out, args, ml0, view
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -5,11 +5,16 @@
 // (FusedKmer2CountEngine.query_batch: the alive flags brought back and
 // np.nonzero).
 //
-// Bound on this card: the latency of the dependent steps, k-1 per group
-// chain (two 32 B MEM v2 rows each) and 1 + ceil(d/2) per depth-d partial
-// (two pos2rba rows, then two 24 B paired search rows per step), from
-// tables far past the 50 MB L2.  Tens of thousands of chains in flight
-// hide part of the latency, so the kernels run as gather streams.
+// Bound on this card: 11a the latency of the dependent steps, k-1 per
+// group chain (two 32 B MEM v2 rows each), from a table far past the 50 MB
+// L2; tens of thousands of chains in flight hide part of it, so it runs as
+// a gather stream.  11b the rate of random sectors past the L2 (about
+// 1.0 TB/s on the H100, where its 3.35 TB/s count of bytes understates a
+// gather about 3x): per live depth-d partial two pos2rba rows, then up to
+// ceil(d/2) pair steps; the bound counts the rows the inputs need, one
+// 24 B paired search row a step where the down row decides the step or
+// stands in for the up row (engine/fused_kmer2.py kmer2_left_rows_plain),
+// else two.
 // Design:
 //  - 11a: one thread per group of p window ends reads its k chars from
 //    the read-order int8 slots by (lane, anchor) (the TPU shipped an int32
@@ -19,13 +24,22 @@
 //    (the skip and abs come in the rows).  A dead chain loads nothing
 //    more.  It writes alive and the fw abs interval per step, [k-1, G],
 //    which stay on the card.
-//  - 11b: one thread per (depth d < p, group).  A thread whose partial is
-//    dead after step k-2-d, or whose d is past the group's windows,
-//    writes (0, 0) and returns at once: this replaces the alive flags'
-//    trip to the host and the compaction.  A live thread resolves its two
-//    abs ends through the pos2rba rows, then takes ceil(d/2) paired left
-//    extensions with bs2_step (the JAX sentinels: -2 is a pad no-op, -1 an
-//    illegal char that kills the window) and writes (found, count).
+//  - 11b: one thread per (group, depth d < p), t = g*p + d: a group's
+//    depths are neighbours, so a warp's partials after the same steps
+//    often read the same rows (timed 2.2x faster than t = d*G + g, whose
+//    warps share a depth and so a count of steps; the outputs stay
+//    [p, G]).  A thread whose partial is dead after step k-2-d, or whose
+//    d is past the group's windows, writes (0, 0) and returns at once:
+//    this replaces the alive flags' trip to the host and the compaction.
+//    A live thread issues its two pos2rba rows together, with the first
+//    pair's chars, then takes up to ceil(d/2) paired left extensions with
+//    bs2_step, both rows of a step in flight together.  Under this layout
+//    two rows a step beat kernel 7b's one-row step (a dependent second
+//    load where the down row cannot stand in) by 5-6% on two trial runs,
+//    so 11b loads both.  Each pair's chars are loaded a step ahead, from
+//    clamped addresses.  The JAX sentinels: a first char -2 is a pad
+//    no-op, and -1 in either char (an illegal read char) kills the window
+//    before any row loads.
 
 #include <cuda_runtime.h>
 
@@ -82,6 +96,15 @@ __global__ void kmer2_right_kernel(
     }
 }
 
+// The chars of a depth-d partial in left order, j = 0..d-1 at anchor-1-j
+// (all inside the read: d <= anchor); -2, the pad, from j = d on.  The
+// address is clamped, so the load waits on nothing.
+__device__ __forceinline__ int left_char(const int8_t* __restrict__ w,
+                                         int anc, int d, int j) {
+    const int c = w[anc - 1 - j >= 0 ? anc - 1 - j : 0];
+    return j < d ? c : -2;
+}
+
 __global__ void kmer2_left_kernel(
     const int* __restrict__ m2_rec, int r, int sigma, int n,
     const int* __restrict__ s2_rec, const int* __restrict__ s2_all_p,
@@ -92,45 +115,47 @@ __global__ void kmer2_left_kernel(
     int* __restrict__ cnt_out) {
     const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= (int64_t)p * G) return;
-    const int d = (int)(t / G);
-    const int g = (int)(t - (int64_t)d * G);
+    const int g = (int)(t / p);
+    const int d = (int)(t - (int64_t)g * p);
+    const int64_t o = (int64_t)d * G + g;  // the outputs are [p, G]
     const int anc = anchor[g];
-    const int64_t row = (int64_t)(k - 2 - d) * G + g;
+    const int64_t row = (k - 2 - d) * (int64_t)G + g;
     // d < p_eff = min(p, anchor + 1): the group's windows
     if (d > anc || !alive[row]) {
-        found_out[t] = 0;
-        cnt_out[t] = 0;
+        found_out[o] = 0;
+        cnt_out[o] = 0;
         return;
     }
+    const int8_t* w = slots + (int64_t)own[g] * W;
+    int c1 = left_char(w, anc, d, 0), c2 = left_char(w, anc, d, 1);
     const int64_t p2r = 2 * (int64_t)sigma * r;
     Interval cur;
     movi::mem2_resolve(m2_rec, p2r, n, fs[row], cur.rs, cur.os);
     movi::mem2_resolve(m2_rec, p2r, n, fe[row], cur.re, cur.oe);
-    const int8_t* w = slots + (int64_t)own[g] * W;
     const int S2 = sigma * sigma;
     bool dead = false;
-    // chars j = 0..d-1 at anchor-1-j (all inside the read: d <= anchor),
-    // two per paired step; a second char past the depth is the pad
     for (int j = 0; j < d; j += 2) {
-        const int a1 = w[anc - 1 - j];
-        const int a2 = j + 1 < d ? w[anc - 2 - j] : -2;
-        if (a1 == -2) continue;  // pad: a no-op
-        if (a1 < 0) {            // illegal: kills the window
+        const int a1 = c1, a2 = c2;
+        c1 = left_char(w, anc, d, j + 2);
+        c2 = left_char(w, anc, d, j + 3);
+        if (a1 == -2) continue;         // pad: a no-op
+        if (a1 < 0 || a2 == -1) {       // illegal: kills the window
             dead = true;
             break;
         }
+        const bool l2 = a2 >= 0;
         Interval mid, fin;
         bool e1, e2;
-        movi::bs2_step(s2_rec, r, S2, cur, a1 * sigma + (a2 > 0 ? a2 : 0),
-                       true, a2 >= 0, mid, fin, e1, e2);
-        if (e1 || a2 == -1 || (a2 >= 0 && e2)) {
+        movi::bs2_step(s2_rec, r, S2, cur, a1 * sigma + (l2 ? a2 : 0), true,
+                       l2, mid, fin, e1, e2);
+        if (e1 || (l2 && e2)) {
             dead = true;
             break;
         }
-        cur = a2 >= 0 ? fin : mid;
+        cur = l2 ? fin : mid;
     }
-    found_out[t] = dead ? 0 : 1;
-    cnt_out[t] = movi::interval_count(s2_all_p, r, cur, dead ? 0 : 1);
+    found_out[o] = dead ? 0 : 1;
+    cnt_out[o] = movi::interval_count(s2_all_p, r, cur, dead ? 0 : 1);
 }
 
 }  // namespace

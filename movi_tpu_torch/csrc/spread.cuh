@@ -35,9 +35,9 @@ struct Spread {
     int lpw, block, grid;
 };
 
-// The launch of `lanes` lanes on the current device, whose SM count is
-// read once; an error if the device or its SM count cannot be read.
-inline cudaError_t spread(int lanes, int full_block, Spread* s) {
+// The current device's SM count, read once a device; an error if the
+// device or its SM count cannot be read.
+inline cudaError_t sm_count(int* sms) {
     constexpr int kDevices = 64;
     static int sms_of[kDevices];  // 0: not read yet
     int dev = 0;
@@ -45,14 +45,23 @@ inline cudaError_t spread(int lanes, int full_block, Spread* s) {
     if (e != cudaSuccess) return e;
     if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
     if (sms_of[dev] <= 0) {
-        int sms = 0;
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
+        int n = 0;
+        e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess) return e;
-        if (sms <= 0) return cudaErrorInvalidDevice;
-        sms_of[dev] = sms;
+        if (n <= 0) return cudaErrorInvalidDevice;
+        sms_of[dev] = n;
     }
-    s->lpw = lanes_per_warp(lanes, sms_of[dev]);
+    *sms = sms_of[dev];
+    return cudaSuccess;
+}
+
+// The launch of `lanes` lanes on the current device; an error if the
+// device or its SM count cannot be read.
+inline cudaError_t spread(int lanes, int full_block, Spread* s) {
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    s->lpw = lanes_per_warp(lanes, sms);
     s->block = s->lpw == 32 ? full_block : 32;
     const long long per_block = (long long)(s->block / 32) * s->lpw;
     s->grid = (int)((lanes + per_block - 1) / per_block);

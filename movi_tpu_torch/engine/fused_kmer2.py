@@ -35,7 +35,8 @@ from ..device import DeviceLike, resolve_device
 from ..io.fastx import ReadBatch, left_aligned_slots
 from .fused_kmer import count_result, kmer_windows
 from .fused_mem2 import FusedMem2Index, init6, mem2_resolve, mem2_step
-from .fused_search2 import FusedSearch2Index, fused2_bs_step
+from .fused_search2 import (FusedSearch2Index, bs2_decode, fused2_bs_step,
+                            one_row_rule)
 
 
 def kmer2_right_scan_plain(m2: FusedMem2Index, rchars: torch.Tensor,
@@ -149,6 +150,74 @@ def kmer2_left_scan_plain(m2: FusedMem2Index, s2: FusedSearch2Index,
         torch.where(live, d, -1).reshape(-1),
         ((k - 2 - d) * G + g).reshape(-1), left_steps(p))
     return found.reshape(p, G), cnt.reshape(p, G)
+
+
+def kmer2_left_rows_plain(m2: FusedMem2Index, s2: FusedSearch2Index,
+                          alive, fs, fe, slots: torch.Tensor,
+                          own: torch.Tensor, anchor: torch.Tensor, k: int,
+                          p: int):
+    """The rows kernel 11b's pair steps need: kmer2_left_scan_plain with
+    each pair step decided by kernel 7b's one-row rule.  A first char -2
+    is a no-op; -1 in either char kills the partial before any row.  Where
+    the interval lies in one run (rs == re) the down row alone where
+    one_row_rule says it is enough (the step empty, or the end decoded from
+    it) or where the second char is the pad and the first micro-step keeps
+    its run (only the mid interval is kept, its end from words 0 and 3);
+    else the up row too.  Returns (found bool, count int32, rows int32: the
+    24 B rows each partial's pair steps need, steps int32: its pair steps),
+    each [p, G].  The kernel loads both rows of every step, which was
+    timed faster; chip_smoke.py counts its bound's bytes from these rows.
+    Nothing on the card's path calls it."""
+    G = own.shape[0]
+    dev = own.device
+    d = torch.arange(p, device=dev)[:, None].expand(p, G)
+    live = alive.flip(0)[:p] & (d <= anchor[None, :].to(torch.int64))
+    g = torch.arange(G, device=dev)[None, :].expand(p, G)
+    row = ((k - 2 - d) * G + g).reshape(-1)
+    rs, os_ = mem2_resolve(m2, fs.reshape(-1)[row])
+    re, oe = mem2_resolve(m2, fe.reshape(-1)[row])
+    W = slots.shape[1]
+    base = own.to(torch.int64).repeat(p) * W
+    anc = anchor.to(torch.int64).repeat(p)
+    depth = d.reshape(-1)
+    chars = slots.reshape(-1).to(torch.int32)
+    dead = ~live.reshape(-1)
+    rows = torch.zeros(p * G, dtype=torch.int32, device=dev)
+    steps = torch.zeros_like(rows)
+    r, sigma = s2.r, s2.sigma
+    S2 = sigma * sigma
+
+    def char_j(j):
+        c = chars[base + (anc - 1 - j).clamp(min=0)]
+        return torch.where(j < depth, c, -2)
+
+    for j in range(0, p - 1, 2):
+        a1, a2 = char_j(j), char_j(j + 1)
+        act = ~dead & (a1 != -2)
+        kill = act & ((a1 < 0) | (a2 == -1))
+        step = act & ~kill
+        l2 = a2 >= 0
+        a12 = (a1.clamp(min=0) * sigma + a2.clamp(min=0)).to(torch.int64)
+        one = rs == re
+        rd = s2.rec_all[rs.clamp(0, r - 1).to(torch.int64) * S2 + a12]
+        empty, stand_in = one_row_rule(rd, oe)
+        stand_in = one & (stand_in | (~empty & ~l2))
+        empty = one & empty
+        ru = torch.where(stand_in[:, None], rd, s2.rec_all[
+            (r + re.clamp(0, r - 1).to(torch.int64)) * S2 + a12])
+        mid, fin, e1, e2 = bs2_decode(rd, ru, os_, oe, a1 >= 0, l2)
+        e1 = e1 | empty
+        rows += torch.where(step, torch.where(empty | stand_in, 1, 2), 0
+                            ).to(torch.int32)
+        steps += step.to(torch.int32)
+        die = step & (e1 | (l2 & e2))
+        keep = step & ~die
+        rs, os_, re, oe = (torch.where(keep & l2, f,
+                                       torch.where(keep, mv, cv))
+                           for cv, mv, f in zip((rs, os_, re, oe), mid, fin))
+        dead = dead | kill | die
+    found, cnt = count_result(s2.all_p, rs, os_, re, oe, ~dead)
+    return tuple(x.reshape(p, G) for x in (found, cnt, rows, steps))
 
 
 def kmer2_left_scan(m2: FusedMem2Index, s2: FusedSearch2Index, alive, fs,

@@ -162,7 +162,8 @@ _SIGNATURES = {
     "movi_sharded_search_scan": [_P, _I, _LL, _I, _I, _P, _P, *[_I] * 4,
                                  *[_P] * 4],
     # (ml, lengths, W, lanes, bin_width, thr, found, above, below, stream)
-    "movi_classify_from_ml": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "movi_classify_from_ml": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P],
 }
 
 
@@ -1433,11 +1434,15 @@ def classify_from_ml(ml: torch.Tensor, lengths: torch.Tensor,
     found = torch.empty(lanes, dtype=torch.bool, device=dev)
     above, below = (torch.empty(lanes, dtype=torch.int32, device=dev)
                     for _ in range(2))
+    # where a tile's bins are split over blocks, they meet here: the
+    # lanes' votes and tails, then a ticket a tile of 32 lanes
+    scratch = torch.zeros(65 * -(-lanes // 32), dtype=torch.int32,
+                          device=dev)
     lib = _load()
     code = lib.movi_classify_from_ml(
         ml.data_ptr(), lengths.data_ptr(), W, lanes, bin_width,
         int(max_value_thr), found.data_ptr(), above.data_ptr(),
-        below.data_ptr(), _stream(dev))
+        below.data_ptr(), scratch.data_ptr(), _stream(dev))
     _raise_on(code, "classify_from_ml")
     launches["classify_from_ml"] += 1
     return found, above, below
